@@ -167,8 +167,8 @@ class SolverOptions:
     mg_levels_ksp_rtol: float = -1.0
     mg_levels_damping: float = 1.0  # richardson damping / jacobi weight
     mg_coarse_pc_type: str = "svd"  # svd | direct
-    mg_transfers: str = "auto"      # auto | roll | matmul (MXU contraction)
-    mg_impl: str = "auto"           # auto | roll | pallas level operators
+    mg_transfers: str = "auto"      # auto | roll | matmul (auto: matmul on CUDA)
+    mg_impl: str = "auto"           # auto | roll | cuda level operators (pallas = cuda)
     mg_cycles: int = 1              # V-cycles per preconditioner application
     mg_cycle: str = "v"             # v | w (W revisits sub-fine levels twice)
     mg_cycle_dtype: str = ""        # "" = field dtype | bfloat16 | float32

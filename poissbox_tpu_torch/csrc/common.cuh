@@ -6,11 +6,45 @@
 // fastest thread index, so a warp reads 32 consecutive z values.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
 namespace poissbox {
+
+// dtype codes of the C interface, shared with ops/stencil_cuda.py
+enum DType { kF32 = 0, kF64 = 1, kBF16 = 2 };
+
+// The arithmetic type of a stored type: bf16 fields are upcast to float,
+// computed in float and rounded once at the store.
+template <typename T>
+struct Compute {
+  using type = T;
+};
+template <>
+struct Compute<__nv_bfloat16> {
+  using type = float;
+};
+
+// Conversions between stored and arithmetic types; bf16 rounds to
+// nearest even, as torch's .to(torch.bfloat16) does.
+template <typename To, typename From>
+__device__ __forceinline__ To cvt(From v) {
+  return static_cast<To>(v);
+}
+template <>
+__device__ __forceinline__ float cvt<float, __nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <>
+__device__ __forceinline__ double cvt<double, __nv_bfloat16>(__nv_bfloat16 v) {
+  return static_cast<double>(__bfloat162float(v));
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 cvt<__nv_bfloat16, float>(float v) {
+  return __float2bfloat16_rn(v);
+}
 
 constexpr int kBX = 32;  // threads along z, one warp
 constexpr int kBY = 8;   // threads along y

@@ -14,7 +14,20 @@
 //   K5  _sor_rb_zero_upd (_sor_rb_zero_upd_kernel)  CG's update fused in:
 //       mode kZeroUpdate forms b = r - alpha * Ap, writes it, takes the
 //       ||b||^2 and sum(b) partials and the first colour from zero; then
-//       kGeneral for the second colour
+//       kGeneral for the second colour. With a narrow x1 (out_dtype bf16,
+//       the 512^3-class bf16 pre-smooth) the second launch reads f32 and
+//       stores bf16.
+// and carries the work of stencil_inplace.py's K4' (_sor_rb_multi_inplace)
+// and K5' (_zero_upd_stream), the TPU's aliased forms of K4 and K5 for
+// fields of 256 MB and more, out of place.
+//
+// Types (input -> output): f32 -> f32 and f64 -> f64 in every mode;
+// bf16 -> bf16 in kZero and kGeneral (the bf16 pre-smooth of every
+// sub-fine level); f32 -> bf16 in kGeneral (K5's narrow x1). A bf16 value
+// is upcast to f32, the update runs in f32, and the result rounds once at
+// the store: that is the port's definition of a bf16 colour update (the
+// Pallas kernels compute in bf16 throughout).
+//
 // Parity is (i+j+k) % 2 of the global index, as _parity computes it; red
 // is even. The update keeps _rb_halfstep's grouping: for cubic cells
 // (ivx == ivy == ivz) c + w*((b - ivx*s) + (6*ivx)*c) with s the plain
@@ -24,10 +37,10 @@
 // Bound on an H100 SXM (3.35 TB/s): a general colour reads x and b and
 // writes x_out, 3 field passes; a sweep of two launches is 6 passes, at
 // 256^3 f32 6 x 67 MB = 0.12 ms. The zero sweep is 2 + 3 passes
-// (0.10 ms), the fused update 4 + 3 (0.14 ms). The Pallas kernels run
-// both colours in one pass with a wide x-halo (3 passes a sweep); that
-// fusion, shared-memory tiles, and writing only the updated colour in
-// place are what this first design leaves on the table.
+// (0.10 ms), the fused update 4 + 3 (0.14 ms). In bf16 a pass costs half.
+// The Pallas kernels run both colours in one pass with a wide x-halo (3
+// passes a sweep); that fusion, shared-memory tiles, and writing only the
+// updated colour in place are what this first design leaves on the table.
 #include "common.cuh"
 
 namespace poissbox {
@@ -46,43 +59,52 @@ struct Args {
   void* part1;
 };
 
-template <typename T, int MODE, bool ISO>
+// TI: the stored type of x, b, r, Ap, alpha and b_out; TO: of out.
+// C: the arithmetic type (and that of the reduction partials).
+template <typename TI, typename TO, int MODE, bool ISO>
 __global__ void __launch_bounds__(kThreads)
-rbsor_kernel(const T* __restrict__ x, const T* __restrict__ b, const T* __restrict__ r,
-             const T* __restrict__ ap, const T* __restrict__ alpha, T* __restrict__ out,
-             T* __restrict__ bout, T* __restrict__ part0, T* __restrict__ part1, int nx,
-             int ny, int nz, T ivx, T ivy, T ivz, T center, T six_iv, T winv, int color) {
+rbsor_kernel(const TI* __restrict__ x, const TI* __restrict__ b, const TI* __restrict__ r,
+             const TI* __restrict__ ap, const TI* __restrict__ alpha, TO* __restrict__ out,
+             TI* __restrict__ bout, typename Compute<TI>::type* __restrict__ part0,
+             typename Compute<TI>::type* __restrict__ part1, int nx, int ny, int nz,
+             typename Compute<TI>::type ivx, typename Compute<TI>::type ivy,
+             typename Compute<TI>::type ivz, typename Compute<TI>::type center,
+             typename Compute<TI>::type six_iv, typename Compute<TI>::type winv, int color) {
+  using C = typename Compute<TI>::type;
   const Point q = locate(nx, ny, nz);
-  T s0 = T(0), s1 = T(0);
+  C s0 = C(0), s1 = C(0);
   if (q.active) {
     const bool mine = ((q.i + q.j + q.k) & 1) == color;
-    const T w = mine ? winv : T(0);
+    const C w = mine ? winv : C(0);
     if (MODE == kZero) {
-      out[q.p] = w * b[q.p];
+      out[q.p] = cvt<TO>(w * cvt<C>(b[q.p]));
     } else if (MODE == kZeroUpdate) {
-      const T bn = r[q.p] - alpha[0] * ap[q.p];
-      bout[q.p] = bn;
-      out[q.p] = w * bn;
+      const C bn = cvt<C>(r[q.p]) - cvt<C>(alpha[0]) * cvt<C>(ap[q.p]);
+      bout[q.p] = cvt<TI>(bn);
+      out[q.p] = cvt<TO>(w * bn);
       s0 = bn * bn;
       s1 = bn;
     } else {
-      const T c = x[q.p];
-      const T bv = b[q.p];
-      T v = c;
+      const C c = cvt<C>(x[q.p]);
+      const C bv = cvt<C>(b[q.p]);
+      C v = c;
       if (mine) {
-        T res;
+        const C xm = cvt<C>(x[q.xm]), xp = cvt<C>(x[q.xp]);
+        const C ym = cvt<C>(x[q.ym]), yp = cvt<C>(x[q.yp]);
+        const C zm = cvt<C>(x[q.zm]), zp = cvt<C>(x[q.zp]);
+        C res;
         if (ISO) {
-          const T s = ((x[q.xm] + x[q.xp]) + (x[q.ym] + x[q.yp])) + (x[q.zm] + x[q.zp]);
+          const C s = ((xm + xp) + (ym + yp)) + (zm + zp);
           res = (bv - ivx * s) + six_iv * c;
         } else {
-          T acc = (x[q.xm] + x[q.xp]) * ivx;
-          acc = acc + (x[q.ym] + x[q.yp]) * ivy;
-          acc = acc + (x[q.zm] + x[q.zp]) * ivz;
+          C acc = (xm + xp) * ivx;
+          acc = acc + (ym + yp) * ivy;
+          acc = acc + (zm + zp) * ivz;
           res = bv - (acc - center * c);
         }
         v = c + w * res;
       }
-      out[q.p] = v;
+      out[q.p] = cvt<TO>(v);
       if (MODE == kDots) {
         s0 = v * bv;
         s1 = v;
@@ -92,75 +114,78 @@ rbsor_kernel(const T* __restrict__ x, const T* __restrict__ b, const T* __restri
   if (MODE == kZeroUpdate || MODE == kDots) block_partials(s0, s1, part0, part1);
 }
 
-template <typename T, int MODE, bool ISO>
-void launch_mode(cudaStream_t stream, const Args& a, int nx, int ny, int nz, double ivx,
-                 double ivy, double ivz, double center, double six_iv, double winv,
-                 int color) {
-  rbsor_kernel<T, MODE, ISO><<<launch_grid(nx, ny, nz), launch_block(), 0, stream>>>(
-      static_cast<const T*>(a.x), static_cast<const T*>(a.b), static_cast<const T*>(a.r),
-      static_cast<const T*>(a.ap), static_cast<const T*>(a.alpha), static_cast<T*>(a.out),
-      static_cast<T*>(a.bout), static_cast<T*>(a.part0), static_cast<T*>(a.part1), nx, ny,
-      nz, T(ivx), T(ivy), T(ivz), T(center), T(six_iv), T(winv), color);
+struct RbsorCoef {
+  double ivx, ivy, ivz, center, six_iv, winv;
+};
+
+template <typename TI, typename TO, int MODE, bool ISO>
+cudaError_t launch_mode(cudaStream_t stream, const Args& a, int nx, int ny, int nz,
+                        const RbsorCoef& k, int color) {
+  using C = typename Compute<TI>::type;
+  rbsor_kernel<TI, TO, MODE, ISO><<<launch_grid(nx, ny, nz), launch_block(), 0, stream>>>(
+      static_cast<const TI*>(a.x), static_cast<const TI*>(a.b), static_cast<const TI*>(a.r),
+      static_cast<const TI*>(a.ap), static_cast<const TI*>(a.alpha), static_cast<TO*>(a.out),
+      static_cast<TI*>(a.bout), static_cast<C*>(a.part0), static_cast<C*>(a.part1), nx, ny,
+      nz, C(k.ivx), C(k.ivy), C(k.ivz), C(k.center), C(k.six_iv), C(k.winv), color);
+  return cudaGetLastError();
 }
 
+// Every mode, for the same-type pairs f32 -> f32 and f64 -> f64.
 template <typename T, bool ISO>
-cudaError_t launch_rbsor(int mode, cudaStream_t stream, const Args& a, int nx, int ny,
-                         int nz, double ivx, double ivy, double ivz, double center,
-                         double six_iv, double winv, int color) {
+cudaError_t launch_wide(int mode, cudaStream_t s, const Args& a, int nx, int ny, int nz,
+                        const RbsorCoef& k, int color) {
   switch (mode) {
     case kZero:
-      launch_mode<T, kZero, ISO>(stream, a, nx, ny, nz, ivx, ivy, ivz, center, six_iv, winv,
-                                 color);
-      break;
+      return launch_mode<T, T, kZero, ISO>(s, a, nx, ny, nz, k, color);
     case kGeneral:
-      launch_mode<T, kGeneral, ISO>(stream, a, nx, ny, nz, ivx, ivy, ivz, center, six_iv,
-                                    winv, color);
-      break;
+      return launch_mode<T, T, kGeneral, ISO>(s, a, nx, ny, nz, k, color);
     case kZeroUpdate:
-      launch_mode<T, kZeroUpdate, ISO>(stream, a, nx, ny, nz, ivx, ivy, ivz, center, six_iv,
-                                       winv, color);
-      break;
+      return launch_mode<T, T, kZeroUpdate, ISO>(s, a, nx, ny, nz, k, color);
     case kDots:
-      launch_mode<T, kDots, ISO>(stream, a, nx, ny, nz, ivx, ivy, ivz, center, six_iv, winv,
-                                 color);
-      break;
+      return launch_mode<T, T, kDots, ISO>(s, a, nx, ny, nz, k, color);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+template <bool ISO>
+cudaError_t launch_rbsor(int tin, int tout, int mode, cudaStream_t s, const Args& a, int nx,
+                         int ny, int nz, const RbsorCoef& k, int color) {
+  if (tin == kF32 && tout == kF32) return launch_wide<float, ISO>(mode, s, a, nx, ny, nz, k, color);
+  if (tin == kF64 && tout == kF64)
+    return launch_wide<double, ISO>(mode, s, a, nx, ny, nz, k, color);
+  if (tin == kBF16 && tout == kBF16 && mode == kZero)
+    return launch_mode<__nv_bfloat16, __nv_bfloat16, kZero, ISO>(s, a, nx, ny, nz, k, color);
+  if (tin == kBF16 && tout == kBF16 && mode == kGeneral)
+    return launch_mode<__nv_bfloat16, __nv_bfloat16, kGeneral, ISO>(s, a, nx, ny, nz, k, color);
+  if (tin == kF32 && tout == kBF16 && mode == kGeneral)
+    return launch_mode<float, __nv_bfloat16, kGeneral, ISO>(s, a, nx, ny, nz, k, color);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace poissbox
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. mode: 0 zero, 1 general, 2 zero +
-// fused CG update, 3 general + dots. iso: 1 when ivx == ivy == ivz.
-// Pointers a mode does not use may be null. Returns the cudaError_t of
-// the launch (0 on success).
-int poissbox_rbsor(int dtype, int mode, int iso, int device, void* stream, const void* x,
-                   const void* b, const void* r, const void* ap, const void* alpha,
-                   void* out, void* bout, void* part0, void* part1, int nx, int ny, int nz,
-                   double ivx, double ivy, double ivz, double center, double six_iv,
-                   double winv, int color) {
+// tin/tout: dtype codes (0 float32, 1 float64, 2 bfloat16) of the inputs
+// and of out; mode: 0 zero, 1 general, 2 zero + fused CG update, 3
+// general + dots; iso: 1 when ivx == ivy == ivz. Pointers a mode does not
+// use may be null. Returns the cudaError_t of the launch (0 on success;
+// cudaErrorInvalidValue for a type pair the mode does not take).
+int poissbox_rbsor(int tin, int tout, int mode, int iso, int device, void* stream,
+                   const void* x, const void* b, const void* r, const void* ap,
+                   const void* alpha, void* out, void* bout, void* part0, void* part1, int nx,
+                   int ny, int nz, double ivx, double ivy, double ivz, double center,
+                   double six_iv, double winv, int color) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const poissbox::Args a{x, b, r, ap, alpha, out, bout, part0, part1};
-  if (dtype == 0 && iso)
-    err = poissbox::launch_rbsor<float, true>(mode, s, a, nx, ny, nz, ivx, ivy, ivz, center,
-                                              six_iv, winv, color);
-  else if (dtype == 0)
-    err = poissbox::launch_rbsor<float, false>(mode, s, a, nx, ny, nz, ivx, ivy, ivz, center,
-                                               six_iv, winv, color);
-  else if (dtype == 1 && iso)
-    err = poissbox::launch_rbsor<double, true>(mode, s, a, nx, ny, nz, ivx, ivy, ivz, center,
-                                               six_iv, winv, color);
-  else if (dtype == 1)
-    err = poissbox::launch_rbsor<double, false>(mode, s, a, nx, ny, nz, ivx, ivy, ivz,
-                                                center, six_iv, winv, color);
+  const poissbox::RbsorCoef k{ivx, ivy, ivz, center, six_iv, winv};
+  if (iso)
+    err = poissbox::launch_rbsor<true>(tin, tout, mode, s, a, nx, ny, nz, k, color);
   else
-    err = cudaErrorInvalidValue;
+    err = poissbox::launch_rbsor<false>(tin, tout, mode, s, a, nx, ny, nz, k, color);
   return (int)err;
 }
 

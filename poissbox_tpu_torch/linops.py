@@ -37,6 +37,10 @@ class LinearOperator:
       symmetric: operator symmetry (CG requires it).
       apply_dot: optional fused x -> (A x, <x, A x>), so CG forms p'Ap
         without re-reading p and Ap (the CUDA stencil kernel binds it).
+      fused_update: optional (alpha, x, p, r, Ap) -> (x + alpha p,
+        r - alpha Ap, ||r'||^2, sum(r')) in one pass (K8 on the CUDA
+        operator); CG takes it when the preconditioner binds no fused
+        entry of its own.
       direct_solve: optional exact x = A^+ b (None until the FFT solve is
         ported).
     """
@@ -46,6 +50,7 @@ class LinearOperator:
     nullspace: Optional[Callable[[Tensor], Tensor]] = None
     symmetric: bool = True
     apply_dot: Optional[Callable[[Tensor], tuple]] = None
+    fused_update: Optional[Callable[..., tuple]] = None
     direct_solve: Optional[Callable[[Tensor], Tensor]] = None
 
     def __call__(self, x: Tensor) -> Tensor:

@@ -2,8 +2,9 @@
 
 The CUDA sources under ``poissbox_tpu_torch/csrc`` are compiled at first
 use with ``nvcc`` for ``sm_90a`` into one shared library with a plain C
-interface, which :mod:`ctypes` loads. Nothing here includes PyTorch's
-headers, so a build takes seconds, not the minutes that
+interface, which :mod:`ctypes` loads: one ``nvcc -c`` per source, all
+started together, then one link. Nothing here includes PyTorch's headers,
+so a build takes seconds, not the minutes that
 ``torch.utils.cpp_extension.load`` needs.
 
 The library lands in ``poissbox_tpu_torch/_build/`` (listed in
@@ -27,13 +28,13 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil7.cu", "rbsor.cu")
+SOURCES = ("stencil7.cu", "rbsor.cu", "xfer.cu", "cgupd.cu")
 HEADERS = ("common.cuh",)
 # --fmad=false keeps every a*b+c as a rounded multiply and a rounded add,
 # the grouping the plain PyTorch versions (and the Pallas kernels) use
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-              "-Xptxas", "-v")
+              "--fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the last nvcc run
@@ -62,7 +63,7 @@ def library_path() -> Path:
     for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     return BUILD_DIR / f"libpoissbox_kernels_{h.hexdigest()[:16]}.so"
 
 
@@ -74,17 +75,35 @@ def build() -> Path:
         return path
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # one compiler per source, all at once; then one link
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)]
+            for s, o in zip(SOURCES, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    steps = []
+    for c, p in zip(cmds, procs):
+        out, err = p.communicate()
+        steps.append((c, p.returncode, out, err))
+    if all(rc == 0 for _, rc, _, _ in steps):
+        link = [nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        steps.append((link, proc.returncode, proc.stdout, proc.stderr))
     build_seconds = time.perf_counter() - t0
+    for o in objs:
+        o.unlink(missing_ok=True)
     log = path.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    log.write_text("".join(" ".join(c) + "\n" + out + err
+                           for c, _, out, err in steps))
+    failed = [(c, rc, err) for c, rc, _, err in steps if rc != 0]
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed (exit {proc.returncode}); log in {log}:\n"
-                           + proc.stderr[-4000:])
+        c, rc, err = failed[0]
+        raise RuntimeError(f"{c[-1]}: nvcc failed (exit {rc}); log in {log}:\n"
+                           + err[-4000:])
     os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     return path
 
@@ -97,11 +116,18 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_num_blocks.restype = i
     lib.poissbox_error_string.argtypes = [i]
     lib.poissbox_error_string.restype = ctypes.c_char_p
-    lib.poissbox_stencil7.argtypes = [i, i, i, p, p, p, p, p, i, i, i, d, d, d, d]
+    ll = ctypes.c_longlong
+    lib.poissbox_stencil7.argtypes = [i, i, i, p, p, p, p, p, i, i, i] + [d] * 5
     lib.poissbox_stencil7.restype = i
-    lib.poissbox_rbsor.argtypes = ([i, i, i, i, p] + [p] * 9 + [i, i, i]
+    lib.poissbox_rbsor.argtypes = ([i, i, i, i, i, p] + [p] * 9 + [i, i, i]
                                    + [d] * 6 + [i])
     lib.poissbox_rbsor.restype = i
+    lib.poissbox_xfer.argtypes = [i, i, i, i, i, p, p, p, p, i, i, i] + [d] * 5
+    lib.poissbox_xfer.restype = i
+    lib.poissbox_cgupd_blocks.argtypes = [ll, i]
+    lib.poissbox_cgupd_blocks.restype = i
+    lib.poissbox_cgupd.argtypes = [i, i] + [p] * 10 + [ll]
+    lib.poissbox_cgupd.restype = i
 
 
 def load() -> ctypes.CDLL:

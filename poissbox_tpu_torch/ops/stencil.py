@@ -23,6 +23,7 @@ from poissbox_tpu_torch.ops.coefficients import lapl_star_coeffs
 from poissbox_tpu_torch.ops.stencil_cuda import (
     apply_laplacian_cuda,
     apply_laplacian_dot_cuda,
+    cg_fused_update_cuda,
 )
 
 
@@ -72,13 +73,13 @@ def make_laplacian_operator(grid, impl: str = "auto"):
     """The matrix-free Laplacian LinearOperator for a Grid3D.
 
     `impl`: 'roll', 'pointwise', or 'cuda' (the hand-written kernels;
-    `apply` and `apply_dot` bind kernel KA). 'auto' follows the grid's
-    device (:func:`default_impl`).
+    `apply` and `apply_dot` bind KA `stencil7`, `fused_update` K8
+    `cgupd`). 'auto' follows the grid's device (:func:`default_impl`).
     """
     deltas = grid.deltas
     if impl == "auto":
         impl = default_impl(grid.device)
-    apply_dot = None
+    apply_dot = fused_update = None
     if impl == "roll":
         apply = lambda u: apply_laplacian(u, deltas)
     elif impl == "pointwise":
@@ -86,6 +87,7 @@ def make_laplacian_operator(grid, impl: str = "auto"):
     elif impl == "cuda":
         apply = lambda u: apply_laplacian_cuda(u, deltas)
         apply_dot = lambda u: apply_laplacian_dot_cuda(u, deltas)
+        fused_update = cg_fused_update_cuda
     else:
         raise ValueError(f"unknown stencil impl {impl!r} (expected "
                          "auto|roll|pointwise|cuda)")
@@ -97,6 +99,7 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         nullspace=make_nullspace_projector(),
         symmetric=True,
         apply_dot=apply_dot,
+        fused_update=fused_update,
         direct_solve=None,   # the FFT solve is not ported yet
     )
 

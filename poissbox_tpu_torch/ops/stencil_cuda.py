@@ -1,8 +1,9 @@
-"""Hopper kernels of the 7-point stencil and the red-black SOR smoother.
+"""Hopper kernels of the 7-point stencil, the red-black SOR smoother and
+CG's fused update.
 
 The port of :mod:`poissbox_tpu.ops.stencil_pallas` for the kernels on the
-solver of record's path. Two CUDA kernels (``csrc/stencil7.cu``,
-``csrc/rbsor.cu``) cover six TPU kernels:
+solver of record's path. Three CUDA kernels (``csrc/stencil7.cu``,
+``csrc/rbsor.cu``, ``csrc/cgupd.cu``) cover eight TPU kernels:
 
   ==========================  ======================================  ===
   wrapper                     Pallas counterpart                      TPU
@@ -10,22 +11,38 @@ solver of record's path. Two CUDA kernels (``csrc/stencil7.cu``,
   apply_laplacian_cuda        apply_laplacian_pallas                  K1
   apply_laplacian_dot_cuda    apply_laplacian_dot_pallas              K2
   residual_cuda               residual_pallas                         K9
+  jacobi_sweep_cuda           jacobi_sweep_pallas                     K10
   sor_rb_zero_sweep_cuda      sor_rb_zero_sweep_pallas                K3
   sor_rb_zero_update_cuda     sor_rb_zero_update_pallas               K5
   sor_rb_sweep_cuda           sor_rb_sweep_pallas (with ``dots``)     K4
   sor_rb_multisweep_cuda      sor_rb_multisweep_pallas                K4
+  cg_fused_update_cuda        cg_fused_update                         K8
   ==========================  ======================================  ===
+
+The multigrid transfer legs (K6, K7) are in
+:mod:`poissbox_tpu_torch.ops.transfer_cuda`.
 
 Each wrapper has a plain PyTorch version here, ``*_plain``, which follows
 the Pallas formula and its grouping (not the roll path's). A tensor on the
 CPU takes the plain version; a CUDA tensor launches the kernel or raises.
 There is no fallback from a failed build or launch to the plain version.
 
+bf16: the SOR colour updates take bfloat16 fields (the bf16 pre-smooth of
+the 512^3-class cycle), and K5 can store its swept iterate narrow
+(``out_dtype``). A bf16 value is upcast to float32, each colour update
+runs in float32 and rounds once where the kernel stores it; the plain
+versions round at the same stores. This is the port's definition of the
+bf16 result (the Pallas kernels compute in bf16 throughout). :data:`DTYPES`
+says which mode takes which input dtype.
+
 :data:`LAUNCHES` counts kernel launches by kernel and mode (``stencil7.*``
-for the star's epilogues, ``rbsor.*`` for the colour update's modes); a
-wrapper adds one where it launches, so a run can show which kernels its
-path went through. Reductions come back as per-block partials that the
-wrapper sums with ``torch.sum``, as the JAX wrappers sum theirs.
+for the star's epilogues, ``rbsor.*`` for the colour update's modes,
+``xfer.*`` for the transfer legs, ``cgupd`` for K8; ``.bf16`` marks a
+bf16 launch, ``.narrow`` K5's f32-in, bf16-out second colour and
+``.bf16u`` a transfer leg reading a bf16 iterate); a wrapper adds one
+where it launches, so a run can show which kernels its path went through.
+Reductions come back as per-block partials that the wrapper sums with
+``torch.sum``, as the JAX wrappers sum theirs.
 """
 
 from __future__ import annotations
@@ -37,25 +54,48 @@ import torch
 
 from poissbox_tpu_torch.ops import _build
 
-LAUNCHES: dict[str, int] = {
-    "stencil7.apply": 0,
-    "stencil7.apply_dot": 0,
-    "stencil7.residual": 0,
-    "rbsor.zero": 0,
-    "rbsor.general": 0,
-    "rbsor.zero_update": 0,
-    "rbsor.dots": 0,
-}
+LAUNCHES: dict[str, int] = {k: 0 for k in (
+    "stencil7.apply", "stencil7.apply_dot", "stencil7.residual",
+    "stencil7.jacobi",
+    "rbsor.zero", "rbsor.general", "rbsor.zero_update", "rbsor.dots",
+    "rbsor.zero.bf16", "rbsor.general.bf16", "rbsor.general.narrow",
+    "xfer.restrict", "xfer.restrict.bf16u",
+    "xfer.prolong_add", "xfer.prolong_add.bf16u",
+    "cgupd",
+)}
 
-_EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2}
+_EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2,
+        "stencil7.jacobi": 3}
 _MODE = {"rbsor.zero": 0, "rbsor.general": 1, "rbsor.zero_update": 2,
          "rbsor.dots": 3}
-_DTYPE = {torch.float32: 0, torch.float64: 1}
+# dtype codes of the C interface (csrc/common.cuh DType)
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+
+_WIDE = (torch.float32, torch.float64)
+_WIDE_OR_BF16 = _WIDE + (torch.bfloat16,)
+# the input dtypes each kernel mode takes (for the transfer legs: of the
+# iterate u; b, e and the output are float32 or float64)
+DTYPES: dict[str, tuple] = {
+    "stencil7.apply": _WIDE, "stencil7.apply_dot": _WIDE,
+    "stencil7.residual": _WIDE, "stencil7.jacobi": _WIDE,
+    "rbsor.zero": _WIDE_OR_BF16, "rbsor.general": _WIDE_OR_BF16,
+    "rbsor.zero_update": _WIDE, "rbsor.dots": _WIDE,
+    "xfer.restrict": _WIDE_OR_BF16, "xfer.prolong_add": _WIDE_OR_BF16,
+    "cgupd": _WIDE,
+}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def check_dtype(mode: str, dtype: torch.dtype) -> None:
+    """Raise TypeError unless kernel mode `mode` takes input `dtype`."""
+    if dtype not in DTYPES[mode]:
+        names = ", ".join(str(d).replace("torch.", "") for d in DTYPES[mode])
+        raise TypeError(f"the CUDA kernel mode {mode} takes {names}, not "
+                        f"{str(dtype).replace('torch.', '')}")
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +127,16 @@ def _star(u: torch.Tensor, invs) -> torch.Tensor:
     return acc - (2.0 * (ivx + ivy + ivz)) * u
 
 
+def _star_ext(u: torch.Tensor, invs) -> torch.Tensor:
+    """The 7-point star in `_star_ext`'s grouping, the one K6 uses: for
+    cubic cells the six-neighbour sum scaled once, s*ivx - (6*ivx)*u."""
+    ivx, ivy, ivz = invs
+    if ivx == ivy == ivz:
+        s = (_pm1(u, 0) + _pm1(u, 1)) + _pm1(u, 2)
+        return s * ivx - (6.0 * ivx) * u
+    return _star(u, invs)
+
+
 def _halfstep(x: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
               invs) -> torch.Tensor:
     """One masked SOR half-step, `_rb_halfstep`: c + w*(b - star(x)) with
@@ -96,6 +146,11 @@ def _halfstep(x: torch.Tensor, b: torch.Tensor, w: torch.Tensor,
         s = (_pm1(x, 0) + _pm1(x, 1)) + _pm1(x, 2)
         return x + w * ((b - ivx * s) + (6.0 * ivx) * x)
     return x + w * (b - _star(x, invs))
+
+
+def _wide(t: torch.Tensor) -> torch.Tensor:
+    """The arithmetic form of a stored field: bf16 upcasts to float32."""
+    return t.float() if t.dtype == torch.bfloat16 else t
 
 
 def colour_parity(shape, device) -> torch.Tensor:
@@ -130,25 +185,42 @@ def residual_plain(u, b, deltas):
     return b - _star(u, _invs(deltas))
 
 
-def sor_rb_zero_sweep_plain(b, deltas, weight, reverse=False):
+def jacobi_sweep_plain(u, b, deltas, weight):
+    """u + winv*(b - A u), `_upd_jacobi` on `_star_into`'s star."""
     invs = _invs(deltas)
-    w1, w2 = _colour_weights(b, _winv(invs, weight), reverse)
-    return _halfstep(w1 * b, b, w2, invs)
+    return u + _winv(invs, weight) * (b - _star(u, invs))
 
 
-def sor_rb_zero_update_plain(r, ap, alpha, deltas, weight, reverse=False):
+def sor_rb_zero_sweep_plain(b, deltas, weight, reverse=False):
+    """A bf16 b: each colour computes in float32 and rounds at its store."""
+    invs = _invs(deltas)
+    bw = _wide(b)
+    w1, w2 = _colour_weights(bw, _winv(invs, weight), reverse)
+    x1 = (w1 * bw).to(b.dtype)
+    return _halfstep(_wide(x1), bw, w2, invs).to(b.dtype)
+
+
+def sor_rb_zero_update_plain(r, ap, alpha, deltas, weight, reverse=False,
+                             out_dtype=None):
+    """`out_dtype` rounds the swept iterate once, at its store."""
     invs = _invs(deltas)
     a = torch.as_tensor(alpha, dtype=r.dtype, device=r.device)
     b = r - a * ap
     w1, w2 = _colour_weights(b, _winv(invs, weight), reverse)
     x = _halfstep(w1 * b, b, w2, invs)
+    if out_dtype is not None:
+        x = x.to(out_dtype)
     return b, x, torch.sum(b * b), torch.sum(b)
 
 
 def sor_rb_sweep_plain(u, b, deltas, weight, reverse=False, dots=False):
+    """bf16 fields: each colour computes in float32 and rounds at its
+    store."""
     invs = _invs(deltas)
-    w1, w2 = _colour_weights(b, _winv(invs, weight), reverse)
-    x = _halfstep(_halfstep(u, b, w1, invs), b, w2, invs)
+    bw = _wide(b)
+    w1, w2 = _colour_weights(bw, _winv(invs, weight), reverse)
+    x1 = _halfstep(_wide(u), bw, w1, invs).to(u.dtype)
+    x = _halfstep(_wide(x1), bw, w2, invs).to(u.dtype)
     return (x, torch.sum(x * b), torch.sum(x)) if dots else x
 
 
@@ -162,6 +234,13 @@ def sor_rb_multisweep_plain(u, b, deltas, weight, nsweeps, reverse=False,
     return (u, torch.sum(u * b), torch.sum(u)) if dots else u
 
 
+def cg_fused_update_plain(alpha, x, p, r, ap):
+    """(x + alpha*p, r - alpha*Ap, ||r'||^2, sum(r')), `_cg_update_kernel`."""
+    a = torch.as_tensor(alpha, dtype=x.dtype, device=x.device)
+    rn = r - a * ap
+    return x + a * p, rn, torch.sum(rn * rn), torch.sum(rn)
+
+
 # ---------------------------------------------------------------------------
 # kernel launches
 # ---------------------------------------------------------------------------
@@ -170,24 +249,22 @@ def _on_cpu(t: torch.Tensor) -> bool:
     return t.device.type == "cpu"
 
 
-def _check(*ts: torch.Tensor) -> None:
-    """What the kernels take: contiguous 3-D f32/f64 fields of one shape
-    and dtype on one CUDA device."""
+def _check(mode: str, *ts: torch.Tensor) -> None:
+    """What kernel mode `mode` takes: contiguous 3-D fields of one shape
+    and one dtype, a dtype listed for `mode` in :data:`DTYPES`, on one
+    CUDA device."""
     t0 = ts[0]
     for t in ts:
         if t.device.type != "cuda":
             raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
         if t.device != t0.device:
             raise ValueError(f"tensors on {t0.device} and {t.device}")
-        if t.dtype not in _DTYPE:
-            raise TypeError(
-                f"the CUDA kernels take float32 or float64, not {t.dtype} "
-                "(bf16 variants belong to the 512^3 slice, see ROADMAP.md)")
         if t.dtype != t0.dtype or t.shape != t0.shape or t.dim() != 3:
             raise ValueError(f"expected matching 3-D fields, got {t0.dtype} "
                              f"{tuple(t0.shape)} and {t.dtype} {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError("the CUDA kernels take contiguous fields")
+    check_dtype(mode, t0.dtype)
 
 
 def _ptr(t) -> ctypes.c_void_p:
@@ -200,38 +277,48 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
 def _partials(u: torch.Tensor) -> torch.Tensor:
     """One slot per block of a launch over u's grid."""
     return torch.empty(_build.load().poissbox_num_blocks(*u.shape),
                        dtype=u.dtype, device=u.device)
 
 
-def _stencil7(key: str, u, b, y, part, deltas) -> None:
+def _stencil7(key: str, u, b, y, part, deltas, weight: float = 0.0) -> None:
     lib = _build.load()
-    ivx, ivy, ivz = _invs(deltas)
-    stream = torch.cuda.current_stream(u.device).cuda_stream
+    invs = _invs(deltas)
+    ivx, ivy, ivz = invs
     err = lib.poissbox_stencil7(
-        _DTYPE[u.dtype], _EPI[key], u.device.index or 0,
-        ctypes.c_void_p(stream), _ptr(u), _ptr(b), _ptr(y), _ptr(part),
-        *u.shape, ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz))
+        DTYPE_CODE[u.dtype], _EPI[key], u.device.index or 0, _stream(u),
+        _ptr(u), _ptr(b), _ptr(y), _ptr(part), *u.shape, ivx, ivy, ivz,
+        2.0 * (ivx + ivy + ivz), _winv(invs, weight))
     _raise_on(lib, err, key)
     LAUNCHES[key] += 1
 
 
-def _rbsor(key: str, like, colour: int, deltas, weight, *, x=None, b=None,
+def _rbsor(mode: str, like, colour: int, deltas, weight, *, x=None, b=None,
            r=None, ap=None, alpha=None, out=None, bout=None, part0=None,
            part1=None) -> None:
+    """One colour launch; `like` carries the input dtype, `out` the output
+    dtype."""
     lib = _build.load()
     invs = _invs(deltas)
     ivx, ivy, ivz = invs
-    stream = torch.cuda.current_stream(like.device).cuda_stream
     err = lib.poissbox_rbsor(
-        _DTYPE[like.dtype], _MODE[key], int(ivx == ivy == ivz),
-        like.device.index or 0, ctypes.c_void_p(stream),
+        DTYPE_CODE[like.dtype], DTYPE_CODE[out.dtype], _MODE[mode],
+        int(ivx == ivy == ivz), like.device.index or 0, _stream(like),
         _ptr(x), _ptr(b), _ptr(r), _ptr(ap), _ptr(alpha), _ptr(out),
         _ptr(bout), _ptr(part0), _ptr(part1), *like.shape,
         ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz), 6.0 * ivx,
         _winv(invs, weight), colour)
+    key = mode
+    if like.dtype == torch.bfloat16:
+        key += ".bf16"
+    elif out.dtype != like.dtype:
+        key += ".narrow"
     _raise_on(lib, err, key)
     LAUNCHES[key] += 1
 
@@ -244,7 +331,7 @@ def apply_laplacian_cuda(u: torch.Tensor, deltas) -> torch.Tensor:
     """y = A u, the periodic 7-point Laplacian (K1)."""
     if _on_cpu(u):
         return apply_laplacian_plain(u, deltas)
-    _check(u)
+    _check("stencil7.apply", u)
     y = torch.empty_like(u)
     _stencil7("stencil7.apply", u, None, y, None, deltas)
     return y
@@ -254,7 +341,7 @@ def apply_laplacian_dot_cuda(u: torch.Tensor, deltas):
     """(A u, <u, A u>) in one pass (K2)."""
     if _on_cpu(u):
         return apply_laplacian_dot_plain(u, deltas)
-    _check(u)
+    _check("stencil7.apply_dot", u)
     y = torch.empty_like(u)
     part = _partials(u)
     _stencil7("stencil7.apply_dot", u, None, y, part, deltas)
@@ -265,9 +352,20 @@ def residual_cuda(u: torch.Tensor, b: torch.Tensor, deltas) -> torch.Tensor:
     """r = b - A u (K9)."""
     if _on_cpu(u):
         return residual_plain(u, b, deltas)
-    _check(u, b)
+    _check("stencil7.residual", u, b)
     y = torch.empty_like(u)
     _stencil7("stencil7.residual", u, b, y, None, deltas)
+    return y
+
+
+def jacobi_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
+                      weight: float) -> torch.Tensor:
+    """One damped-Jacobi sweep u + (w/diag)(b - A u) (K10)."""
+    if _on_cpu(u):
+        return jacobi_sweep_plain(u, b, deltas, weight)
+    _check("stencil7.jacobi", u, b)
+    y = torch.empty_like(u)
+    _stencil7("stencil7.jacobi", u, b, y, None, deltas, weight)
     return y
 
 
@@ -278,10 +376,10 @@ def _colours(reverse: bool) -> tuple[int, int]:
 def sor_rb_zero_sweep_cuda(b: torch.Tensor, deltas, weight: float,
                            reverse: bool = False) -> torch.Tensor:
     """One red-black sweep from x = 0 (K3): the first colour is
-    winv * mask * b, the second a general colour update."""
+    winv * mask * b, the second a general colour update. b may be bf16."""
     if _on_cpu(b):
         return sor_rb_zero_sweep_plain(b, deltas, weight, reverse)
-    _check(b)
+    _check("rbsor.zero", b)
     c0, c1 = _colours(reverse)
     x1 = torch.empty_like(b)
     _rbsor("rbsor.zero", b, c0, deltas, weight, b=b, out=x1)
@@ -291,14 +389,17 @@ def sor_rb_zero_sweep_cuda(b: torch.Tensor, deltas, weight: float,
 
 
 def sor_rb_zero_update_cuda(r: torch.Tensor, ap: torch.Tensor, alpha,
-                            deltas, weight: float, reverse: bool = False):
+                            deltas, weight: float, reverse: bool = False,
+                            out_dtype=None):
     """(b, x1, ||b||^2, sum(b)) with b = r - alpha*Ap and x1 the zero-guess
     sweep for A x = b (K5): CG's residual update fused into the V-cycle's
     first kernel. r and Ap stay untouched: both are still live in the
-    caller (CG keeps r until the iteration ends)."""
+    caller (CG keeps r until the iteration ends). `out_dtype` (bf16)
+    stores x1 narrow: the second colour reads float32 and writes bf16."""
     if _on_cpu(r):
-        return sor_rb_zero_update_plain(r, ap, alpha, deltas, weight, reverse)
-    _check(r, ap)
+        return sor_rb_zero_update_plain(r, ap, alpha, deltas, weight, reverse,
+                                        out_dtype)
+    _check("rbsor.zero_update", r, ap)
     a = torch.as_tensor(alpha, dtype=r.dtype, device=r.device).reshape(1)
     c0, c1 = _colours(reverse)
     b = torch.empty_like(r)
@@ -306,7 +407,7 @@ def sor_rb_zero_update_cuda(r: torch.Tensor, ap: torch.Tensor, alpha,
     rr, sr = _partials(r), _partials(r)
     _rbsor("rbsor.zero_update", r, c0, deltas, weight, r=r, ap=ap, alpha=a,
            out=x1, bout=b, part0=rr, part1=sr)
-    x = torch.empty_like(r)
+    x = torch.empty_like(r, dtype=out_dtype or r.dtype)
     _rbsor("rbsor.general", r, c1, deltas, weight, x=x1, b=b, out=x)
     return b, x, torch.sum(rr), torch.sum(sr)
 
@@ -314,11 +415,12 @@ def sor_rb_zero_update_cuda(r: torch.Tensor, ap: torch.Tensor, alpha,
 def sor_rb_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
                       weight: float, reverse: bool = False,
                       dots: bool = False):
-    """One red-black sweep, both colours (K4). `dots=True` also returns
-    (<x_out, b>, sum(x_out)) from the second colour's pass."""
+    """One red-black sweep, both colours (K4); u and b may be bf16.
+    `dots=True` (float32/float64) also returns (<x_out, b>, sum(x_out))
+    from the second colour's pass."""
     if _on_cpu(u):
         return sor_rb_sweep_plain(u, b, deltas, weight, reverse, dots)
-    _check(u, b)
+    _check("rbsor.dots" if dots else "rbsor.general", u, b)
     c0, c1 = _colours(reverse)
     x1 = torch.empty_like(u)
     _rbsor("rbsor.general", u, c0, deltas, weight, x=u, b=b, out=x1)
@@ -346,3 +448,25 @@ def sor_rb_multisweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
         # nsweeps == 0 only
         return u, torch.sum(u * b), torch.sum(u)
     return u
+
+
+def cg_fused_update_cuda(alpha, x: torch.Tensor, p: torch.Tensor,
+                         r: torch.Tensor, ap: torch.Tensor):
+    """(x + alpha*p, r - alpha*Ap, ||r'||^2, sum(r')) in one pass over the
+    four fields (K8); alpha is read on the device. No input is written."""
+    if _on_cpu(x):
+        return cg_fused_update_plain(alpha, x, p, r, ap)
+    _check("cgupd", x, p, r, ap)
+    lib = _build.load()
+    dev = x.device.index or 0
+    a = torch.as_tensor(alpha, dtype=x.dtype, device=x.device).reshape(1)
+    xo, ro = torch.empty_like(x), torch.empty_like(r)
+    nblk = lib.poissbox_cgupd_blocks(x.numel(), dev)
+    prr = torch.empty(nblk, dtype=x.dtype, device=x.device)
+    psr = torch.empty(nblk, dtype=x.dtype, device=x.device)
+    err = lib.poissbox_cgupd(DTYPE_CODE[x.dtype], dev, _stream(x), _ptr(a),
+                             _ptr(x), _ptr(p), _ptr(r), _ptr(ap), _ptr(xo),
+                             _ptr(ro), _ptr(prr), _ptr(psr), x.numel())
+    _raise_on(lib, err, "cgupd")
+    LAUNCHES["cgupd"] += 1
+    return xo, ro, torch.sum(prr), torch.sum(psr)

@@ -5,7 +5,7 @@ The JAX package runs the iteration inside ``lax.while_loop``; here it is
 a Python loop on the host. Every value stays on the device: the breakdown
 guards use ``torch.where``, and the loop reads one boolean per iteration
 (the stopping test) with a single ``.item()``. The hooks a preconditioner
-or operator binds — ``A.apply_dot``, ``M.apply_dots``,
+or operator binds — ``A.apply_dot``, ``A.fused_update``, ``M.apply_dots``,
 ``M.apply_update_dots`` — fold reductions and the residual update into
 the kernels' own passes, as in the JAX package.
 """
@@ -92,12 +92,15 @@ def cg(
         A.nullspace, "is_constant_projector", False)
     explicit_proj = A.nullspace is not None and not project_z
     inv_n = 1.0 / b.numel()
+    # fused x/r update with the ||r||^2, sum(r) partials in its pass (K8)
+    fuse_upd = getattr(A, "fused_update", None) is not None and b.dim() == 3
     # fused coupling reductions (<r, M r>, sum(M r)) from the V-cycle's
     # final post-smooth; not with an explicit projector or flexible CG
     apply_dots = (getattr(M, "apply_dots", None)
                   if not explicit_proj and not flexible else None)
     # full M-side fusion: r' = r - alpha*Ap, its reductions and the
-    # coupling dots ride the V-cycle's kernels; supersedes apply_dots
+    # coupling dots ride the V-cycle's kernels; supersedes fused_update
+    # and apply_dots
     apply_upd_dots = (getattr(M, "apply_update_dots", None)
                       if not explicit_proj and not flexible
                       and b.dim() == 3 else None)
@@ -123,24 +126,29 @@ def cg(
             v, r, rr_k, sr, rv, sv = apply_upd_dots(r, Ap, alpha)
             rr = None if natural else rr_k
         else:
-            x = x + alpha * p
-            r = r - alpha * Ap
+            if fuse_upd:
+                x, r, rr_k, sr_k = A.fused_update(alpha, x, p, r, Ap)
+            else:
+                x = x + alpha * p
+                r = r - alpha * Ap
+                rr_k = sr_k = None
+            # ||r||^2 and sum(r) from the fused update where it took them
             if apply_dots is not None:
                 v, rv, sv = apply_dots(r)
-                sr = torch.sum(r)
-                rr = None if natural else _dot(r, r)
+                sr = torch.sum(r) if sr_k is None else sr_k
+                rr = None if natural else (_dot(r, r) if rr_k is None else rr_k)
             else:
                 v = precond(r)
                 if explicit_proj:
                     v = A.project(v)
                 if M is None and not explicit_proj:
-                    rr = _dot(r, r)
-                    rv, sv, sr = rr, torch.sum(r), None
+                    rr = _dot(r, r) if rr_k is None else rr_k
+                    rv, sv, sr = rr, (torch.sum(r) if sr_k is None else sr_k), None
                 else:
                     rv = _dot(r, v)
                     sv = torch.sum(v)
-                    sr = torch.sum(r)
-                    rr = None if natural else _dot(r, r)
+                    sr = torch.sum(r) if sr_k is None else sr_k
+                    rr = None if natural else (_dot(r, r) if rr_k is None else rr_k)
         if project_z:
             rz_new = rv - sv * ((sv if sr is None else sr) * inv_n)
             zshift = sv * inv_n

@@ -131,7 +131,9 @@ def make_solver(
 
 def view(opts: SolverOptions, shape=None, M=None) -> str:
     """`-ksp_view`-style description of the assembled solver, with the MG
-    cycle as resolved (auto sweep counts, level stack)."""
+    cycle as resolved (auto sweep counts, level stack; the JAX package's
+    lines, then the transfer form and pre-smooth dtype the device
+    resolved)."""
     lines = [
         "KSP Object:",
         f"  type: {opts.ksp_type}",
@@ -158,6 +160,10 @@ def view(opts: SolverOptions, shape=None, M=None) -> str:
             levels = _build_levels(tuple(shape), (1.0,) * 3, cfg)
             lines.append("  levels: "
                          + " -> ".join("x".join(map(str, lv.shape)) for lv in levels))
+        res = getattr(M, "resolved", None)
+        if res is not None:
+            lines.append(f"  resolved: transfers {res['transfers']}, "
+                         f"pre-smooth {res['pre_dtype']}")
     return "\n".join(lines)
 
 

@@ -7,21 +7,29 @@ part of :mod:`poissbox_tpu.solvers.mg`).
   * smoothers: red-black SOR (the post-smoother runs the colours in
     reverse, so one cycle is symmetric), damped Jacobi, or Chebyshev;
   * transfers: cell-centred full weighting and trilinear prolongation
-    (P = 2 R^T) in the roll formulation;
+    (P = 2 R^T), in the roll formulation or as banded-matrix
+    contractions ("matmul");
   * coarse solve: the SVD pseudo-inverse of the assembled coarse
     Laplacian, computed once with the JAX package's numpy code.
 
 On a CUDA device every level runs the hand-written kernels of
 :mod:`poissbox_tpu_torch.ops.stencil_cuda` (impl ``"cuda"``); the JAX
 package's ``min(shape) >= 16`` Pallas gate is a TPU tiling rule and has no
-counterpart. ``impl="cuda"`` on CPU tensors runs the kernels' plain
-versions on every level, the same call graph. ``impl="roll"`` is the
-plain formulation on any device.
+counterpart. ``transfers="auto"`` resolves to "matmul" on a CUDA device,
+as the JAX package resolves it on its accelerator, so every non-coarsest
+kernel level takes the fused legs of
+:mod:`poissbox_tpu_torch.ops.transfer_cuda` (K6 down, K7 up) with the y/z
+transfers as contractions; on the CPU it resolves to "roll".
+``impl="cuda"`` on CPU tensors runs the kernels' plain versions on every
+level, so ``impl="cuda", transfers="matmul"`` walks the card's call graph
+on the CPU. ``impl="roll"`` is the plain formulation on any device.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Sequence
 
@@ -32,10 +40,17 @@ from poissbox_tpu_torch.ops.stencil import apply_laplacian, default_impl
 from poissbox_tpu_torch.ops.stencil_cuda import (
     apply_laplacian_cuda,
     colour_parity,
+    jacobi_sweep_cuda,
     residual_cuda,
     sor_rb_multisweep_cuda,
     sor_rb_zero_sweep_cuda,
     sor_rb_zero_update_cuda,
+)
+from poissbox_tpu_torch.ops.transfer_cuda import (
+    prolong_axis,
+    residual_xrestrict_cuda,
+    restrict_axis,
+    xprolong_add_cuda,
 )
 
 Tensor = torch.Tensor
@@ -56,11 +71,14 @@ def _dtype(name: str) -> Optional[torch.dtype]:
 class MGConfig:
     """Multigrid knobs, mirroring :class:`poissbox_tpu.solvers.mg.MGConfig`.
 
-    `impl`: auto | roll | cuda (level operators). `transfers`: auto | roll;
-    'matmul' (the TPU's banded-matrix form and its fused K6/K7 legs) is
-    not ported yet. `dtype`/`pre_dtype`: "" (the field dtype), "float32",
-    "float64" or "bfloat16" — the CUDA kernels take float32 and float64
-    only, so a bf16 cycle runs on the CPU or with impl='roll'.
+    `impl`: auto | roll | cuda (level operators); "pallas", the JAX
+    package's name for its kernel path, means "cuda". `transfers`: auto |
+    roll | matmul ("auto" is matmul on a CUDA device, roll on the CPU).
+    `dtype`/`pre_dtype`: "" (the field dtype), "float32", "float64" or
+    "bfloat16". On the kernel path a bf16 `pre_dtype` runs the SOR
+    pre-smooth in bf16 (the 512^3-class default); a bf16 cycle `dtype`
+    needs bf16 stencil and transfer kernels, which are not ported, so it
+    runs on the CPU or with impl='roll'.
     """
 
     levels: int = 0               # 0 = auto (coarsen while divisible, > coarse_size)
@@ -73,8 +91,8 @@ class MGConfig:
     cycles: int = 1               # cycles per preconditioner application
     cycle: str = "v"              # "v" | "w"
     w_depth: int = 2              # W doubling only down to this level
-    impl: str = "auto"            # auto | roll | cuda
-    transfers: str = "auto"       # auto | roll
+    impl: str = "auto"            # auto | roll | cuda (pallas = cuda)
+    transfers: str = "auto"       # auto | roll | matmul
     dtype: str = ""               # cycle compute dtype ("" = field dtype)
     pre_dtype: str = ""           # pre-smoother dtype ("" = cycle dtype)
 
@@ -105,23 +123,34 @@ class _Level:
 
 def _kernels(cfg: MGConfig, device) -> bool:
     """True when the levels run the CUDA kernels (or, for CPU tensors,
-    their plain versions)."""
+    their plain versions). "pallas", the reference's name for its kernel
+    path, selects them too, so its command lines run unchanged."""
     impl = cfg.impl if cfg.impl != "auto" else default_impl(device)
-    if impl not in ("roll", "cuda"):
-        raise ValueError(f"unknown MG impl {cfg.impl!r} (expected auto|roll|cuda)")
-    return impl == "cuda"
+    if impl not in ("roll", "cuda", "pallas"):
+        raise ValueError(f"unknown MG impl {cfg.impl!r} "
+                         "(expected auto|roll|cuda|pallas)")
+    return impl != "roll"
 
 
-def _check_transfers(cfg: MGConfig) -> None:
-    """The port's transfers are the roll formulation ('auto' resolves to it
-    on every device)."""
-    if cfg.transfers in ("auto", "roll"):
-        return
-    if cfg.transfers == "matmul":
-        raise NotImplementedError(
-            "transfers='matmul' (and its fused legs K6/K7) is not ported "
-            "yet; see ROADMAP.md queue 2")
-    raise ValueError(f"unknown transfers {cfg.transfers!r} (expected auto|roll)")
+def _transfers(cfg: MGConfig, device) -> str:
+    """The resolved transfer form: "auto" is "matmul" on a CUDA device (the
+    JAX package's choice on its accelerator, mg.py:586-587) and "roll" on
+    the CPU."""
+    tr = cfg.transfers
+    if tr == "auto":
+        return "matmul" if torch.device(device).type == "cuda" else "roll"
+    if tr not in ("roll", "matmul"):
+        raise ValueError(f"unknown transfers {tr!r} (expected auto|roll|matmul)")
+    return tr
+
+
+def _fused_leg(levels: Sequence[_Level], cfg: MGConfig, idx: int,
+               device) -> bool:
+    """True when level `idx` goes down through K6 and up through K7 (the
+    path that takes a narrow pre-smooth iterate as it is): every
+    non-coarsest kernel level with matmul transfers."""
+    return (idx < len(levels) - 1 and _transfers(cfg, device) == "matmul"
+            and _kernels(cfg, device))
 
 
 def _lapl(x: Tensor, lvl: _Level, cfg: MGConfig) -> Tensor:
@@ -156,29 +185,80 @@ def _build_levels(shape, deltas, cfg: MGConfig) -> list[_Level]:
 # transfers (cell-centred, periodic)
 # ---------------------------------------------------------------------------
 
-def restrict(f: Tensor) -> Tensor:
-    """Full-weighting restriction, R = P^T / 8. Along each axis:
+def restrict(f: Tensor, axes=(0, 1, 2)) -> Tensor:
+    """Full-weighting restriction, R = P^T / 8. Along each axis of `axes`:
     c_I = (3 f_{2I} + 3 f_{2I+1} + f_{2I+2} + f_{2I-1}) / 8, periodic."""
-    for ax in range(f.dim()):
-        n = f.shape[ax]
-        pairs = f.reshape(f.shape[:ax] + (n // 2, 2) + f.shape[ax + 1:])
-        even = pairs.select(ax + 1, 0)           # f_{2I}
-        odd = pairs.select(ax + 1, 1)            # f_{2I+1}
-        up = torch.roll(even, -1, ax)            # f_{2I+2}
-        dn = torch.roll(odd, 1, ax)              # f_{2I-1}
-        f = (3.0 * (even + odd) + up + dn) * 0.125
+    for ax in axes:
+        f = restrict_axis(f, ax)
     return f
 
 
-def prolong(c: Tensor) -> Tensor:
+def prolong(c: Tensor, axes=(0, 1, 2)) -> Tensor:
     """Trilinear prolongation: a fine cell at i = 2I + s takes 3/4 of its
     parent and 1/4 of the parent's periodic neighbour on side s."""
-    for ax in range(c.dim()):
-        even = 0.75 * c + 0.25 * torch.roll(c, 1, ax)    # fine i = 2I
-        odd = 0.75 * c + 0.25 * torch.roll(c, -1, ax)    # fine i = 2I + 1
-        c = torch.stack([even, odd], dim=ax + 1)
-        c = c.reshape(c.shape[:ax] + (c.shape[ax] * 2,) + c.shape[ax + 2:])
+    for ax in axes:
+        c = prolong_axis(c, ax)
     return c
+
+
+@functools.lru_cache(maxsize=None)
+def _restrict_matrix(n: int, dtype: torch.dtype, device: torch.device,
+                     transpose: bool = False) -> Tensor:
+    """1-D full weighting as a dense (n/2, n) banded matrix, or with
+    `transpose` the prolongation P = 2 R^T; cached per (n, dtype, device)."""
+    R = np.zeros((n // 2, n))
+    for I in range(n // 2):
+        R[I, (2 * I - 1) % n] += 1.0 / 8.0
+        R[I, 2 * I] += 3.0 / 8.0
+        R[I, (2 * I + 1) % n] += 3.0 / 8.0
+        R[I, (2 * I + 2) % n] += 1.0 / 8.0
+    return torch.as_tensor(2.0 * R.T if transpose else R, dtype=dtype,
+                           device=device)
+
+
+@contextlib.contextmanager
+def _full_fp32_matmul():
+    """float32 products in full float32: JAX runs these contractions at
+    Precision.HIGHEST; a TF32 product would move them by ~1e-3 relative.
+    Set for the call, whatever the global default is."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _contract(f: Tensor, axes, transpose: bool) -> Tensor:
+    """Contract each axis of `axes` with the banded matrix, in place in
+    the layout: the field is viewed as (before, n, after), so axis 0 is
+    one product M @ f, a middle axis a product batched over `before`, and
+    the last axis f @ M^T; no transposed copy is made (tensordot would
+    permute the field first and movedim leave a strided result)."""
+    out = f.contiguous()
+    with _full_fp32_matmul():
+        for ax in axes:
+            shape = out.shape
+            n = shape[ax] * 2 if transpose else shape[ax]
+            M = _restrict_matrix(n, out.dtype, out.device, transpose)
+            before, after = math.prod(shape[:ax]), math.prod(shape[ax + 1:])
+            if after == 1:
+                out = out.reshape(before, shape[ax]) @ M.T
+            else:
+                out = torch.matmul(M, out.reshape(before, shape[ax], after))
+            out = out.reshape(shape[:ax] + (M.shape[0],) + shape[ax + 1:])
+    return out
+
+
+def restrict_mm(f: Tensor, axes=(0, 1, 2)) -> Tensor:
+    """restrict() as one banded-matrix contraction per axis of `axes` (the
+    fused leg K6 restricts along x itself and passes axes=(1, 2))."""
+    return _contract(f, axes, transpose=False)
+
+
+def prolong_mm(c: Tensor, axes=(0, 1, 2)) -> Tensor:
+    """prolong() as contractions with P = 2 R^T."""
+    return _contract(c, axes, transpose=True)
 
 
 # ---------------------------------------------------------------------------
@@ -210,16 +290,15 @@ def _smooth_impl(x: Optional[Tensor], b: Tensor, lvl: _Level, cfg: MGConfig,
     inv_diag = 1.0 / lvl.diag
     kernels = _kernels(cfg, b.device)
     if cfg.smoother == "jacobi":
-        if kernels:
-            raise NotImplementedError(
-                "the Jacobi smoother's kernel (K10) is not ported yet; run "
-                "it with impl='roll' (ROADMAP.md queue 2)")
         w = 8.0 / 9.0 if cfg.damping is None else cfg.damping
         if x is None:
             x = (w * inv_diag) * b      # first sweep from zero, closed form
             sweeps -= 1
         for _ in range(sweeps):
-            x = x + w * inv_diag * (b - apply_laplacian(x, lvl.deltas))
+            if kernels:
+                x = jacobi_sweep_cuda(x, b, lvl.deltas, w)
+            else:
+                x = x + w * inv_diag * (b - apply_laplacian(x, lvl.deltas))
         return x
     if cfg.smoother == "chebyshev":
         # Chebyshev on the known spectrum [-4 sum(1/d^2), 0], smoothing
@@ -338,10 +417,11 @@ def v_cycle(levels: Sequence[_Level], coarse_pinv: Tensor, cfg: MGConfig,
     pd = _dtype(cfg.pre_dtype)
     if pd is not None and pd != b.dtype:
         # low-precision pre-smooth; the full-precision residual below
-        # absorbs x1's rounding (the fused legs that could take the
-        # narrow iterate are not ported, so it widens here)
+        # absorbs x1's rounding. The fused legs read the narrow iterate as
+        # it is (K6/K7 upcast it); the other paths widen it here.
         x = _smooth(None, b.to(pd), lvl, cfg, cfg.pre_smooth, reverse=False)
-        x = x.to(b.dtype)
+        if not _fused_leg(levels, cfg, idx, b.device):
+            x = x.to(b.dtype)
     else:
         x = _smooth(None, b, lvl, cfg, cfg.pre_smooth, reverse=False)
     return _v_cycle_rest(levels, coarse_pinv, cfg, x, b, idx, dots)
@@ -353,11 +433,21 @@ def _v_cycle_rest(levels: Sequence[_Level], coarse_pinv: Tensor,
     """The cycle after the pre-smooth: residual, restrict, child
     correction, prolong, post-smooth (shared with apply_update_dots)."""
     lvl = levels[idx]
-    _check_transfers(cfg)
-    r = _residual(x, b, lvl, cfg)
-    rc = restrict(r)
-    ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
-    x = x + prolong(ec)
+    if _fused_leg(levels, cfg, idx, b.device):
+        # down: residual and x-restriction in one kernel (K6), then the y/z
+        # restriction on the half-size field; up: the y/z prolongation,
+        # then x-prolongation and the add in one kernel (K7). Neither the
+        # full-size residual nor the prolonged correction is stored.
+        rc = restrict_mm(residual_xrestrict_cuda(x, b, lvl.deltas), axes=(1, 2))
+        ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
+        x = xprolong_add_cuda(x, prolong_mm(ec, axes=(1, 2)))
+    else:
+        down, up = ((restrict_mm, prolong_mm)
+                    if _transfers(cfg, b.device) == "matmul"
+                    else (restrict, prolong))
+        r = _residual(x, b, lvl, cfg)
+        ec = _coarse_correct(levels, coarse_pinv, cfg, down(r), idx + 1)
+        x = x + up(ec)
     return _smooth(x, b, lvl, cfg, cfg.post_smooth, reverse=True, dots=dots)
 
 
@@ -388,7 +478,8 @@ def make_mg_preconditioner(
     Setup (hierarchy + dense coarse pseudo-inverse) runs once here. The
     closure is linear and symmetric. Like the JAX package's, it exposes
     `config` (the resolved MGConfig), `apply_dots` (single cycle, field
-    dtype) and, for SOR on kernel levels, `apply_update_dots`.
+    dtype) and, for SOR on kernel levels, `apply_update_dots`; `resolved`
+    names the transfer form and pre-smooth dtype `device` resolves to.
     """
     device = torch.device(device)
     cfg = _resolve_sweeps(cfg, shape)
@@ -396,7 +487,8 @@ def make_mg_preconditioner(
             and dtype == torch.float32):
         # the JAX package's 512^3-class default: bf16 pre-smooth
         cfg = dataclasses.replace(cfg, pre_dtype="bfloat16")
-    _check_transfers(cfg)
+    kernels = _kernels(cfg, device)        # both validate the options
+    transfers = _transfers(cfg, device)
     levels = _build_levels(tuple(shape), tuple(deltas), cfg)
     pinv = _coarse_pinv(levels[-1], cfg, dtype, device)
     cdt = _dtype(cfg.dtype)
@@ -409,26 +501,31 @@ def make_mg_preconditioner(
         return x.to(r.dtype)
 
     M.config = cfg
+    M.resolved = {"transfers": transfers,
+                  "pre_dtype": str(_dtype(cfg.pre_dtype) or cdt or dtype
+                                   ).replace("torch.", "")}
     if cfg.cycles == 1 and cdt is None and len(levels) > 1:
         def apply_dots(r: Tensor):
             return v_cycle(levels, pinv, cfg, r, dots=True)
         M.apply_dots = apply_dots
 
         pd0 = _dtype(cfg.pre_dtype)
-        # the fused legs that would let a narrow pre-smooth feed this path
-        # are not ported, so only a field-dtype pre-smooth qualifies
-        pd_ok = pd0 is None or pd0 == dtype
-        if (cfg.smoother == "sor" and cfg.pre_smooth >= 1 and pd_ok
-                and _kernels(cfg, device)):
+        # a narrow pre-smooth qualifies when its single sweep is K5's and
+        # the fine level's fused leg reads the narrow iterate
+        pd_ok = (pd0 is None or pd0 == dtype
+                 or (cfg.pre_smooth == 1 and _fused_leg(levels, cfg, 0, device)))
+        if cfg.smoother == "sor" and cfg.pre_smooth >= 1 and pd_ok and kernels:
             # CG's residual update fused into the cycle's first kernel:
             # (r, Ap, alpha) -> (v, b, ||b||^2, sum(b), <b, v>, sum(v))
-            # for b = r - alpha*Ap
+            # for b = r - alpha*Ap; with a narrow pre_dtype K5 stores the
+            # swept iterate narrow while b stays in the field dtype
             w = 1.0 if cfg.damping is None else cfg.damping
             lvl0 = levels[0]
+            xdt = pd0 if pd0 is not None and pd0 != dtype else None
 
             def apply_update_dots(r: Tensor, ap: Tensor, alpha):
                 b_new, x, rr, sr = sor_rb_zero_update_cuda(
-                    r, ap, alpha, lvl0.deltas, w)
+                    r, ap, alpha, lvl0.deltas, w, out_dtype=xdt)
                 if cfg.pre_smooth > 1:
                     x = sor_rb_multisweep_cuda(x, b_new, lvl0.deltas, w,
                                                cfg.pre_smooth - 1)

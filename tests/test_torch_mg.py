@@ -165,9 +165,43 @@ def test_bf16_cycle_dtype_runs_on_cpu():
 
 
 def test_unported_options_raise():
+    """transfers='matmul' raised until K6/K7 were ported: it now runs and
+    matches JAX's matmul-transfer cycle; impl='pallas' (the reference's
+    name for its kernel path) runs as 'cuda'; unknown options still raise
+    ValueError when the preconditioner is built."""
     shape, d = (8, 8, 8), (1 / 8,) * 3
-    with pytest.raises(NotImplementedError, match="K6/K7"):
-        mg.make_mg_preconditioner(shape, d, mg.MGConfig(transfers="matmul"))
-    with pytest.raises(ValueError):
-        mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="pallas"))(
-            torch.zeros(shape, dtype=torch.float64))
+    (r,) = fields(shape, 25)
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(transfers="matmul"))
+    jM = jmg.make_mg_preconditioner(shape, d, jmg.MGConfig(transfers="matmul"),
+                                    dtype=jnp.float64)
+    ref = np.asarray(jax.jit(jM)(jnp.asarray(r)))
+    np.testing.assert_allclose(M(t(r)).numpy(), ref, rtol=RTOL_FIELD,
+                               atol=1e-12 * np.abs(ref).max())
+    as_pallas = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="pallas"))
+    as_cuda = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda"))
+    assert getattr(as_pallas, "apply_update_dots", None) is not None
+    assert torch.equal(as_pallas(t(r)), as_cuda(t(r)))
+    for bad in ({"impl": "tpu"}, {"transfers": "fft"}):
+        with pytest.raises(ValueError):
+            mg.make_mg_preconditioner(shape, d, mg.MGConfig(**bad))
+
+
+def test_512_f32_card_graph_binds_narrow_fused_update():
+    """At 512^3 f32 on the card's call graph (impl='cuda', matmul
+    transfers) the default cycle is V(1,1) with a bf16 pre-smooth, and
+    the narrow iterate composes with CG's fused update, as in the JAX
+    package on its accelerator (mg.py:737-772). Setup only: no field is
+    made."""
+    M = mg.make_mg_preconditioner(
+        (512,) * 3, (1 / 512,) * 3, mg.MGConfig(impl="cuda", transfers="matmul"),
+        torch.float32, "cpu")
+    assert (M.config.pre_smooth, M.config.post_smooth) == (1, 1)
+    assert M.resolved == {"transfers": "matmul", "pre_dtype": "bfloat16"}
+    assert getattr(M, "apply_update_dots", None) is not None
+    # V(2,2) with a bf16 pre-smooth: K5's narrow store would feed a second
+    # sweep, so the fused update stays unbound (JAX's pd_ok)
+    M22 = mg.make_mg_preconditioner(
+        (512,) * 3, (1 / 512,) * 3,
+        mg.MGConfig(impl="cuda", transfers="matmul", pre_smooth=2,
+                    post_smooth=2), torch.float32, "cpu")
+    assert getattr(M22, "apply_update_dots", None) is None

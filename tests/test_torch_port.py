@@ -18,7 +18,7 @@ from poissbox_tpu.solvers.result import classify as jclassify
 from poissbox_tpu_torch import constants, interop
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.mesh import Grid3D
-from poissbox_tpu_torch.ops import _build, stencil_cuda
+from poissbox_tpu_torch.ops import _build, stencil_cuda, transfer_cuda
 from poissbox_tpu_torch.solvers.result import ConvergedReason, SolveResult, classify
 
 REPO = Path(__file__).resolve().parent.parent
@@ -57,6 +57,12 @@ WRAPPERS = {
     "sor_rb_sweep_cuda": lambda u, d: stencil_cuda.sor_rb_sweep_cuda(u, u, d, 1.0),
     "sor_rb_multisweep_cuda": lambda u, d: stencil_cuda.sor_rb_multisweep_cuda(
         u, u, d, 1.0, 2, dots=True),
+    "jacobi_sweep_cuda": lambda u, d: stencil_cuda.jacobi_sweep_cuda(u, u, d, 0.8),
+    "cg_fused_update_cuda": lambda u, d: stencil_cuda.cg_fused_update_cuda(
+        0.5, u, u, u, u),
+    "residual_xrestrict_cuda": lambda u, d: transfer_cuda.residual_xrestrict_cuda(
+        u, u, d),
+    "xprolong_add_cuda": lambda u, d: transfer_cuda.xprolong_add_cuda(u, u[:4]),
 }
 
 

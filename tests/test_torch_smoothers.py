@@ -1,10 +1,11 @@
-"""The port's red-black SOR kernels (plain versions) and MG smoothers
-against the JAX package.
+"""The port's red-black SOR and Jacobi kernels (plain versions) and MG
+smoothers against the JAX package.
 
-K3 (zero-guess sweep), K4 (sweep, with and without the dots) and K5 (zero
-sweep with CG's update fused in) are held to the Pallas kernels in
-interpret mode, both colour orders, at 16^3, 32^3 and a grid with three
-different spacings. The roll-path smoothers are held to the JAX roll path.
+K3 (zero-guess sweep), K4 (sweep, with and without the dots), K5 (zero
+sweep with CG's update fused in) and K10 (Jacobi sweep) are held to the
+Pallas kernels in interpret mode, both colour orders, at 16^3, 32^3 and a
+grid with three different spacings; so are the bf16 forms of K3 and K5.
+The roll-path smoothers are held to the JAX roll path.
 """
 
 import jax
@@ -174,8 +175,97 @@ def test_kernel_smoother_matches_pallas_smoother():
 
 
 def test_jacobi_kernel_not_ported_raises():
-    (lvl, *_), _ = _levels((8, 8, 8), (1.0, 1.0, 1.0))
-    b = torch.ones(8, 8, 8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K10"):
-        mg._smooth(None, b, lvl, mg.MGConfig(smoother="jacobi", impl="cuda"),
-                   1, False)
+    """The Jacobi smoother on the kernel path, which raised until K10 was
+    ported: the impl='cuda' smoother (K10's plain version on CPU) against
+    the JAX impl='pallas' smoother, zero guess and from an iterate."""
+    shape, length = (16, 8, 12), (1.0, 0.75, 1.5)
+    (lvl, *_), (jlvl, *_) = _levels(shape, length)
+    x, b = fields(shape, 19, 2)
+    cfg = mg.MGConfig(smoother="jacobi", impl="cuda", damping=0.8)
+    jcfg = jmg.MGConfig(smoother="jacobi", impl="pallas", damping=0.8)
+    for guess in (None, x):
+        got = mg._smooth(None if guess is None else t(guess), t(b), lvl, cfg,
+                         3, False)
+        ref = jmg._smooth(None if guess is None else jnp.asarray(guess),
+                          jnp.asarray(b), jlvl, jcfg, 3, False)
+        close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_jacobi_plain_matches_pallas(shape, length):
+    """K10: u + (w/diag)(b - A u)."""
+    u, b = fields(shape, 20, 2)
+    d = Grid3D(shape, length).deltas
+    ref = jpallas.jacobi_sweep_pallas(jnp.asarray(u), jnp.asarray(b), d, 8 / 9)
+    close(stencil_cuda.jacobi_sweep_plain(t(u), t(b), d, 8 / 9).numpy(), ref)
+
+
+# bf16 K3 against the Pallas kernel: Pallas rounds every intermediate of
+# both colours to bf16, the port each colour's result once (its stated
+# bf16 definition), so the two differ by a few bf16 ulps of max|x|
+# (at most 0.0079 of it on these inputs)
+BF16_PALLAS_TOL = 2.0 ** -6
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_zero_sweep_bf16_plain_matches_pallas(shape, length, reverse):
+    """K3 on a bf16 right-hand side (the bf16 pre-smooth)."""
+    (b,) = fields(shape, 21, 1)
+    d = Grid3D(shape, length).deltas
+    ref = np.asarray(jpallas.sor_rb_zero_sweep_pallas(
+        jnp.asarray(b, jnp.bfloat16), d, W, reverse=reverse)).astype(np.float32)
+    got = stencil_cuda.sor_rb_zero_sweep_plain(t(b).to(torch.bfloat16), d, W,
+                                               reverse)
+    assert got.dtype == torch.bfloat16
+    close(got.float().numpy(), ref, rtol=0,
+          atol=BF16_PALLAS_TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_zero_update_narrow_plain_matches_pallas(shape, length):
+    """K5 with out_dtype=bf16: b, the sums and the sweep in f32, x1
+    stored in bf16 (one rounding on both sides)."""
+    r, ap = (a.astype(np.float32) for a in fields(shape, 22, 2))
+    alpha = np.float32(0.41)
+    d = Grid3D(shape, length).deltas
+    rb, rx, rrr, _ = jpallas.sor_rb_zero_update_pallas(
+        jnp.asarray(r), jnp.asarray(ap), jnp.asarray(alpha), d, W,
+        out_dtype=jnp.bfloat16)
+    b, x, rr, _ = stencil_cuda.sor_rb_zero_update_plain(
+        t(r), t(ap), torch.tensor(alpha), d, W, out_dtype=torch.bfloat16)
+    assert b.dtype == torch.float32 and x.dtype == torch.bfloat16
+    close(b.numpy(), rb, rtol=0, atol=1e-6)
+    rx = np.asarray(rx).astype(np.float32)
+    close(x.float().numpy(), rx, rtol=0, atol=2.0 ** -7 * np.abs(rx).max())
+    np.testing.assert_allclose(float(rr), float(rrr), rtol=1e-5)
+
+
+def test_bf16_sweep_plain_rounds_once_per_colour():
+    """The port's bf16 sweep: each colour computes in f32 and rounds at
+    its store, so it stays within two bf16 roundings (2^-7 of max|x|) of
+    the f32 sweep on the same bf16 inputs."""
+    u, b = (t(a).to(torch.bfloat16) for a in fields((16, 8, 12), 23, 2))
+    d = Grid3D((16, 8, 12), (1.0, 0.75, 1.5)).deltas
+    got = stencil_cuda.sor_rb_sweep_plain(u, b, d, W, reverse=True)
+    ref = stencil_cuda.sor_rb_sweep_plain(u.float(), b.float(), d, W, reverse=True)
+    assert got.dtype == torch.bfloat16
+    assert float((got.float() - ref).abs().max()) <= 2.0 ** -7 * float(ref.abs().max())
+
+
+def test_kernel_dtype_table():
+    """bf16 where a kernel takes it (KB zero/general, the transfer legs'
+    iterate), refused where none does (KA, K8, K5's inputs, KB dots)."""
+    bf16 = torch.bfloat16
+    for mode in ("rbsor.zero", "rbsor.general", "xfer.restrict",
+                 "xfer.prolong_add"):
+        stencil_cuda.check_dtype(mode, bf16)
+    for mode in ("stencil7.apply", "stencil7.apply_dot", "stencil7.residual",
+                 "stencil7.jacobi", "cgupd", "rbsor.zero_update", "rbsor.dots"):
+        with pytest.raises(TypeError, match="bfloat16"):
+            stencil_cuda.check_dtype(mode, bf16)
+    for mode in stencil_cuda.DTYPES:
+        for dt in (torch.float32, torch.float64):
+            stencil_cuda.check_dtype(mode, dt)
+        with pytest.raises(TypeError):
+            stencil_cuda.check_dtype(mode, torch.float16)

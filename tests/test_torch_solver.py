@@ -164,12 +164,65 @@ def test_ksp_solve_prints(capsys):
 
 
 def test_view_matches_jax():
+    """The JAX package's view, line for line, plus the port's line with
+    the transfer form and pre-smooth dtype the device resolved."""
     opts = dict(ksp_type="cg", pc_type="mg", mg_cycle="w")
     jM = jmake_mg((64, 64, 32), (1.0,) * 3, JMGConfig(cycle="w"),
                   dtype=jnp.float64)
     M = make_mg_preconditioner((64, 64, 32), (1.0,) * 3, MGConfig(cycle="w"))
-    assert ksp.view(SolverOptions(**opts), (64, 64, 32), M) == \
+    lines = ksp.view(SolverOptions(**opts), (64, 64, 32), M).splitlines()
+    assert lines[-1] == "  resolved: transfers roll, pre-smooth float64"
+    assert "\n".join(lines[:-1]) == \
         jksp.view(JSolverOptions(**opts), (64, 64, 32), jM)
+    M = make_mg_preconditioner((512,) * 3, (1.0,) * 3,
+                               MGConfig(impl="cuda", transfers="matmul"),
+                               torch.float32)
+    assert ksp.view(SolverOptions(**opts), None, M).splitlines()[-1] == \
+        "  resolved: transfers matmul, pre-smooth bfloat16"
+
+
+def test_mg_impl_pallas_runs_as_cuda():
+    """A reference command line that says -mg_impl pallas runs unchanged,
+    on the kernel path."""
+    n = 16
+    grid = Grid3D((n,) * 3)
+    b = make_laplacian_operator(grid)(torch.as_tensor(rhs_field(n, 6)))
+    argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-9",
+            "-mg_transfers", "matmul", "-mg_impl"]
+    res = {}
+    for impl in ("pallas", "cuda"):
+        s = PoissonSolver((n,) * 3, dtype=torch.float64,
+                          options=Options(argv + [impl]))
+        assert getattr(s._solver.M, "apply_update_dots", None) is not None
+        res[impl] = s.solve(b)
+    assert int(res["pallas"].iterations) == int(res["cuda"].iterations)
+    assert torch.equal(res["pallas"].x, res["cuda"].x)
+
+
+def test_jacobi_mgcg_iteration_parity_32():
+    """MG-CG with Jacobi-smoothed levels on the card's call graph: K10 on
+    every level, no fused M-side entry, so CG takes the operator's fused
+    update (K8) and apply_dots. Same iteration count as the JAX package
+    (roll operators, matmul transfers)."""
+    n, rtol = 32, 1e-10
+    grid = JGrid3D((n,) * 3)
+    jA = jmake_operator(grid, impl="roll")
+    b = jax_rhs(rhs_field(n, 7), n)
+    kw = dict(smoother="jacobi", transfers="matmul")
+    jM = jmake_mg(grid.n, grid.deltas, JMGConfig(impl="roll", **kw),
+                  dtype=jnp.float64)
+    ref = jax.jit(lambda z: jcg(jA, z, M=jM, rtol=rtol, max_it=80))(b)
+    tgrid = Grid3D((n,) * 3)
+    A = make_laplacian_operator(tgrid, impl="cuda")
+    M = make_mg_preconditioner(tgrid.n, tgrid.deltas, MGConfig(impl="cuda", **kw))
+    assert A.fused_update is not None and M.apply_dots is not None
+    assert getattr(M, "apply_update_dots", None) is None
+    res = cg(A, torch.as_tensor(b), M=M, rtol=rtol, max_it=80)
+    assert int(res.iterations) == int(ref.iterations)
+    assert int(res.reason) == int(ref.reason) > 0
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), rtol=1e-8,
+                               atol=1e-11)
+    np.testing.assert_allclose(history(res), history(ref), rtol=1e-8)
 
 
 def test_demo_runs_on_cpu(capsys):

@@ -2,8 +2,9 @@
 
 Inputs are made with numpy from a seed and handed to both. The roll and
 pointwise forms are held to the JAX roll and pointwise forms; the plain
-versions of the CUDA stencil kernel (K1, K2, K9) to the Pallas kernels,
-run in interpret mode as the JAX package's own tests run them on the CPU.
+versions of the CUDA stencil kernel (K1, K2, K9) and of CG's fused update
+(K8) to the Pallas kernels, run in interpret mode as the JAX package's own
+tests run them on the CPU.
 """
 
 import jax.numpy as jnp
@@ -105,6 +106,35 @@ def test_residual_plain_matches_pallas(shape, length):
     d = Grid3D(shape, length).deltas
     ref = np.asarray(jpallas.residual_pallas(jnp.asarray(u), jnp.asarray(b), d))
     close(stencil_cuda.residual_plain(t(u), t(b), d).numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_cg_fused_update_plain_matches_pallas(shape, length):
+    """K8: (x + alpha p, r - alpha Ap, ||r'||^2, sum(r'))."""
+    x, p, r, ap = fields(shape, 10, 4)
+    ref = jpallas.cg_fused_update(jnp.asarray(0.3), *(jnp.asarray(a)
+                                                      for a in (x, p, r, ap)))
+    got = stencil_cuda.cg_fused_update_plain(
+        torch.tensor(0.3, dtype=torch.float64), *(t(a) for a in (x, p, r, ap)))
+    close(got[0].numpy(), ref[0], atol=1e-15)
+    close(got[1].numpy(), ref[1], atol=1e-15)
+    np.testing.assert_allclose(float(got[2]), float(ref[2]), rtol=1e-12)
+    # sum(r') of zero-mean noise: relative to the sum of |r'|
+    np.testing.assert_allclose(float(got[3]), float(ref[3]), rtol=0,
+                               atol=1e-13 * np.abs(np.asarray(ref[1])).sum())
+
+
+def test_cuda_operator_binds_fused_update():
+    u, p, r, ap = (t(a) for a in fields((8, 8, 8), 11, 4))
+    grid = Grid3D((8, 8, 8))
+    assert stencil.make_laplacian_operator(grid, impl="roll").fused_update is None
+    A = stencil.make_laplacian_operator(grid, impl="cuda")
+    alpha = torch.tensor(0.7, dtype=torch.float64)
+    stencil_cuda.reset_launches()
+    for a, c in zip(A.fused_update(alpha, u, p, r, ap),
+                    stencil_cuda.cg_fused_update_plain(alpha, u, p, r, ap)):
+        assert torch.equal(a, c)
+    assert not any(stencil_cuda.LAUNCHES.values())
 
 
 def test_cuda_wrappers_take_plain_version_on_cpu():

@@ -1,0 +1,228 @@
+"""The port's multigrid transfers against the JAX package.
+
+The plain versions of the fused legs, K6 (residual + x-restriction) and K7
+(x-prolongation + add), are held to the Pallas kernels in interpret mode,
+in f64 and with a bf16 iterate; restrict_mm/prolong_mm to JAX's and to the
+roll form; the fused-leg cycle (transfers="matmul", impl="cuda": the card's
+call graph on CPU tensors) to JAX's impl="pallas" cycle; and MG-CG with
+the fused legs to JAX's iteration count.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from poissbox_tpu.mesh import Grid3D as JGrid3D
+from poissbox_tpu.ops import stencil_pallas as jpallas
+from poissbox_tpu.ops.stencil import make_laplacian_operator as jmake_operator
+from poissbox_tpu.solvers import mg as jmg
+from poissbox_tpu.solvers.cg import cg as jcg
+from poissbox_tpu_torch.api import PoissonSolver
+from poissbox_tpu_torch.config import Options
+from poissbox_tpu_torch.mesh import Grid3D
+from poissbox_tpu_torch.ops import stencil_cuda, transfer_cuda
+from poissbox_tpu_torch.solvers import mg
+
+# cubic cells at 8^3 (nx/2 = 4: the periodic wrap at I = 0 and I = nx/2-1
+# is most of the field), 16^3, 32^3, and three different spacings
+GRIDS = [((8, 8, 8), (1.0, 1.0, 1.0)),
+         ((16, 16, 16), (1.0, 1.0, 1.0)),
+         ((32, 32, 32), (1.0, 1.0, 1.0)),
+         ((32, 16, 24), (1.0, 0.75, 1.5))]
+GRID_IDS = ["8^3", "16^3", "32^3", "aniso"]
+# bf16 iterate: both sides upcast it and compute in float32; the bound is
+# the bf16 comparison tier, 2^-7 of the field's max
+BF16_TOL = 2.0 ** -7
+
+
+def fields(shape, seed, k=1):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(-1.0, 1.0, shape) for _ in range(k)]
+
+
+def t(a):
+    return torch.as_tensor(np.asarray(a))
+
+
+def close(got, ref, tol=1e-12):
+    ref = np.asarray(ref)
+    np.testing.assert_allclose(np.asarray(got), ref, rtol=tol,
+                               atol=tol * np.abs(ref).max())
+
+
+def half(shape):
+    return (shape[0] // 2,) + tuple(shape[1:])
+
+
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_residual_xrestrict_plain_matches_pallas(shape, length):
+    """K6 in f64."""
+    u, b = fields(shape, 41, 2)
+    d = Grid3D(shape, length).deltas
+    ref = jpallas.residual_xrestrict_pallas(jnp.asarray(u), jnp.asarray(b), d)
+    got = transfer_cuda.residual_xrestrict_plain(t(u), t(b), d)
+    assert tuple(got.shape) == half(shape)
+    close(got.numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_residual_xrestrict_bf16_iterate_matches_pallas(shape, length):
+    """K6 reading a bf16 iterate with an f32 right-hand side."""
+    u, b = fields(shape, 42, 2)
+    d = Grid3D(shape, length).deltas
+    ref = np.asarray(jpallas.residual_xrestrict_pallas(
+        jnp.asarray(u, jnp.bfloat16), jnp.asarray(b, jnp.float32), d))
+    got = transfer_cuda.residual_xrestrict_plain(
+        t(u).to(torch.bfloat16), t(b).float(), d)
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=BF16_TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_xprolong_add_plain_matches_pallas(shape, length):
+    """K7 in f64."""
+    (u,) = fields(shape, 43)
+    (e,) = fields(half(shape), 44)
+    ref = jpallas.xprolong_add_pallas(jnp.asarray(u), jnp.asarray(e))
+    close(transfer_cuda.xprolong_add_plain(t(u), t(e)).numpy(), ref)
+
+
+@pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
+def test_xprolong_add_bf16_iterate_matches_pallas(shape, length):
+    """K7 adding into a bf16 iterate; the output takes e's dtype."""
+    (u,) = fields(shape, 45)
+    (e,) = fields(half(shape), 46)
+    ref = np.asarray(jpallas.xprolong_add_pallas(
+        jnp.asarray(u, jnp.bfloat16), jnp.asarray(e, jnp.float32)))
+    got = transfer_cuda.xprolong_add_plain(t(u).to(torch.bfloat16), t(e).float())
+    assert got.dtype == torch.float32 and ref.dtype == np.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=0,
+                               atol=BF16_TOL * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8), (16, 4, 6), (32, 16, 24)])
+@pytest.mark.parametrize("axes", [(0, 1, 2), (1, 2)])
+def test_transfer_contractions_match_jax_and_roll(shape, axes):
+    (f,) = fields(shape, 47)
+    (c,) = fields(tuple(n // 2 for n in shape), 48)
+    got_r = mg.restrict_mm(t(f), axes=axes)
+    got_p = mg.prolong_mm(t(c), axes=axes)
+    assert got_r.is_contiguous() and got_p.is_contiguous()
+    close(got_r.numpy(), jmg.restrict_mm(jnp.asarray(f), axes=axes), 1e-13)
+    close(got_p.numpy(), jmg.prolong_mm(jnp.asarray(c), axes=axes), 1e-13)
+    close(got_r.numpy(), mg.restrict(t(f), axes=axes).numpy(), 1e-13)
+    close(got_p.numpy(), mg.prolong(t(c), axes=axes).numpy(), 1e-13)
+
+
+def test_transfer_wrappers_take_plain_version_on_cpu():
+    u, b = (t(a) for a in fields((8, 8, 8), 49, 2))
+    (e,) = (t(a) for a in fields((4, 8, 8), 50))
+    d = (0.125,) * 3
+    stencil_cuda.reset_launches()
+    assert torch.equal(transfer_cuda.residual_xrestrict_cuda(u, b, d),
+                       transfer_cuda.residual_xrestrict_plain(u, b, d))
+    assert torch.equal(transfer_cuda.xprolong_add_cuda(u, e),
+                       transfer_cuda.xprolong_add_plain(u, e))
+    assert not any(stencil_cuda.LAUNCHES.values())
+
+
+def test_transfers_resolve_by_device():
+    """'auto' is matmul on a CUDA device (the JAX package's choice on its
+    accelerator) and roll on the CPU; the fused legs need kernel levels."""
+    levels = mg._build_levels((16,) * 3, (1 / 16,) * 3, mg.MGConfig())
+    auto, roll = mg.MGConfig(), mg.MGConfig(impl="roll")
+    assert mg._transfers(auto, "cuda") == "matmul"
+    assert mg._transfers(auto, "cpu") == "roll"
+    assert [mg._fused_leg(levels, auto, i, "cuda") for i in range(3)] == \
+        [True, True, False]
+    assert not mg._fused_leg(levels, auto, 0, "cpu")
+    assert not mg._fused_leg(levels, roll, 0, "cuda")
+    card_graph = mg.MGConfig(impl="cuda", transfers="matmul")
+    assert mg._fused_leg(levels, card_graph, 0, "cpu")
+
+
+@pytest.fixture(scope="module")
+def fused32():
+    """The 32^3 hierarchy with the fused legs both ways: the port's
+    impl='cuda', transfers='matmul' on CPU tensors, and JAX's
+    impl='pallas', transfers='matmul' in interpret mode (f64)."""
+    n = 32
+    shape, d = (n,) * 3, (1.0 / n,) * 3
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda",
+                                                        transfers="matmul"))
+    jM = jmg.make_mg_preconditioner(
+        shape, d, jmg.MGConfig(impl="pallas", transfers="matmul"),
+        dtype=jnp.float64)
+    r, ap = fields(shape, 51, 2)
+    return M, jM, r - r.mean(), ap
+
+
+def test_fused_leg_cycle_matches_pallas_path(fused32):
+    M, jM, r, ap = fused32
+    assert M.resolved == {"transfers": "matmul", "pre_dtype": "float64"}
+    close(M(t(r)).numpy(), jax.jit(jM)(jnp.asarray(r)))
+    got = M.apply_update_dots(t(r), t(ap), torch.tensor(0.37, dtype=torch.float64))
+    ref = jax.jit(jM.apply_update_dots)(jnp.asarray(r), jnp.asarray(ap), 0.37)
+    for g, f in zip(got[:2], ref[:2]):        # v, b
+        close(g.numpy(), f)
+    for g, f in zip(got[2:], ref[2:]):        # ||b||^2, sum b, <b, v>, sum v
+        np.testing.assert_allclose(float(g), float(f), rtol=1e-11,
+                                   atol=1e-12 * abs(float(ref[2])))
+
+
+def test_fused_leg_bf16_pre_smooth_matches_pallas_path():
+    """The 512^3-class cycle shape at 16^3 f32: V(1,1), bf16 pre-smooth,
+    fused legs. K5 stores x1 in bf16 and K6/K7 read it; the outputs are
+    held to JAX's impl='pallas' counterpart at the JAX package's own
+    tolerances for this cycle (tests/test_mg.py:246-261)."""
+    n = 16
+    shape, d = (n,) * 3, (1.0 / n,) * 3
+    kw = dict(pre_smooth=1, post_smooth=1, pre_dtype="bfloat16",
+              transfers="matmul")
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda", **kw),
+                                  torch.float32)
+    jM = jmg.make_mg_preconditioner(shape, d, jmg.MGConfig(impl="pallas", **kw),
+                                    dtype=jnp.float32)
+    assert getattr(M, "apply_update_dots", None) is not None
+    assert M.resolved == {"transfers": "matmul", "pre_dtype": "bfloat16"}
+    r, ap = (a.astype(np.float32) for a in fields(shape, 52, 2))
+    alpha = np.float32(0.37)
+    v, b, rr, sr, rv, sv = M.apply_update_dots(
+        t(r), t(ap), torch.tensor(alpha))
+    jv, jb, jrr, jsr, jrv, jsv = jax.jit(jM.apply_update_dots)(
+        jnp.asarray(r), jnp.asarray(ap), jnp.asarray(alpha))
+    assert v.dtype == b.dtype == torch.float32
+    np.testing.assert_allclose(b.numpy(), np.asarray(jb), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(float(rr), float(jrr), rtol=1e-4)
+    scale = float(np.abs(np.asarray(jv)).max())
+    assert float(np.abs(v.numpy() - np.asarray(jv)).max()) <= 0.05 * scale
+    np.testing.assert_allclose(float(rv), float(jrv), rtol=1e-3)
+    np.testing.assert_allclose(float(sv), float(jsv), rtol=1e-2,
+                               atol=1e-3 * scale)
+
+
+def test_mgcg_fused_legs_iteration_parity_32():
+    """MG-CG through PoissonSolver on the card's call graph (-mg_impl cuda
+    -mg_transfers matmul) against JAX's MG-CG with matmul transfers."""
+    n, rtol = 32, 1e-10
+    u = np.random.default_rng(53).uniform(-1.0, 1.0, (n,) * 3)
+    u -= u.mean()
+    grid = JGrid3D((n,) * 3)
+    jA = jmake_operator(grid, impl="roll")
+    b = np.array(jA(jnp.asarray(u)))
+    jM = jmg.make_mg_preconditioner(
+        grid.n, grid.deltas, jmg.MGConfig(impl="roll", transfers="matmul"),
+        dtype=jnp.float64)
+    ref = jax.jit(lambda z: jcg(jA, z, M=jM, rtol=rtol, max_it=60))(b)
+    s = PoissonSolver((n,) * 3, dtype=torch.float64, options=Options(
+        ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
+         "-ksp_max_it", "60", "-mg_impl", "cuda", "-mg_transfers", "matmul"]))
+    assert getattr(s._solver.M, "apply_update_dots", None) is not None
+    res = s.solve(torch.as_tensor(b))
+    assert int(res.iterations) == int(ref.iterations)
+    assert int(res.reason) == int(ref.reason) > 0
+    np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), rtol=1e-8,
+                               atol=1e-11)
