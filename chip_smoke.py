@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-Drives poissbox_tpu_torch's solver of record — CG preconditioned by one
-geometric-multigrid V-cycle — on the card, through the hand-written
-kernels, and fails loudly if any phase fails:
+Drives poissbox_tpu_torch on the card, through the hand-written kernels,
+and fails loudly if any phase fails:
 
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the kernels from poissbox_tpu_torch/csrc with nvcc
@@ -11,22 +10,37 @@ kernels, and fails loudly if any phase fails:
   3. kernels: every stencil7 epilogue, rbsor mode, xfer leg and the CG
      update against its plain PyTorch version on the same card (64^3 f64,
      256^3 f32, an anisotropic grid; the bf16 modes on the f32 cases and
-     512^3), then kernel and plain times at 256^3 f32 and, for the modes
-     of the 512^3 path, at 512^3 f32;
+     512^3; the stencil7 epilogues, bf16 too, at (48, 40, 96) f32), then
+     kernel, plain and bound times at 256^3 f32 and, for the modes of the
+     512^3 path, at 512^3 f32; K1 beside Conv3d;
   4. transfers: the banded-matrix y/z transfers against the roll form in
      f32 with TF32 allowed globally (the contractions must not use it),
      and their times against the roll form's;
-  5. paths, each with the launch counters reset before and read after,
+  5. compact and tridiagonal kernels: K15's line kernel (lapl, grad, div,
+     interp, op_1d: compact.z/y/x) and K13/K14 (tridiag.thomas/pcr)
+     against their plain versions at 64^3 f64, (48, 40, 96) f32 and f64,
+     256^3 f32 and 512^3 f32; sweep, Laplacian and solve times with their
+     bounds, K13/K14 beside torch.linalg.lu_solve;
+  6. paths, each with the launch counters reset before and read after,
      each checked against the plain PyTorch path on the card (impl="roll",
-     transfers="roll"), with warm solve times:
+     transfers="roll"; for the compact operator method="pscan"), with
+     warm solve times:
        (a)   MG-CG through the fused transfer legs (K6/K7): 64^3 f64 rtol
              1e-8 (6 iterations), 256^3 f32 rtol 1e-6 (5), the demo at 64^3;
        (a/r) the same solves with -mg_transfers roll through the kernels;
        (b)   512^3 f32 rtol 1e-6, the default MGConfig: V(1,1), bf16
              pre-smooth, K5 storing x1 in bf16, K6/K7 reading it (7);
        (b/r) the same with -mg_transfers roll (CG then takes K8);
+       (b/s) 512^3 f32 with the bf16 pre-smooth of the Chebyshev smoother
+             (KA's bf16 residual) and of two-sweep Jacobi (K10 in bf16);
        (c)   256^3 f32 rtol 1e-6 with -mg_levels_pc_type jacobi: K10 on
-             every level, CG on K8 and apply_dots.
+             every level, CG on K8 and apply_dots;
+       (d)   PoissonSolver(order=6), CG + the 2nd-order GMG: 64^3 f64 rtol
+             1e-8, 256^3 f32 rtol 1e-3 (what f32 can certify there);
+       (e)   -ksp_type fft at 512^3 f32, order 2 and order 6; FCG with
+             -pc_type fft on order 6 at 256^3 f32 and f64;
+       (f)   the batched periodic tridiagonal solve of the JAX package's
+             bench at 512^3 f32: CudaTridiagFactor, PCR (auto) and Thomas.
 
 The last two lines of standard output are a JSON object with one entry
 per kernel mode, then {"ok": true, "device": {...}}.
@@ -37,6 +51,7 @@ per kernel mode, then {"ok": true, "device": {...}}.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -49,13 +64,17 @@ from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops import _build
+from poissbox_tpu_torch.ops import compact_pcr as cp
 from poissbox_tpu_torch.ops import stencil_cuda as sc
 from poissbox_tpu_torch.ops import transfer_cuda as tc
+from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
-from poissbox_tpu_torch.solvers import ksp
+from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
+from poissbox_tpu_torch.solvers import fft, ksp
 from poissbox_tpu_torch.solvers import mg
 
 BF16 = torch.bfloat16
+DEVICE = "cuda"   # every field and solver of the script lives on the card
 # fields: max|kernel - plain| <= FIELD_TOL * max|plain|; reductions:
 # |kernel - plain| <= RED_TOL * |plain|. The kernels keep the plain
 # versions' grouping and are built without FMA contraction, so the only
@@ -68,11 +87,15 @@ MM_TOL = 1e-6
 
 PALLAS = "poissbox_tpu/ops/stencil_pallas.py"
 INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
+PCR = "poissbox_tpu/ops/compact_pcr.py"
+TRI = "poissbox_tpu/ops/tridiag_pallas.py"
 KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "stencil7.apply": ("stencil7.cu", f"{PALLAS}:348"),
     "stencil7.apply_dot": ("stencil7.cu", f"{PALLAS}:369"),
     "stencil7.residual": ("stencil7.cu", f"{PALLAS}:649"),
     "stencil7.jacobi": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
+    "stencil7.residual.bf16": ("stencil7.cu", f"{PALLAS}:649"),
+    "stencil7.jacobi.bf16": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
     "rbsor.zero": ("rbsor.cu", f"{PALLAS}:690"),
     "rbsor.zero_update": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
     "rbsor.general": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
@@ -85,10 +108,24 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "xfer.prolong_add": ("xfer.cu", f"{PALLAS}:1044"),
     "xfer.prolong_add.bf16u": ("xfer.cu", f"{PALLAS}:1044"),
     "cgupd": ("cgupd.cu", f"{PALLAS}:596"),
+    "compact.z": ("compact.cu", f"{PCR}:282"),
+    "compact.y": ("compact.cu", f"{PCR}:282"),
+    "compact.x": ("compact.cu", f"{PCR}:304, {PCR}:431"),
+    "tridiag.thomas": ("tridiag.cu", f"{TRI}:293"),
+    "tridiag.pcr": ("compact.cu", f"{TRI}:303"),
 }
 # the modes of the 512^3 path, timed at 512^3 (the rest at 256^3)
 AT_512 = ("rbsor.zero.bf16", "rbsor.general.bf16", "rbsor.general.narrow",
-          "xfer.restrict.bf16u", "xfer.prolong_add.bf16u")
+          "xfer.restrict.bf16u", "xfer.prolong_add.bf16u",
+          "stencil7.residual.bf16", "stencil7.jacobi.bf16")
+# the card's peaks (H100 SXM data sheet): HBM bytes/s, f32 operations/s
+# outside the tensor cores (the kernels' arithmetic is f32 or f64; every
+# timed case is f32 or bf16 stored, f32 computed)
+HBM_BPS = 3.35e12
+F32_OPS = 67e12
+# the bench's periodic tridiagonal system (alpha, 1, alpha), alpha the
+# compact first derivative's (bench.py:198-200)
+ALPHA_TRI = 9.0 / 62.0
 W = 1.0        # SOR weight of the solver of record
 WJ = 8.0 / 9.0  # damped-Jacobi weight of the Jacobi smoother
 ALPHA = 0.37   # CG step for the fused-update checks
@@ -103,46 +140,52 @@ def as_tuple(out):
 
 
 def mode_calls(deltas, narrow: bool):
-    """(name, launch counter, kernel call, plain call) per mode; with
-    `narrow` (float32 cases) the bf16 modes too. A timed name is the
-    counter's own; a sweep mode's time is the wrapper's (the whole TPU
-    kernel: K3 = zero + general, K5 = zero_update + general)."""
+    """(name, inputs, operations per point, kernel call, plain call) per
+    mode; with `narrow` (float32 cases) the bf16 modes too. A timed name
+    is the counter's own; a sweep mode's time is the wrapper's (the whole
+    TPU kernel: K3 = zero + general, K5 = zero_update + general). The
+    inputs (each read once) and the outputs (each written once) give the
+    mode's byte bound; the operations, its arithmetic bound."""
     d = deltas
     calls = [
-        ("stencil7.apply", lambda f: sc.apply_laplacian_cuda(f["u"], d),
+        ("stencil7.apply", ["u"], 10, lambda f: sc.apply_laplacian_cuda(f["u"], d),
          lambda f: sc.apply_laplacian_plain(f["u"], d)),
-        ("stencil7.apply_dot", lambda f: sc.apply_laplacian_dot_cuda(f["u"], d),
+        ("stencil7.apply_dot", ["u"], 12,
+         lambda f: sc.apply_laplacian_dot_cuda(f["u"], d),
          lambda f: sc.apply_laplacian_dot_plain(f["u"], d)),
-        ("stencil7.residual", lambda f: sc.residual_cuda(f["u"], f["b"], d),
+        ("stencil7.residual", ["u", "b"], 11,
+         lambda f: sc.residual_cuda(f["u"], f["b"], d),
          lambda f: sc.residual_plain(f["u"], f["b"], d)),
-        ("stencil7.jacobi", lambda f: sc.jacobi_sweep_cuda(f["u"], f["b"], d, WJ),
+        ("stencil7.jacobi", ["u", "b"], 13,
+         lambda f: sc.jacobi_sweep_cuda(f["u"], f["b"], d, WJ),
          lambda f: sc.jacobi_sweep_plain(f["u"], f["b"], d, WJ)),
-        ("xfer.restrict", lambda f: tc.residual_xrestrict_cuda(f["u"], f["b"], d),
+        ("xfer.restrict", ["u", "b"], 13,
+         lambda f: tc.residual_xrestrict_cuda(f["u"], f["b"], d),
          lambda f: tc.residual_xrestrict_plain(f["u"], f["b"], d)),
-        ("xfer.prolong_add", lambda f: tc.xprolong_add_cuda(f["u"], f["e"]),
+        ("xfer.prolong_add", ["u", "e"], 3, lambda f: tc.xprolong_add_cuda(f["u"], f["e"]),
          lambda f: tc.xprolong_add_plain(f["u"], f["e"])),
-        ("cgupd", lambda f: sc.cg_fused_update_cuda(f["alpha"], f["u"], f["p"],
-                                                    f["r"], f["ap"]),
+        ("cgupd", ["u", "p", "r", "ap"], 7,
+         lambda f: sc.cg_fused_update_cuda(f["alpha"], f["u"], f["p"], f["r"], f["ap"]),
          lambda f: sc.cg_fused_update_plain(f["alpha"], f["u"], f["p"], f["r"],
                                             f["ap"])),
-        ("rbsor.dots/multisweep3",
+        ("rbsor.dots/multisweep3", ["u", "b"], 45,
          lambda f: sc.sor_rb_multisweep_cuda(f["u"], f["b"], d, W, 3, dots=True),
          lambda f: sc.sor_rb_multisweep_plain(f["u"], f["b"], d, W, 3, dots=True)),
     ]
     for rev in (False, True):
         calls += [
-            (f"rbsor.zero/rev={rev}",
+            (f"rbsor.zero/rev={rev}", ["b"], 13,
              lambda f, rev=rev: sc.sor_rb_zero_sweep_cuda(f["b"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_zero_sweep_plain(f["b"], d, W, rev)),
-            (f"rbsor.zero_update/rev={rev}",
+            (f"rbsor.zero_update/rev={rev}", ["r", "ap"], 17,
              lambda f, rev=rev: sc.sor_rb_zero_update_cuda(
                  f["r"], f["ap"], f["alpha"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_zero_update_plain(
                  f["r"], f["ap"], f["alpha"], d, W, rev)),
-            (f"rbsor.general/rev={rev}",
+            (f"rbsor.general/rev={rev}", ["u", "b"], 13,
              lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u"], f["b"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u"], f["b"], d, W, rev)),
-            (f"rbsor.dots/rev={rev}",
+            (f"rbsor.dots/rev={rev}", ["u", "b"], 16,
              lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u"], f["b"], d, W, rev,
                                                      dots=True),
              lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u"], f["b"], d, W, rev,
@@ -150,14 +193,14 @@ def mode_calls(deltas, narrow: bool):
         ]
         if narrow:
             calls += [
-                (f"rbsor.zero.bf16/rev={rev}",
+                (f"rbsor.zero.bf16/rev={rev}", ["b16"], 13,
                  lambda f, rev=rev: sc.sor_rb_zero_sweep_cuda(f["b16"], d, W, rev),
                  lambda f, rev=rev: sc.sor_rb_zero_sweep_plain(f["b16"], d, W, rev)),
-                (f"rbsor.general.bf16/rev={rev}",
+                (f"rbsor.general.bf16/rev={rev}", ["u16", "b16"], 13,
                  lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u16"], f["b16"], d, W, rev),
                  lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u16"], f["b16"], d, W,
                                                           rev)),
-                (f"rbsor.general.narrow/rev={rev}",
+                (f"rbsor.general.narrow/rev={rev}", ["r", "ap"], 17,
                  lambda f, rev=rev: sc.sor_rb_zero_update_cuda(
                      f["r"], f["ap"], f["alpha"], d, W, rev, out_dtype=BF16),
                  lambda f, rev=rev: sc.sor_rb_zero_update_plain(
@@ -165,24 +208,59 @@ def mode_calls(deltas, narrow: bool):
             ]
     if narrow:
         calls += [
-            ("xfer.restrict.bf16u",
+            ("xfer.restrict.bf16u", ["u16", "b"], 13,
              lambda f: tc.residual_xrestrict_cuda(f["u16"], f["b"], d),
              lambda f: tc.residual_xrestrict_plain(f["u16"], f["b"], d)),
-            ("xfer.prolong_add.bf16u",
+            ("xfer.prolong_add.bf16u", ["u16", "e"], 3,
              lambda f: tc.xprolong_add_cuda(f["u16"], f["e"]),
              lambda f: tc.xprolong_add_plain(f["u16"], f["e"])),
+            ("stencil7.residual.bf16", ["u16", "b16"], 11,
+             lambda f: sc.residual_cuda(f["u16"], f["b16"], d),
+             lambda f: sc.residual_plain(f["u16"], f["b16"], d)),
+            ("stencil7.jacobi.bf16", ["u16", "b16"], 13,
+             lambda f: sc.jacobi_sweep_cuda(f["u16"], f["b16"], d, WJ),
+             lambda f: sc.jacobi_sweep_plain(f["u16"], f["b16"], d, WJ)),
         ]
     return calls
+
+
+def bound(nbytes: float, ops: float) -> dict:
+    """The least time the card could take: the bytes over the HBM rate or
+    the operations over the f32 rate, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def out_bytes(out) -> int:
+    """Bytes written: every field output (reductions are a few scalars)."""
+    return sum(t.nbytes for t in as_tuple(out) if t.dim() > 0)
+
+
+def conv_star(deltas, dtype):
+    """One library call for K1: Conv3d with the 7-point star as its
+    weights, circular padding (the periodic boundary), no bias."""
+    ivx, ivy, ivz = (1.0 / float(dd) ** 2 for dd in deltas)
+    w = torch.zeros(3, 3, 3, dtype=torch.float64)
+    w[0, 1, 1] = w[2, 1, 1] = ivx
+    w[1, 0, 1] = w[1, 2, 1] = ivy
+    w[1, 1, 0] = w[1, 1, 2] = ivz
+    w[1, 1, 1] = -2.0 * (ivx + ivy + ivz)
+    conv = torch.nn.Conv3d(1, 1, 3, padding=1, padding_mode="circular",
+                           bias=False).to(device=DEVICE, dtype=dtype)
+    conv.requires_grad_(False)
+    conv.weight.copy_(w.view(1, 1, 3, 3, 3))
+    return lambda u: conv(u[None, None])[0, 0]
 
 
 def fields(shape, dtype, seed):
     """Seeded inputs on the card; the offset keeps the sums well away from
     zero, so a relative tolerance on them is meaningful."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda s=shape: torch.rand(s, generator=g, dtype=dtype, device="cuda") * 2 - 0.75
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    mk = lambda s=shape: torch.rand(s, generator=g, dtype=dtype, device=DEVICE) * 2 - 0.75
     f = {"u": mk(), "b": mk(), "r": mk(), "ap": mk(), "p": mk(),
          "e": mk((shape[0] // 2,) + tuple(shape[1:])),
-         "alpha": torch.tensor(ALPHA, dtype=dtype, device="cuda")}
+         "alpha": torch.tensor(ALPHA, dtype=dtype, device=DEVICE)}
     if dtype == torch.float32:
         f["u16"], f["b16"] = f["u"].to(BF16), f["b"].to(BF16)
     return f
@@ -230,34 +308,55 @@ def median_ms(fn, reps: int = 25, warm: int = 3) -> float:
 
 def check_kernels() -> dict:
     """Phase 3: every mode against its plain version; returns, per launch
-    counter, the max abs error over the cases and the times at the
-    mode's path shape (512^3 for AT_512, 256^3 otherwise)."""
+    counter, the max abs error over the cases and, at the mode's path
+    shape (512^3 for AT_512, 256^3 otherwise), its time, the plain
+    version's, its bound and, for K1, the library call's."""
     cases = [((64, 64, 64), (1.0, 1.0, 1.0), torch.float64),
              ((64, 32, 48), (1.0, 0.75, 1.5), torch.float64),
              ((64, 32, 48), (1.0, 0.75, 1.5), torch.float32),
+             ((48, 40, 96), (1.0, 1.0, 1.0), torch.float32),
              ((256, 256, 256), (1.0, 1.0, 1.0), torch.float32),
              ((512, 512, 512), (1.0, 1.0, 1.0), torch.float32)]
-    stats = {k: {"max_abs_err": 0.0} for k in KERNELS}
+    stats = {k: {"max_abs_err": 0.0, "library_ms": None} for k in KERNELS}
     for shape, length, dtype in cases:
-        deltas = Grid3D(shape, length).deltas
+        deltas = Grid3D(shape, length, DEVICE).deltas
         f = fields(shape, dtype, seed=sum(shape))
         n = shape[0] if len(set(shape)) == 1 else 0
-        for name, kern, plain in mode_calls(deltas, dtype == torch.float32):
+        for name, ins, ops, kern, plain in mode_calls(deltas, dtype == torch.float32):
             key = name.split("/")[0]
             if n == 512 and key not in AT_512 and not key.startswith(
                     ("xfer.", "cgupd", "stencil7.jacobi")):
-                continue      # at 512^3, only this slice's modes
-            err = compare(f"{name} {shape} {dtype}", kern(f), plain(f))
+                continue      # at 512^3, only the modes of the 512^3 paths
+            if shape == (48, 40, 96) and not key.startswith("stencil7."):
+                continue      # the compact cases' shape: KA's epilogues, bf16 too
+            got = kern(f)
+            err = compare(f"{name} {shape} {dtype}", got, plain(f))
             torch.cuda.synchronize()
             st = stats[key]
             st["max_abs_err"] = max(st["max_abs_err"], err)
             timed = "/" not in name or name.endswith("rev=False")
             if n in (256, 512) and timed:
                 ms, plain_ms = median_ms(lambda: kern(f)), median_ms(lambda: plain(f))
+                bd = bound(sum(f[k].nbytes for k in ins) + out_bytes(got),
+                           ops * f["u"].numel())
                 print(f"  {name:32s} {n}^3 f32: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, max|diff| {err:.3e}")
+                      f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+                      f"({bd['bound_by']}), max|diff| {err:.3e}")
                 if n == (512 if key in AT_512 else 256):
-                    st.update(ms=ms, plain_ms=plain_ms)
+                    st.update(ms=ms, plain_ms=plain_ms, **bd)
+            del got
+        if n == 256:
+            lib = conv_star(deltas, dtype)
+            with torch.no_grad():
+                y = lib(f["u"])
+                ref = sc.apply_laplacian_plain(f["u"], deltas)
+                rel = float((y - ref).abs().max()) / float(ref.abs().max())
+                if not rel <= 1e-5:
+                    raise AssertionError(f"Conv3d star: relative {rel:.3e} from K1's plain")
+                lib_ms = median_ms(lambda: lib(f["u"]))
+            stats["stencil7.apply"]["library_ms"] = lib_ms
+            print(f"  stencil7.apply library (Conv3d, circular, TF32 off) 256^3 "
+                  f"f32: {lib_ms:.4f} ms, relative diff {rel:.2e}")
         del f
         torch.cuda.empty_cache()
         print(f"  all modes agree at {shape} {dtype}, lengths {length}", flush=True)
@@ -271,12 +370,12 @@ def check_contractions() -> None:
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
-        g = torch.Generator(device="cuda").manual_seed(7)
+        g = torch.Generator(device=DEVICE).manual_seed(7)
         for n, axes in ((256, (0, 1, 2)), (256, (1, 2)), (512, (1, 2))):
             fine = (n // 2, n, n) if axes == (1, 2) else (n,) * 3
             coarse = tuple(s // 2 if a in axes else s for a, s in enumerate(fine))
-            f = torch.rand(fine, generator=g, device="cuda") * 2 - 1
-            c = torch.rand(coarse, generator=g, device="cuda") * 2 - 1
+            f = torch.rand(fine, generator=g, device=DEVICE) * 2 - 1
+            c = torch.rand(coarse, generator=g, device=DEVICE) * 2 - 1
             for what, mm, roll, x in (
                     ("restrict", mg.restrict_mm, mg.restrict, f),
                     ("prolong", mg.prolong_mm, mg.prolong, c)):
@@ -296,11 +395,163 @@ def check_contractions() -> None:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+COMPACT_CASES = [((64, 64, 64), torch.float64), ((48, 40, 96), torch.float32),
+                 ((48, 40, 96), torch.float64), ((256, 256, 256), torch.float32),
+                 ((512, 512, 512), torch.float32)]
+LAPL_KEYS = ("compact.z", "compact.y", "compact.x")   # lapl_sweeps' order
+
+
+def program_ops(program) -> int:
+    """Operations per point of one K15 sweep: 7 for the RHS taps (1 for
+    the scale of a plain solve), 3 a PCR step, 1 for the final scale (3
+    for the exact pairing), 1 for each summed term."""
+    total = 0
+    for out in program:
+        total += len(out) - 1
+        for _, specs in out:
+            for _, b, _, _, (fs, _, aF) in specs:
+                total += (1 if b is None else 7) + 3 * len(fs) + (1 if aF == 0.0 else 3)
+    return total
+
+
+def tridiag_system(n: int, dtype):
+    """(a, b, c) of the bench's periodic (alpha, 1, alpha) system."""
+    a = torch.full((n,), ALPHA_TRI, dtype=dtype)
+    return a, torch.ones(n, dtype=dtype), a.clone()
+
+
+def dense_circulant(n: int, dtype) -> torch.Tensor:
+    """The same system as a dense n x n matrix on the card."""
+    idx = torch.arange(n)
+    m = torch.eye(n, dtype=torch.float64)
+    m[idx, (idx + 1) % n] = ALPHA_TRI
+    m[idx, (idx - 1) % n] = ALPHA_TRI
+    return m.to(device=DEVICE, dtype=dtype)
+
+
+def compact_calls(f, F, d):
+    """(name, counters, kernel call, plain call) of K15's programs and the
+    K13/K14 solves on one field."""
+    rt = cp._dtype_rtol(f.dtype)
+    calls = [
+        ("lapl", LAPL_KEYS, lambda: cp.lapl(f, d), lambda: cp.lapl(f, d, plain=True)),
+        ("grad", LAPL_KEYS, lambda: cp.grad(f, d), lambda: cp.grad(f, d, plain=True)),
+        ("div", LAPL_KEYS, lambda: cp.div(F, d), lambda: cp.div(F, d, plain=True)),
+        ("interp-", LAPL_KEYS, lambda: cp.interp(f, -1),
+         lambda: cp.interp(f, -1, plain=True)),
+        ("interp+", LAPL_KEYS, lambda: cp.interp(f, +1),
+         lambda: cp.interp(f, +1, plain=True)),
+    ]
+    for axis, key in ((2, "compact.z"), (1, "compact.y"), (0, "compact.x")):
+        spec = cp.grad_spec(d[axis], +1, f.shape[axis], rt)
+        calls.append((f"op_1d/axis={axis}", (key,),
+                      lambda s=spec, a=axis: cp.op_1d(f, s, a),
+                      lambda s=spec, a=axis: cp.op_1d(f, s, a, plain=True)))
+    for alg, axis in (("thomas", 0), ("pcr", 0), ("pcr", 2)):
+        fac = CudaTridiagFactor(*tridiag_system(f.shape[axis], f.dtype),
+                                periodic=True, algorithm=alg)
+        calls.append((f"tridiag.{alg}/axis={axis}", (f"tridiag.{alg}",),
+                      lambda fac=fac, a=axis: fac.solve(f, a),
+                      lambda fac=fac, a=axis: fac.solve(f, a, plain=True)))
+    return calls
+
+
+def check_compact(stats: dict) -> None:
+    """Phase 5: K15's programs and K13/K14 against their plain versions
+    at every case; at 256^3 and 512^3 f32 the times of each Laplacian
+    sweep, the whole Laplacian (kernels, plain, the pscan path) and the
+    two solves (kernel, plain, lu_solve on the dense factor), with their
+    bounds. The JSON entries take the 512^3 times (the JAX package's
+    bench size for compact_lapl and tridiag)."""
+    for shape, dtype in COMPACT_CASES:
+        g = torch.Generator(device=DEVICE).manual_seed(sum(shape) + 3)
+        f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        F = torch.rand(shape + (3,), generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        d = tuple(1.0 / n for n in shape)
+        for name, keys, kern, plain in compact_calls(f, F, d):
+            err = compare(f"{name} {shape} {dtype}", kern(), plain())
+            torch.cuda.synchronize()
+            for key in keys:
+                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+        print(f"  compact and tridiagonal kernels agree at {shape} {dtype}", flush=True)
+        del F
+        if shape[0] in (256, 512):
+            time_compact(stats, f, d)
+        del f
+        torch.cuda.empty_cache()
+
+
+def time_compact(stats: dict, f, d) -> None:
+    n = f.shape[0]
+    record = n == 512
+    fields = [f]
+    for (program, axis), key in zip(cp.lapl_sweeps(f.shape, d, f.dtype), LAPL_KEYS):
+        ins = fields
+        outs = cp.sweep(program, ins, axis)
+        ms = median_ms(lambda: cp.sweep(program, ins, axis))
+        plain_ms = median_ms(lambda: cp.sweep_plain(program, ins, axis))
+        bd = bound((len(ins) + len(outs)) * f.nbytes, program_ops(program) * f.numel())
+        print(f"  {key} (lapl sweep, {len(ins)}r {len(outs)}w) {n}^3 f32: kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']})", flush=True)
+        if record:
+            stats[key].update(ms=ms, plain_ms=plain_ms, **bd)
+        fields = outs
+    del fields, outs, ins
+    if record:
+        # the lane widths the kernel is built for, the three sweeps in turn
+        # (tile_width picks the widest that lets two blocks share an SM)
+        sweeps = cp.lapl_sweeps(f.shape, d, f.dtype)
+
+        def chain(w):
+            out = [f]
+            for program, axis in sweeps:
+                out = cp.sweep(program, out, axis, width=w)
+            return out[0]
+        ref = cp.lapl(f, d)
+        for w in cp.WIDTHS:
+            if not torch.equal(chain(w), ref):
+                raise AssertionError(f"compact lapl at width {w} differs")
+            print(f"  compact lapl {n}^3 f32, {w} lanes a block: "
+                  f"{median_ms(lambda: chain(w)):.4f} ms", flush=True)
+        del ref
+    ms = median_ms(lambda: cp.lapl(f, d))
+    plain_ms = median_ms(lambda: cp.lapl(f, d, plain=True), reps=5)
+    pscan_ms = median_ms(lambda: make_compact_laplacian_operator(
+        Grid3D(f.shape, device=DEVICE), method="pscan").apply(f), reps=3, warm=1)
+    print(f"  compact lapl {n}^3 f32: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"pscan path {pscan_ms:.4f} ms, bound (10 passes) "
+          f"{10 * f.nbytes / HBM_BPS * 1e3:.4f} ms", flush=True)
+    B = f.reshape(n, -1)
+    lu, piv = torch.linalg.lu_factor(dense_circulant(n, f.dtype))
+    lib = lambda: torch.linalg.lu_solve(lu, piv, B)
+    lib_ms = median_ms(lib)
+    for alg in ("thomas", "pcr"):
+        fac = CudaTridiagFactor(*tridiag_system(n, f.dtype), periodic=True,
+                                algorithm=alg)
+        x = fac.solve(f, 0)
+        rel = float((lib().reshape(f.shape) - x).abs().max()) / float(x.abs().max())
+        if not rel <= FIELD_TOL[f.dtype] * 10:
+            raise AssertionError(f"lu_solve vs tridiag.{alg}: relative {rel:.3e}")
+        ms = median_ms(lambda: fac.solve(f, 0))
+        plain_ms = median_ms(lambda: fac.solve(f, 0, plain=True))
+        ops = 7 if alg == "thomas" else program_ops((((0, (fac.pcr_spec,)),),))
+        bd = bound(2 * f.nbytes, ops * f.numel())
+        print(f"  tridiag.{alg} {n}^3 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"lu_solve {lib_ms:.4f} ms (relative diff {rel:.2e}), bound "
+              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})", flush=True)
+        if record:
+            stats[f"tridiag.{alg}"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                                           **bd)
+        del x
+    del lu, piv
+
+
 def rhs(solver, n, dtype):
     """b = A u for u uniform(-1, 1) from numpy seed 1, mean removed."""
     u = np.random.default_rng(1).uniform(-1.0, 1.0, (n,) * 3)
     u -= u.mean()
-    return solver.rhs_for(torch.as_tensor(u, dtype=dtype, device="cuda"))
+    return solver.rhs_for(torch.as_tensor(u, dtype=dtype, device=DEVICE))
 
 
 def solve_case(n, dtype, rtol, extra, expect_its):
@@ -309,7 +560,7 @@ def solve_case(n, dtype, rtol, extra, expect_its):
     argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
             "-ksp_max_it", "50", *extra]
     solver = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype,
-                           device="cuda")
+                           device=DEVICE)
     b = rhs(solver, n, dtype)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -330,15 +581,16 @@ def solve_case(n, dtype, rtol, extra, expect_its):
     return solver, b, its
 
 
-def run_path(label, cases, required, totals, demo=False):
-    """Drive one path with the counters reset before and read after; fail
-    if a kernel the path needs was never launched. Returns the solves."""
+def run_path(label, cases, required, totals, demo=False, runner=None):
+    """Drive one path (`runner`, by default solve_case, on each case) with
+    the counters reset before and read after; fail if a kernel the path
+    needs was never launched. Returns the runs."""
     print(f"-- path {label}", flush=True)
     sc.reset_launches()
-    runs = [solve_case(*c) for c in cases]
+    runs = [(runner or solve_case)(*c) for c in cases]
     if demo:
         from poissbox_tpu_torch import demo as demo_mod
-        rel = demo_mod.run(Options(["-n", "64", "-device", "cuda"]))
+        rel = demo_mod.run(Options(["-n", "64", "-device", DEVICE]))
         if not rel <= 1e-5 * 1.01:
             raise AssertionError(f"demo: relative residual {rel:.3e}")
     torch.cuda.synchronize()
@@ -358,7 +610,7 @@ def plain_solver(n, dtype, rtol, extra):
     argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
             "-ksp_max_it", "50", *extra, "-mg_impl", "roll",
             "-mg_transfers", "roll"]
-    grid = Grid3D((n,) * 3, device="cuda")
+    grid = Grid3D((n,) * 3, device=DEVICE)
     A = make_laplacian_operator(grid, impl="roll")
     return ksp.make_solver(A, SolverOptions.from_options(Options(argv)),
                            dtype=dtype, grid=grid)
@@ -399,6 +651,136 @@ def compare_paths(runs, cases, smi, roll_runs=None):
               + f" ({smi})", flush=True)
 
 
+def smooth_u(grid, dtype):
+    """The smooth manufactured field of the JAX package's compact Krylov
+    test (tests/test_fft.py:144-146): sin/cos modes 1-3, mean removed.
+    The order-6 Krylov path takes smooth right-hand sides (the staggered
+    interpolation annihilates Nyquist modes)."""
+    x, y, z = grid.coords(dtype=torch.float64)
+    k = 2.0 * math.pi
+    u = torch.sin(k * x) * torch.cos(2 * k * y) + torch.sin(3 * k * z) + torch.cos(k * (x + z))
+    return (u - u.mean()).to(dtype)
+
+
+def f32_operator_error(n: int) -> float:
+    """||A32 u32 - A64 u64|| / ||A64 u64|| for the compact Laplacian on the
+    smooth field: the relative residual below which no f32 solution can be
+    certified at this size."""
+    grid = Grid3D((n,) * 3, device=DEVICE)
+    u = smooth_u(grid, torch.float64)
+    b64 = cp.lapl(u, grid.deltas)
+    b32 = cp.lapl(u.float(), grid.deltas)
+    return float(torch.linalg.vector_norm(b32.double() - b64)
+                 / torch.linalg.vector_norm(b64))
+
+
+def solve6_case(n, dtype, rtol, argv):
+    """One solve of PoissonSolver(order=6) on the card, checked; returns
+    (solver, b, iterations)."""
+    opts = Options(argv + ["-ksp_rtol", str(rtol), "-ksp_max_it", "200"])
+    solver = PoissonSolver((n,) * 3, options=opts, dtype=dtype, device=DEVICE, order=6)
+    b = solver.rhs_for(smooth_u(solver.grid, dtype))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve(b)
+    its = int(res.iterations)
+    t_solve = time.perf_counter() - t0
+    rel = solver.residual_norm(res.x, b)
+    if tuple(res.x.shape) != (n,) * 3 or not bool(torch.isfinite(res.x).all()):
+        raise AssertionError(f"order 6 {n}^3: bad solution tensor")
+    if not res.reason_enum() > 0 or not rel <= rtol * 1.01:
+        raise AssertionError(f"order 6 {n}^3 {dtype} {' '.join(argv)}: {its} "
+                             f"iterations, {res.reason_enum().name}, relative "
+                             f"residual {rel:.3e} (rtol {rtol:g})")
+    print(f"  order 6 {n}^3 {dtype} rtol {rtol:g} {' '.join(argv)}: {its} iterations, "
+          f"relative residual {rel:.3e}, first solve {t_solve * 1e3:.2f} ms", flush=True)
+    return solver, b, its
+
+
+def plain6(n, dtype, rtol, argv):
+    """The same solve on the plain path on the card: the compact operator
+    through the tridiagonal solves (method="pscan"), impl="roll",
+    transfers="roll". Returns (operator, solver)."""
+    grid = Grid3D((n,) * 3, device=DEVICE)
+    A = make_compact_laplacian_operator(grid, method="pscan")
+    opts = Options(argv + ["-ksp_rtol", str(rtol), "-ksp_max_it", "200",
+                           "-mg_impl", "roll", "-mg_transfers", "roll"])
+    return A, ksp.make_solver(A, SolverOptions.from_options(opts), dtype=dtype, grid=grid)
+
+
+def compare6(runs, cases, smi) -> None:
+    """Each order-6 solve against the plain path on the card (same
+    iteration count), then warm solve medians, in turns."""
+    for (solver, b, its), (n, dtype, rtol, argv) in zip(runs, cases):
+        A, plain = plain6(n, dtype, rtol, argv)
+        p_its = int(plain(b).iterations)
+        if p_its != its:
+            raise AssertionError(f"order 6 plain {n}^3 {dtype} {argv}: {p_its} "
+                                 f"iterations, kernel path {its}")
+        med = warm_ms({"kernels": lambda: solver.solve(b), "plain": lambda: plain(b)})
+        print(f"  order 6 {n}^3 {dtype} {' '.join(argv)}: {its} iterations both; warm "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+              + f" ({smi})", flush=True)
+
+
+def fft_case(order: int, n: int, dtype, smi) -> None:
+    """-ksp_type fft through PoissonSolver on the card: the relative
+    residual, bounded by twice the plain path's on the same b (the plain
+    operator measures it: roll for order 2, pscan for order 6), the warm
+    solves in turns and the direct solve's own time."""
+    solver = PoissonSolver((n,) * 3, options=Options(["-ksp_type", "fft"]),
+                           dtype=dtype, device=DEVICE, order=order)
+    grid = solver.grid
+    if order == 2:
+        g = torch.Generator(device=DEVICE).manual_seed(4)
+        u = torch.rand(grid.n, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        u = u - u.mean()
+        A = make_laplacian_operator(grid, impl="roll")
+        direct = lambda v: fft.poisson_solve_fft(v, grid.deltas)
+    else:
+        u = smooth_u(grid, dtype)
+        A = make_compact_laplacian_operator(grid, method="pscan")
+        direct = lambda v: fft.compact_poisson_solve_fft(v, grid.deltas)
+    b = solver.rhs_for(u)
+    res = solver.solve(b)
+    rel = solver.residual_norm(res.x, b)
+    plain = ksp.make_solver(A, SolverOptions(ksp_type="fft"), dtype=dtype, grid=grid)
+    xp = plain(b).x
+    rel_p = float(torch.linalg.vector_norm(A(xp) - b) / torch.linalg.vector_norm(b))
+    ok = (int(res.iterations) == 1 and bool(torch.isfinite(res.x).all())
+          and rel <= 2.0 * rel_p)
+    if not ok:
+        raise AssertionError(f"fft order {order} {n}^3: relative residual {rel:.3e}, "
+                             f"plain path {rel_p:.3e}")
+    del xp
+    med = warm_ms({"kernels": lambda: solver.solve(b), "plain": lambda: plain(b)})
+    solve_ms = median_ms(lambda: direct(b))
+    print(f"  fft order {order} {n}^3 {dtype}: relative residual {rel:.3e} (plain path "
+          f"{rel_p:.3e}); direct solve {solve_ms:.4f} ms; warm -ksp_type fft "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
+          flush=True)
+
+
+def tridiag_path(smi, n: int = 512) -> None:
+    """Path (f): the JAX package's bench_tridiag case on the card, through
+    CudaTridiagFactor: the periodic (alpha, 1, alpha) system at n^3 f32
+    solved along axis 0, by PCR (what "auto" picks) and by Thomas; each
+    against its plain version and by its own residual."""
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    d = torch.rand((n,) * 3, generator=g, dtype=torch.float32, device=DEVICE)
+    a, bb, c = tridiag_system(n, torch.float32)
+    for alg in ("auto", "thomas"):
+        fac = CudaTridiagFactor(a, bb, c, periodic=True, algorithm=alg)
+        x = fac.solve(d, 0)
+        compare(f"tridiag {fac.algorithm} path", x, fac.solve(d, 0, plain=True))
+        r = ALPHA_TRI * (torch.roll(x, 1, 0) + torch.roll(x, -1, 0)) + x - d
+        rel = float(r.abs().max()) / float(d.abs().max())
+        if not rel <= 1e-5:
+            raise AssertionError(f"tridiag {fac.algorithm}: residual {rel:.3e}")
+        print(f"  tridiag {alg} -> {fac.algorithm} {n}^3 f32: max residual "
+              f"{rel:.2e} of max|d| ({smi})", flush=True)
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -429,6 +811,9 @@ def main() -> int:
 
     phase("banded-matrix transfers against the roll form")
     check_contractions()
+
+    phase("compact and tridiagonal kernels against plain versions")
+    check_compact(stats)
 
     phase("paths")
     totals = {k: 0 for k in sc.LAUNCHES}
@@ -464,16 +849,53 @@ def main() -> int:
                       ["stencil7.apply", "stencil7.apply_dot", "stencil7.jacobi",
                        "cgupd", "xfer.restrict", "xfer.prolong_add"], totals)
     compare_paths(runs_c, cases_c, smi)
+    del runs_c
+    run_path("(b/s) 512^3 f32, bf16 pre-smooths of Chebyshev and two-sweep "
+             "Jacobi", [(512, f32, 1e-6, ["-mg_levels_ksp_type", "chebyshev"], None),
+                        (512, f32, 1e-6, ["-mg_levels_pc_type", "jacobi",
+                                          "-mg_levels_ksp_max_it", "2"], None)],
+             ["stencil7.residual.bf16", "stencil7.jacobi.bf16"], totals)
+    torch.cuda.empty_cache()
+
+    err32 = f32_operator_error(256)
+    print(f"  compact Laplacian at 256^3, smooth u: f32 evaluation error "
+          f"{err32:.3e} of ||A u|| (the floor of any f32 residual there)", flush=True)
+    mgcg = ["-ksp_type", "cg", "-pc_type", "mg"]
+    cases_d = [(64, f64, 1e-8, mgcg), (256, f32, 1e-3, mgcg)]
+    lapl_keys = list(LAPL_KEYS)
+    runs_d = run_path("(d) order 6, CG + GMG", cases_d,
+                      lapl_keys + ["rbsor.general", "xfer.restrict", "xfer.prolong_add"],
+                      totals, runner=solve6_case)
+    compare6(runs_d, cases_d, smi)
+    del runs_d
+    torch.cuda.empty_cache()
+    fcg = ["-ksp_type", "fcg", "-pc_type", "fft"]
+    cases_e = [(256, f32, 1e-3, fcg), (256, f64, 1e-8, fcg)]
+    run_path("(e) -ksp_type fft at 512^3 f32, order 2 and 6",
+             [(2, 512, f32, smi), (6, 512, f32, smi)],
+             ["stencil7.apply"] + lapl_keys, totals, runner=fft_case)
+    torch.cuda.empty_cache()
+    runs_e = run_path("(e) order 6, FCG + -pc_type fft", cases_e, lapl_keys, totals,
+                      runner=solve6_case)
+    compare6(runs_e, cases_e, smi)
+    del runs_e
+    torch.cuda.empty_cache()
+    run_path("(f) the bench's periodic tridiagonal solve, 512^3 f32", [(smi,)],
+             ["tridiag.pcr", "tridiag.thomas"], totals, runner=tridiag_path)
     idle = [k for k in KERNELS if totals[k] == 0]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")
     print(f"  chip_smoke wall so far {time.perf_counter() - t_start:.1f} s")
 
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    unmeasured = [k for k in KERNELS if any(f not in stats[k] for f in keys)]
+    if unmeasured:
+        raise AssertionError(f"kernels without a time or a bound: {unmeasured}")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": key, "route": "cuda",
          "source": f"poissbox_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": totals[key], **stats[key]}
+         "launches": totals[key], **{k: stats[key][k] for k in keys}}
         for key, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -13,6 +13,9 @@ mirror the JAX package's paths:
   - stencil operators .... poissbox_tpu_torch.ops.stencil
   - CUDA kernels ......... poissbox_tpu_torch.ops.stencil_cuda
   - assembled operator ... poissbox_tpu_torch.ops.assemble
+  - compact 6th order .... poissbox_tpu_torch.ops.compact, ops.compact_pcr
+  - tridiagonal solves ... poissbox_tpu_torch.ops.tridiag, ops.tridiag_cuda
+  - FFT direct solves .... poissbox_tpu_torch.solvers.fft
   - CG / FCG ............. poissbox_tpu_torch.solvers.cg
   - multigrid ............ poissbox_tpu_torch.solvers.mg
   - options-driven solve . poissbox_tpu_torch.solvers.ksp

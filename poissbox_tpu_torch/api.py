@@ -17,6 +17,7 @@ from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.constants import default_real
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.mesh import Grid3D
+from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.solvers.ksp import make_solver
 from poissbox_tpu_torch.solvers.result import SolveResult
@@ -33,29 +34,32 @@ class PoissonSolver:
       options: solver configuration; defaults to CG + multigrid, the
         solver of record.
       dtype: field dtype, torch.float32 or torch.float64.
-      device: where the fields live; on "cuda" the operator and every MG
-        level run the hand-written kernels.
-      order: 2 (the 7-point operator); the 6th-order compact operator is
-        not ported yet.
+      device: where the fields live, the card unless the caller asks for
+        "cpu"; on "cuda" the operator and every MG level run the
+        hand-written kernels, and without a card it raises.
+      order: 2 (the 7-point operator) or 6 (the 6th-order compact
+        Laplacian, on the K15 line kernel; Krylov solves keep the 2nd-order
+        GMG preconditioner, spectrally equivalent, and `-ksp_type fft`
+        solves it exactly through its symbol).
     """
 
     def __init__(self, n: Sequence[int],
                  length: Sequence[float] = (1.0, 1.0, 1.0),
                  options: Options | SolverOptions | None = None,
                  dtype=None,
-                 device="cpu",
+                 device="cuda",
                  order: int = 2):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PoissonSolver(device='cuda') needs a CUDA "
                                "device; torch.cuda.is_available() is False")
-        if order == 6:
-            raise NotImplementedError(
-                "order=6 (the compact stack) is not ported yet; see ROADMAP.md")
-        if order != 2:
-            raise ValueError(f"order must be 2 or 6, got {order}")
         self.grid = Grid3D(tuple(n), tuple(length), device)
-        self.A: LinearOperator = make_laplacian_operator(self.grid)
+        if order == 2:
+            self.A: LinearOperator = make_laplacian_operator(self.grid)
+        elif order == 6:
+            self.A = make_compact_laplacian_operator(self.grid)
+        else:
+            raise ValueError(f"order must be 2 or 6, got {order}")
         if isinstance(options, Options):
             options = SolverOptions.from_options(options)
         if options is None:

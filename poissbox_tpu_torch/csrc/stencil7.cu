@@ -9,6 +9,11 @@
 //       damped-Jacobi smoother sweep, winv = w / (-2 sum 1/d^2); it also
 //       carries stencil_inplace.py's _jacobi_inplace (K10's aliased form)
 //       out of place
+// Types: float32 and float64 in every epilogue; bfloat16 u and b in the
+// residual and Jacobi epilogues (the bf16 pre-smooths of the Chebyshev and
+// multi-sweep Jacobi smoothers at 512^3-class sizes). A bf16 value is
+// upcast to float32, the star and the epilogue run in float32, and the
+// result rounds once (RNE) at the store, as KB's bf16 colour updates do.
 // The star keeps _star_into's grouping,
 //   ((u[i-1]+u[i+1])*ivx + (u[j-1]+u[j+1])*ivy) + (u[k-1]+u[k+1])*ivz
 //   - 2*(ivx+ivy+ivz)*u,
@@ -38,55 +43,72 @@ enum Epilogue { kApply = 0, kApplyDot = 1, kResidual = 2, kJacobi = 3 };
 template <typename T, int EPI>
 __global__ void __launch_bounds__(kThreads)
 stencil7_kernel(const T* __restrict__ u, const T* __restrict__ b, T* __restrict__ y,
-                T* __restrict__ part, int nx, int ny, int nz, T ivx, T ivy, T ivz,
-                T center, T winv) {
+                typename Compute<T>::type* __restrict__ part, int nx, int ny, int nz,
+                typename Compute<T>::type ivx, typename Compute<T>::type ivy,
+                typename Compute<T>::type ivz, typename Compute<T>::type center,
+                typename Compute<T>::type winv) {
+  using C = typename Compute<T>::type;
   const Point q = locate(nx, ny, nz);
-  T dot = T(0);
+  C dot = C(0);
   if (q.active) {
-    const T c = u[q.p];
-    T acc = (u[q.xm] + u[q.xp]) * ivx;
-    acc = acc + (u[q.ym] + u[q.yp]) * ivy;
-    acc = acc + (u[q.zm] + u[q.zp]) * ivz;
-    T out = acc - center * c;
-    if (EPI == kResidual) out = b[q.p] - out;
-    if (EPI == kJacobi) out = c + winv * (b[q.p] - out);
-    y[q.p] = out;
+    const C c = cvt<C>(u[q.p]);
+    C acc = (cvt<C>(u[q.xm]) + cvt<C>(u[q.xp])) * ivx;
+    acc = acc + (cvt<C>(u[q.ym]) + cvt<C>(u[q.yp])) * ivy;
+    acc = acc + (cvt<C>(u[q.zm]) + cvt<C>(u[q.zp])) * ivz;
+    C out = acc - center * c;
+    if (EPI == kResidual) out = cvt<C>(b[q.p]) - out;
+    if (EPI == kJacobi) out = c + winv * (cvt<C>(b[q.p]) - out);
+    y[q.p] = cvt<T>(out);
     if (EPI == kApplyDot) dot = c * out;
   }
-  if (EPI == kApplyDot) block_partials(dot, T(0), part, (T*)nullptr);
+  if (EPI == kApplyDot) block_partials(dot, C(0), part, (C*)nullptr);
+}
+
+template <typename T, int EPI>
+cudaError_t launch_epi(cudaStream_t stream, const void* u, const void* b, void* y, void* part,
+                       int nx, int ny, int nz, double ivx, double ivy, double ivz,
+                       double center, double winv) {
+  using C = typename Compute<T>::type;
+  stencil7_kernel<T, EPI><<<launch_grid(nx, ny, nz), launch_block(), 0, stream>>>(
+      static_cast<const T*>(u), static_cast<const T*>(b), static_cast<T*>(y),
+      static_cast<C*>(part), nx, ny, nz, C(ivx), C(ivy), C(ivz), C(center), C(winv));
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_stencil7(int epi, cudaStream_t stream, const void* u, const void* b,
                             void* y, void* part, int nx, int ny, int nz, double ivx,
                             double ivy, double ivz, double center, double winv) {
-  const dim3 grid = launch_grid(nx, ny, nz);
-  const dim3 block = launch_block();
-  const T* uu = static_cast<const T*>(u);
-  const T* bb = static_cast<const T*>(b);
-  T* yy = static_cast<T*>(y);
-  T* pp = static_cast<T*>(part);
   switch (epi) {
     case kApply:
-      stencil7_kernel<T, kApply><<<grid, block, 0, stream>>>(
-          uu, bb, yy, pp, nx, ny, nz, T(ivx), T(ivy), T(ivz), T(center), T(winv));
-      break;
+      return launch_epi<T, kApply>(stream, u, b, y, part, nx, ny, nz, ivx, ivy, ivz, center,
+                                   winv);
     case kApplyDot:
-      stencil7_kernel<T, kApplyDot><<<grid, block, 0, stream>>>(
-          uu, bb, yy, pp, nx, ny, nz, T(ivx), T(ivy), T(ivz), T(center), T(winv));
-      break;
+      return launch_epi<T, kApplyDot>(stream, u, b, y, part, nx, ny, nz, ivx, ivy, ivz,
+                                      center, winv);
     case kResidual:
-      stencil7_kernel<T, kResidual><<<grid, block, 0, stream>>>(
-          uu, bb, yy, pp, nx, ny, nz, T(ivx), T(ivy), T(ivz), T(center), T(winv));
-      break;
+      return launch_epi<T, kResidual>(stream, u, b, y, part, nx, ny, nz, ivx, ivy, ivz,
+                                      center, winv);
     case kJacobi:
-      stencil7_kernel<T, kJacobi><<<grid, block, 0, stream>>>(
-          uu, bb, yy, pp, nx, ny, nz, T(ivx), T(ivy), T(ivz), T(center), T(winv));
-      break;
+      return launch_epi<T, kJacobi>(stream, u, b, y, part, nx, ny, nz, ivx, ivy, ivz, center,
+                                    winv);
     default:
       return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
+}
+
+// bf16 u and b: the residual and Jacobi epilogues only.
+cudaError_t launch_stencil7_bf16(int epi, cudaStream_t stream, const void* u, const void* b,
+                                 void* y, int nx, int ny, int nz, double ivx, double ivy,
+                                 double ivz, double center, double winv) {
+  using B = __nv_bfloat16;
+  if (epi == kResidual)
+    return launch_epi<B, kResidual>(stream, u, b, y, nullptr, nx, ny, nz, ivx, ivy, ivz,
+                                    center, winv);
+  if (epi == kJacobi)
+    return launch_epi<B, kJacobi>(stream, u, b, y, nullptr, nx, ny, nz, ivx, ivy, ivz, center,
+                                  winv);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace poissbox
@@ -103,8 +125,9 @@ const char* poissbox_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// dtype: 0 = float32, 1 = float64. epi: 0 apply, 1 apply + dot partials,
-// 2 residual, 3 Jacobi sweep (winv is read by it only). Returns the
+// dtype: 0 = float32, 1 = float64, 2 = bfloat16 (epi 2 and 3 only). epi:
+// 0 apply, 1 apply + dot partials, 2 residual, 3 Jacobi sweep (winv is
+// read by it only). Returns the
 // cudaError_t of the launch (0 on success).
 int poissbox_stencil7(int dtype, int epi, int device, void* stream, const void* u,
                       const void* b, void* y, void* part, int nx, int ny, int nz,
@@ -118,6 +141,9 @@ int poissbox_stencil7(int dtype, int epi, int device, void* stream, const void* 
   else if (dtype == poissbox::kF64)
     err = poissbox::launch_stencil7<double>(epi, s, u, b, y, part, nx, ny, nz, ivx, ivy,
                                             ivz, center, winv);
+  else if (dtype == poissbox::kBF16)
+    err = poissbox::launch_stencil7_bf16(epi, s, u, b, y, nx, ny, nz, ivx, ivy, ivz, center,
+                                         winv);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

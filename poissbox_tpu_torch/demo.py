@@ -9,8 +9,9 @@ options-driven solve, and the final true-residual print.
     python -m poissbox_tpu_torch.demo -n 64 -device cuda \
         -ksp_rtol 1e-8 -ksp_monitor -ksp_converged_reason
 
-`-device` is cpu (default) or cuda; on cuda the operator and every MG
-level run the hand-written kernels. `-x64 0` runs in float32 (an rtol
+`-device` is cuda (the default) or cpu; on cuda the operator and every MG
+level run the hand-written kernels, and without a card it raises (the CPU
+runs only when asked for, `-device cpu`). `-x64 0` runs in float32 (an rtol
 below 1e-6 is then clamped to 1e-6, with a notice).
 """
 
@@ -39,7 +40,7 @@ def run(opts: Options) -> float:
     """Run the demo; returns the final relative true residual
     ||Ax - b|| / ||b||."""
     n = opts.get_int("n", 64)
-    device = torch.device(opts.get_str("device", "cpu"))
+    device = torch.device(opts.get_str("device", "cuda"))
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("-device cuda: torch.cuda.is_available() is False")
     # the reference's precision of record is double; `-x64 0` opts into

@@ -41,8 +41,8 @@ class LinearOperator:
         r - alpha Ap, ||r'||^2, sum(r')) in one pass (K8 on the CUDA
         operator); CG takes it when the preconditioner binds no fused
         entry of its own.
-      direct_solve: optional exact x = A^+ b (None until the FFT solve is
-        ported).
+      direct_solve: optional exact x = A^+ b (the FFT solve of the
+        7-point and the compact 6th-order operators).
     """
 
     apply: Callable[[Tensor], Tensor]

@@ -3,7 +3,8 @@
 
 Axis convention: tensor dims are (x, y, z), C order, z contiguous — the
 JAX package's layout, so fields compare one to one. Meshes, sharding and
-uneven layouts come with the multi-device slice (ROADMAP.md).
+uneven layouts come with the multi-device slice (ROADMAP.md). A grid lives
+on the card unless its `device` says otherwise.
 """
 
 from __future__ import annotations
@@ -19,14 +20,15 @@ from poissbox_tpu_torch.constants import default_real
 
 @dataclasses.dataclass(frozen=True)
 class Grid3D:
-    """A periodic, uniform, cell-centred 3-D grid on one device.
+    """A periodic, uniform, cell-centred 3-D grid on one device (the card
+    unless `device` says otherwise; the CPU only when asked for).
 
     Scalar fields live at cell centres x_i = (i + 1/2) dx.
     """
 
     n: tuple[int, int, int]
     length: tuple[float, float, float] = (1.0, 1.0, 1.0)
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
     def __post_init__(self):
         object.__setattr__(self, "n", tuple(int(v) for v in self.n))
@@ -45,6 +47,26 @@ class Grid3D:
     def dof_counts(self) -> list[int]:
         """Per-device DoF counts: one device holds them all."""
         return [self.ndof]
+
+    def cells(self, dim: int, dtype=None) -> torch.Tensor:
+        """Cell-centre coordinates along `dim`: (i + 1/2) * d."""
+        i = torch.arange(self.n[dim], dtype=dtype or default_real(),
+                         device=self.device)
+        return (i + 0.5) * self.deltas[dim]
+
+    def vertices(self, dim: int, dtype=None) -> torch.Tensor:
+        """Vertex coordinates along `dim`: i * d."""
+        i = torch.arange(self.n[dim], dtype=dtype or default_real(),
+                         device=self.device)
+        return i * self.deltas[dim]
+
+    def coords(self, staggered: tuple[bool, bool, bool] = (False, False, False),
+               dtype=None):
+        """Meshgrid (X, Y, Z) of cell-centre (or vertex, where staggered)
+        coordinates."""
+        axes = [self.vertices(d, dtype) if staggered[d] else self.cells(d, dtype)
+                for d in range(3)]
+        return torch.meshgrid(*axes, indexing="ij")
 
     # -- field constructors -------------------------------------------------
     def random(self, generator: Optional[torch.Generator] = None, dtype=None,

@@ -1,7 +1,19 @@
 """Numerical operators: the 7-point stencil in plain PyTorch (stencil),
-its assembled view (assemble), and the Hopper kernels with their plain
-versions (stencil_cuda; sources in ../csrc, built by _build)."""
+its assembled view (assemble), the 6th-order compact stack (compact,
+compact_pcr) and its tridiagonal solvers (tridiag, tridiag_cuda), and the
+Hopper kernels with their plain versions (stencil_cuda, transfer_cuda,
+compact_pcr, tridiag_cuda; sources in ../csrc, built by _build)."""
 
-from poissbox_tpu_torch.ops import assemble, coefficients, stencil, stencil_cuda
+from poissbox_tpu_torch.ops import (
+    assemble,
+    coefficients,
+    compact,
+    compact_pcr,
+    stencil,
+    stencil_cuda,
+    tridiag,
+    tridiag_cuda,
+)
 
-__all__ = ["assemble", "coefficients", "stencil", "stencil_cuda"]
+__all__ = ["assemble", "coefficients", "compact", "compact_pcr", "stencil",
+           "stencil_cuda", "tridiag", "tridiag_cuda"]

@@ -28,7 +28,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("stencil7.cu", "rbsor.cu", "xfer.cu", "cgupd.cu")
+SOURCES = ("stencil7.cu", "rbsor.cu", "xfer.cu", "cgupd.cu", "compact.cu",
+           "tridiag.cu")
 HEADERS = ("common.cuh",)
 # --fmad=false keeps every a*b+c as a rounded multiply and a rounded add,
 # the grouping the plain PyTorch versions (and the Pallas kernels) use
@@ -128,6 +129,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_cgupd_blocks.restype = i
     lib.poissbox_cgupd.argtypes = [i, i] + [p] * 10 + [ll]
     lib.poissbox_cgupd.restype = i
+    lib.poissbox_compact.argtypes = ([i, i, p, p, i] + [p] * 6
+                                     + [ll, i, ll, i, i])
+    lib.poissbox_compact.restype = i
+    lib.poissbox_thomas.argtypes = [i, i, p] + [p] * 6 + [i, ll]
+    lib.poissbox_thomas.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -93,6 +93,11 @@ def make_laplacian_operator(grid, impl: str = "auto"):
                          "auto|roll|pointwise|cuda)")
 
     diag_val = -2.0 * sum(1.0 / float(d) ** 2 for d in deltas)
+
+    def direct_solve(b):
+        from poissbox_tpu_torch.solvers.fft import poisson_solve_fft
+        return poisson_solve_fft(b, deltas)
+
     return LinearOperator(
         apply=apply,
         diagonal=lambda: diag_val,
@@ -100,7 +105,7 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         symmetric=True,
         apply_dot=apply_dot,
         fused_update=fused_update,
-        direct_solve=None,   # the FFT solve is not ported yet
+        direct_solve=direct_solve,
     )
 
 

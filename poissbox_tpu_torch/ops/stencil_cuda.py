@@ -29,15 +29,19 @@ There is no fallback from a failed build or launch to the plain version.
 
 bf16: the SOR colour updates take bfloat16 fields (the bf16 pre-smooth of
 the 512^3-class cycle), and K5 can store its swept iterate narrow
-(``out_dtype``). A bf16 value is upcast to float32, each colour update
-runs in float32 and rounds once where the kernel stores it; the plain
-versions round at the same stores. This is the port's definition of the
+(``out_dtype``); so do the residual (K9) and the Jacobi sweep (K10), which
+the Chebyshev and multi-sweep Jacobi pre-smooths reach. A bf16 value is
+upcast to float32, each colour update (or residual, or Jacobi sweep) runs
+in float32 and rounds once where the kernel stores it; the plain versions
+round at the same stores. This is the port's definition of the
 bf16 result (the Pallas kernels compute in bf16 throughout). :data:`DTYPES`
 says which mode takes which input dtype.
 
 :data:`LAUNCHES` counts kernel launches by kernel and mode (``stencil7.*``
 for the star's epilogues, ``rbsor.*`` for the colour update's modes,
-``xfer.*`` for the transfer legs, ``cgupd`` for K8; ``.bf16`` marks a
+``xfer.*`` for the transfer legs, ``cgupd`` for K8, ``compact.x|y|z``
+for K15's line kernel by axis (ops/compact_pcr.py) and ``tridiag.*`` for
+K13/K14 (ops/tridiag_cuda.py); ``.bf16`` marks a
 bf16 launch, ``.narrow`` K5's f32-in, bf16-out second colour and
 ``.bf16u`` a transfer leg reading a bf16 iterate); a wrapper adds one
 where it launches, so a run can show which kernels its path went through.
@@ -56,12 +60,13 @@ from poissbox_tpu_torch.ops import _build
 
 LAUNCHES: dict[str, int] = {k: 0 for k in (
     "stencil7.apply", "stencil7.apply_dot", "stencil7.residual",
-    "stencil7.jacobi",
+    "stencil7.jacobi", "stencil7.residual.bf16", "stencil7.jacobi.bf16",
     "rbsor.zero", "rbsor.general", "rbsor.zero_update", "rbsor.dots",
     "rbsor.zero.bf16", "rbsor.general.bf16", "rbsor.general.narrow",
     "xfer.restrict", "xfer.restrict.bf16u",
     "xfer.prolong_add", "xfer.prolong_add.bf16u",
     "cgupd",
+    "compact.x", "compact.y", "compact.z", "tridiag.thomas", "tridiag.pcr",
 )}
 
 _EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2,
@@ -77,7 +82,7 @@ _WIDE_OR_BF16 = _WIDE + (torch.bfloat16,)
 # iterate u; b, e and the output are float32 or float64)
 DTYPES: dict[str, tuple] = {
     "stencil7.apply": _WIDE, "stencil7.apply_dot": _WIDE,
-    "stencil7.residual": _WIDE, "stencil7.jacobi": _WIDE,
+    "stencil7.residual": _WIDE_OR_BF16, "stencil7.jacobi": _WIDE_OR_BF16,
     "rbsor.zero": _WIDE_OR_BF16, "rbsor.general": _WIDE_OR_BF16,
     "rbsor.zero_update": _WIDE, "rbsor.dots": _WIDE,
     "xfer.restrict": _WIDE_OR_BF16, "xfer.prolong_add": _WIDE_OR_BF16,
@@ -182,13 +187,16 @@ def apply_laplacian_dot_plain(u, deltas):
 
 
 def residual_plain(u, b, deltas):
-    return b - _star(u, _invs(deltas))
+    """bf16 fields: computed in float32, rounded once at the store."""
+    return (_wide(b) - _star(_wide(u), _invs(deltas))).to(u.dtype)
 
 
 def jacobi_sweep_plain(u, b, deltas, weight):
-    """u + winv*(b - A u), `_upd_jacobi` on `_star_into`'s star."""
+    """u + winv*(b - A u), `_upd_jacobi` on `_star_into`'s star; bf16
+    fields are computed in float32 and rounded once at the store."""
     invs = _invs(deltas)
-    return u + _winv(invs, weight) * (b - _star(u, invs))
+    uw = _wide(u)
+    return (uw + _winv(invs, weight) * (_wide(b) - _star(uw, invs))).to(u.dtype)
 
 
 def sor_rb_zero_sweep_plain(b, deltas, weight, reverse=False):
@@ -295,6 +303,8 @@ def _stencil7(key: str, u, b, y, part, deltas, weight: float = 0.0) -> None:
         DTYPE_CODE[u.dtype], _EPI[key], u.device.index or 0, _stream(u),
         _ptr(u), _ptr(b), _ptr(y), _ptr(part), *u.shape, ivx, ivy, ivz,
         2.0 * (ivx + ivy + ivz), _winv(invs, weight))
+    if u.dtype == torch.bfloat16:
+        key += ".bf16"
     _raise_on(lib, err, key)
     LAUNCHES[key] += 1
 
@@ -349,7 +359,7 @@ def apply_laplacian_dot_cuda(u: torch.Tensor, deltas):
 
 
 def residual_cuda(u: torch.Tensor, b: torch.Tensor, deltas) -> torch.Tensor:
-    """r = b - A u (K9)."""
+    """r = b - A u (K9); u and b may be bf16 (r is then bf16)."""
     if _on_cpu(u):
         return residual_plain(u, b, deltas)
     _check("stencil7.residual", u, b)
@@ -360,7 +370,8 @@ def residual_cuda(u: torch.Tensor, b: torch.Tensor, deltas) -> torch.Tensor:
 
 def jacobi_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
                       weight: float) -> torch.Tensor:
-    """One damped-Jacobi sweep u + (w/diag)(b - A u) (K10)."""
+    """One damped-Jacobi sweep u + (w/diag)(b - A u) (K10); u and b may
+    be bf16."""
     if _on_cpu(u):
         return jacobi_sweep_plain(u, b, deltas, weight)
     _check("stencil7.jacobi", u, b)

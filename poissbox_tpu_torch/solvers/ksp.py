@@ -2,9 +2,11 @@
 (port of :mod:`poissbox_tpu.solvers.ksp`).
 
 :func:`make_solver` assembles the pipeline from a :class:`SolverOptions`:
-the preconditioner (none/jacobi/mg), the Krylov method (cg/fcg), the
-stopping controls and the monitor. The other methods of the JAX package
-raise ``NotImplementedError`` until their slice lands (ROADMAP.md).
+the preconditioner (none/jacobi/fft/mg), the method (cg/fcg, or the FFT
+direct solve), the stopping controls and the monitor. The other Krylov
+methods of the JAX package raise ``NotImplementedError`` until their slice
+lands (ROADMAP.md). Solvers are built for the card unless `device` (or
+the grid's device) says otherwise.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import cg
+from poissbox_tpu_torch.solvers.fft import fft_solver_result, make_fft_preconditioner
 from poissbox_tpu_torch.solvers.mg import (
     MGConfig,
     _build_levels,
@@ -35,7 +38,7 @@ def make_preconditioner(
     shape: Optional[Sequence[int]] = None,
     deltas: Optional[Sequence[float]] = None,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> Optional[Callable[[Tensor], Tensor]]:
     """Build the preconditioner closure selected by `pc_type`."""
     if opts.pc_type in ("none", ""):
@@ -46,7 +49,11 @@ def make_preconditioner(
         inv_diag = 1.0 / A.diagonal()
         return lambda r: inv_diag * r
     if opts.pc_type == "fft":
-        raise NotImplementedError(f"pc_type fft {_NOT_PORTED}")
+        # the exact periodic 7-point inverse as a spectrally equivalent
+        # preconditioner (for the compact 6th-order system)
+        if deltas is None:
+            raise ValueError("fft preconditioning needs the grid deltas")
+        return make_fft_preconditioner(deltas)
     if opts.pc_type == "mg":
         if shape is None or deltas is None:
             raise ValueError("mg preconditioning needs the grid shape and deltas")
@@ -98,7 +105,7 @@ def make_solver(
     shape: Optional[Sequence[int]] = None,
     deltas: Optional[Sequence[float]] = None,
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
     grid=None,
 ) -> Callable[..., SolveResult]:
     """Assemble a `solve(b, x0=None) -> SolveResult` closure."""
@@ -110,17 +117,26 @@ def make_solver(
         shape = grid.n if shape is None else shape
         deltas = grid.deltas if deltas is None else deltas
         device = grid.device
-    if opts.ksp_type in ("pipecg", "gmres", "richardson", "fft"):
+    if opts.ksp_type in ("pipecg", "gmres", "richardson"):
         raise NotImplementedError(f"ksp_type {opts.ksp_type} {_NOT_PORTED}")
-    if opts.ksp_type not in ("cg", "fcg"):
+    if opts.ksp_type not in ("cg", "fcg", "fft"):
         raise ValueError(f"unknown ksp_type {opts.ksp_type!r} "
                          "(expected cg|fcg|pipecg|gmres|richardson|fft)")
-    M = make_preconditioner(A, opts, shape, deltas, dtype, device)
+    if opts.ksp_type == "fft":
+        # a direct solve takes no preconditioner: skip the MG setup
+        if deltas is None:
+            raise ValueError("fft direct solve needs the grid deltas")
+        M = None
 
-    def solver(b, x0=None):
-        return cg(A, b, x0, M=M, rtol=opts.ksp_rtol, atol=opts.ksp_atol,
-                  max_it=opts.ksp_max_it, norm_type=opts.ksp_norm_type,
-                  flexible=opts.ksp_type == "fcg", monitor=opts.ksp_monitor)
+        def solver(b, x0=None):
+            return fft_solver_result(A, b, deltas)
+    else:
+        M = make_preconditioner(A, opts, shape, deltas, dtype, device)
+
+        def solver(b, x0=None):
+            return cg(A, b, x0, M=M, rtol=opts.ksp_rtol, atol=opts.ksp_atol,
+                      max_it=opts.ksp_max_it, norm_type=opts.ksp_norm_type,
+                      flexible=opts.ksp_type == "fcg", monitor=opts.ksp_monitor)
 
     # the built preconditioner and configuration, for `-ksp_view`
     solver.M = M
@@ -192,6 +208,11 @@ def solve(
     if db is not None and (db.get_bool("options_left")
                            or db.get_bool("options_error_if_unused")):
         db.check_unused()
+    if opts.ksp_monitor and opts.ksp_type == "fft":
+        # the direct solve has no iterations: its one-line residual
+        # history, printed after the solve
+        for line in result.monitor_lines():
+            print(line)
     if opts.ksp_converged_reason:
         r = result.reason_enum()
         print(f"Linear solve {r.message} (reason {r.name}, "

@@ -471,9 +471,10 @@ def make_mg_preconditioner(
     deltas: Sequence[float],
     cfg: MGConfig = MGConfig(),
     dtype=torch.float64,
-    device="cpu",
+    device="cuda",
 ) -> Callable[[Tensor], Tensor]:
-    """Build M(r) ~= A^{-1} r, a cycle closure on `device`.
+    """Build M(r) ~= A^{-1} r, a cycle closure on `device` (the card
+    unless the caller asks for "cpu").
 
     Setup (hierarchy + dense coarse pseudo-inverse) runs once here. The
     closure is linear and symmetric. Like the JAX package's, it exposes

@@ -87,7 +87,7 @@ def mg32():
     roll transfers in interpret mode."""
     n = 32
     shape, d = (n,) * 3, (1.0 / n,) * 3
-    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda"))
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda"), device="cpu")
     jM = jmg.make_mg_preconditioner(
         shape, d, jmg.MGConfig(impl="pallas", transfers="roll"),
         dtype=jnp.float64)
@@ -139,7 +139,7 @@ def test_apply_update_dots_matches_pallas_path(mg32):
 ], ids=["V", "W-post-only", "jacobi-2cycles", "chebyshev"])
 def test_roll_cycle_matches_jax_roll(cfg):
     shape, d = (16, 16, 16), (1 / 16,) * 3
-    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="roll", **cfg))
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="roll", **cfg), device="cpu")
     jM = jmg.make_mg_preconditioner(shape, d, jmg.MGConfig(impl="roll", **cfg),
                                     dtype=jnp.float64)
     (r,) = fields(shape, 23)
@@ -154,11 +154,11 @@ def test_roll_cycle_matches_jax_roll(cfg):
 
 def test_bf16_cycle_dtype_runs_on_cpu():
     shape, d = (16, 16, 16), (1 / 16,) * 3
-    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(dtype="bfloat16"))
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(dtype="bfloat16"), device="cpu")
     (r,) = fields(shape, 24)
     v = M(t(r))
     assert v.dtype == torch.float64 and getattr(M, "apply_dots", None) is None
-    ref = mg.make_mg_preconditioner(shape, d, mg.MGConfig())(t(r)).numpy()
+    ref = mg.make_mg_preconditioner(shape, d, mg.MGConfig(), device="cpu")(t(r)).numpy()
     # bf16 keeps ~3 digits: the cycle is the f64 cycle to that precision
     np.testing.assert_allclose(v.numpy(), ref, rtol=0,
                                atol=5e-2 * np.abs(ref).max())
@@ -171,19 +171,19 @@ def test_unported_options_raise():
     ValueError when the preconditioner is built."""
     shape, d = (8, 8, 8), (1 / 8,) * 3
     (r,) = fields(shape, 25)
-    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(transfers="matmul"))
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(transfers="matmul"), device="cpu")
     jM = jmg.make_mg_preconditioner(shape, d, jmg.MGConfig(transfers="matmul"),
                                     dtype=jnp.float64)
     ref = np.asarray(jax.jit(jM)(jnp.asarray(r)))
     np.testing.assert_allclose(M(t(r)).numpy(), ref, rtol=RTOL_FIELD,
                                atol=1e-12 * np.abs(ref).max())
-    as_pallas = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="pallas"))
-    as_cuda = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda"))
+    as_pallas = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="pallas"), device="cpu")
+    as_cuda = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda"), device="cpu")
     assert getattr(as_pallas, "apply_update_dots", None) is not None
     assert torch.equal(as_pallas(t(r)), as_cuda(t(r)))
     for bad in ({"impl": "tpu"}, {"transfers": "fft"}):
         with pytest.raises(ValueError):
-            mg.make_mg_preconditioner(shape, d, mg.MGConfig(**bad))
+            mg.make_mg_preconditioner(shape, d, mg.MGConfig(**bad), device="cpu")
 
 
 def test_512_f32_card_graph_binds_narrow_fused_update():

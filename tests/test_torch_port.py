@@ -132,7 +132,7 @@ def test_classify_matches_jax(resnorm):
 
 
 def test_grid_and_constants():
-    g = Grid3D((4, 6, 8), (1.0, 3.0, 2.0))
+    g = Grid3D((4, 6, 8), (1.0, 3.0, 2.0), device="cpu")
     assert g.deltas == (0.25, 0.5, 0.25) and g.ndof == 192
     assert g.dof_counts() == [192]
     a = g.random(torch.Generator().manual_seed(3), torch.float64)

@@ -47,7 +47,7 @@ def close(got, ref, rtol=RTOL, atol=ATOL):
 def test_zero_sweep_plain_matches_pallas(shape, length, reverse):
     """K3."""
     (b,) = fields(shape, 11, 1)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = jpallas.sor_rb_zero_sweep_pallas(jnp.asarray(b), d, W, reverse=reverse)
     close(stencil_cuda.sor_rb_zero_sweep_plain(t(b), d, W, reverse).numpy(), ref)
 
@@ -58,7 +58,7 @@ def test_zero_sweep_plain_matches_pallas(shape, length, reverse):
 def test_sweep_plain_matches_pallas(shape, length, reverse, dots):
     """K4, with and without the <x, b>, sum(x) partials."""
     u, b = fields(shape, 12, 2)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = jpallas.sor_rb_sweep_pallas(jnp.asarray(u), jnp.asarray(b), d, W,
                                       reverse=reverse, dots=dots)
     got = stencil_cuda.sor_rb_sweep_plain(t(u), t(b), d, W, reverse, dots)
@@ -76,7 +76,7 @@ def test_zero_update_plain_matches_pallas(shape, length, reverse):
     """K5: b = r - alpha*Ap formed, written, reduced, then swept."""
     r, ap = fields(shape, 13, 2)
     alpha = 0.41
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     rb, rx, rrr, rsr = jpallas.sor_rb_zero_update_pallas(
         jnp.asarray(r), jnp.asarray(ap), alpha, d, W, reverse=reverse)
     b, x, rr, sr = stencil_cuda.sor_rb_zero_update_plain(
@@ -124,7 +124,7 @@ def test_sor_wrappers_take_plain_version_on_cpu():
 
 
 def _levels(shape, length):
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     return (mg._build_levels(shape, d, mg.MGConfig()),
             jmg._build_levels(shape, d, jmg.MGConfig()))
 
@@ -195,7 +195,7 @@ def test_jacobi_kernel_not_ported_raises():
 def test_jacobi_plain_matches_pallas(shape, length):
     """K10: u + (w/diag)(b - A u)."""
     u, b = fields(shape, 20, 2)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = jpallas.jacobi_sweep_pallas(jnp.asarray(u), jnp.asarray(b), d, 8 / 9)
     close(stencil_cuda.jacobi_sweep_plain(t(u), t(b), d, 8 / 9).numpy(), ref)
 
@@ -212,7 +212,7 @@ BF16_PALLAS_TOL = 2.0 ** -6
 def test_zero_sweep_bf16_plain_matches_pallas(shape, length, reverse):
     """K3 on a bf16 right-hand side (the bf16 pre-smooth)."""
     (b,) = fields(shape, 21, 1)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = np.asarray(jpallas.sor_rb_zero_sweep_pallas(
         jnp.asarray(b, jnp.bfloat16), d, W, reverse=reverse)).astype(np.float32)
     got = stencil_cuda.sor_rb_zero_sweep_plain(t(b).to(torch.bfloat16), d, W,
@@ -228,7 +228,7 @@ def test_zero_update_narrow_plain_matches_pallas(shape, length):
     stored in bf16 (one rounding on both sides)."""
     r, ap = (a.astype(np.float32) for a in fields(shape, 22, 2))
     alpha = np.float32(0.41)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     rb, rx, rrr, _ = jpallas.sor_rb_zero_update_pallas(
         jnp.asarray(r), jnp.asarray(ap), jnp.asarray(alpha), d, W,
         out_dtype=jnp.bfloat16)
@@ -241,12 +241,35 @@ def test_zero_update_narrow_plain_matches_pallas(shape, length):
     np.testing.assert_allclose(float(rr), float(rrr), rtol=1e-5)
 
 
+@pytest.mark.parametrize("smoother,sweeps", [("chebyshev", 1), ("chebyshev", 2),
+                                             ("jacobi", 2), ("jacobi", 3)])
+def test_bf16_presmooth_on_ka_k10_matches_pallas(smoother, sweeps):
+    """The bf16 pre-smooths that reach KA's residual (Chebyshev) and K10
+    (Jacobi with two or more sweeps), forced with pre_dtype='bfloat16':
+    the impl='cuda' smoother (plain versions on CPU: f32 arithmetic, one
+    rounding at each kernel store) against the JAX impl='pallas' smoother
+    (bf16 throughout), within BF16_PALLAS_TOL of max|x|."""
+    shape, length = (16, 16, 16), (1.0, 1.0, 1.0)
+    (lvl, *_), (jlvl, *_) = _levels(shape, length)
+    (b,) = fields(shape, 24, 1)
+    kw = dict(smoother=smoother, pre_dtype="bfloat16")
+    cfg = mg.MGConfig(impl="cuda", **kw)
+    jcfg = jmg.MGConfig(impl="pallas", **kw)
+    got = mg._smooth(None, t(b).to(torch.bfloat16), lvl, cfg, sweeps, False)
+    ref = np.asarray(jax.jit(lambda bb: jmg._smooth(None, bb, jlvl, jcfg, sweeps,
+                                                    False))(
+        jnp.asarray(b, jnp.bfloat16))).astype(np.float32)
+    assert got.dtype == torch.bfloat16
+    close(got.float().numpy(), ref, rtol=0,
+          atol=BF16_PALLAS_TOL * np.abs(ref).max())
+
+
 def test_bf16_sweep_plain_rounds_once_per_colour():
     """The port's bf16 sweep: each colour computes in f32 and rounds at
     its store, so it stays within two bf16 roundings (2^-7 of max|x|) of
     the f32 sweep on the same bf16 inputs."""
     u, b = (t(a).to(torch.bfloat16) for a in fields((16, 8, 12), 23, 2))
-    d = Grid3D((16, 8, 12), (1.0, 0.75, 1.5)).deltas
+    d = Grid3D((16, 8, 12), (1.0, 0.75, 1.5), device="cpu").deltas
     got = stencil_cuda.sor_rb_sweep_plain(u, b, d, W, reverse=True)
     ref = stencil_cuda.sor_rb_sweep_plain(u.float(), b.float(), d, W, reverse=True)
     assert got.dtype == torch.bfloat16
@@ -255,13 +278,14 @@ def test_bf16_sweep_plain_rounds_once_per_colour():
 
 def test_kernel_dtype_table():
     """bf16 where a kernel takes it (KB zero/general, the transfer legs'
-    iterate), refused where none does (KA, K8, K5's inputs, KB dots)."""
+    iterate, KA's residual and Jacobi epilogues), refused where none does
+    (KA's apply forms, K8, K5's inputs, KB dots)."""
     bf16 = torch.bfloat16
     for mode in ("rbsor.zero", "rbsor.general", "xfer.restrict",
-                 "xfer.prolong_add"):
+                 "xfer.prolong_add", "stencil7.residual", "stencil7.jacobi"):
         stencil_cuda.check_dtype(mode, bf16)
-    for mode in ("stencil7.apply", "stencil7.apply_dot", "stencil7.residual",
-                 "stencil7.jacobi", "cgupd", "rbsor.zero_update", "rbsor.dots"):
+    for mode in ("stencil7.apply", "stencil7.apply_dot", "cgupd",
+                 "rbsor.zero_update", "rbsor.dots"):
         with pytest.raises(TypeError, match="bfloat16"):
             stencil_cuda.check_dtype(mode, bf16)
     for mode in stencil_cuda.DTYPES:

@@ -7,6 +7,8 @@ interpret mode; at 64^3 the port's default CPU path to JAX's default path
 (6 iterations to rtol 1e-8).
 """
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -71,7 +73,7 @@ def check_against(res, ref):
 
 def test_poisson_solver_kernel_path_matches_pallas(pallas_ref32):
     b, ref = pallas_ref32
-    s = PoissonSolver((32,) * 3, dtype=torch.float64, options=Options(
+    s = PoissonSolver((32,) * 3, dtype=torch.float64, device="cpu", options=Options(
         ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-10",
          "-ksp_max_it", "60", "-mg_impl", "cuda"]))
     assert getattr(s._solver.M, "apply_update_dots", None) is not None
@@ -82,9 +84,9 @@ def test_kernel_operator_and_mg_match_pallas(pallas_ref32):
     """The whole kernel call graph: A.apply_dot (K2) as CG's matvec, and
     the fused update (K5) in the cycle, as the card runs it."""
     b, ref = pallas_ref32
-    grid = Grid3D((32,) * 3)
+    grid = Grid3D((32,) * 3, device="cpu")
     A = make_laplacian_operator(grid, impl="cuda")
-    M = make_mg_preconditioner(grid.n, grid.deltas, MGConfig(impl="cuda"))
+    M = make_mg_preconditioner(grid.n, grid.deltas, MGConfig(impl="cuda"), device="cpu")
     res = cg(A, torch.as_tensor(b), M=M, rtol=1e-10, max_it=60)
     check_against(res, ref)
 
@@ -96,7 +98,7 @@ def test_default_path_64_matches_jax_six_iterations():
     M = jmake_mg(grid.n, grid.deltas, JMGConfig(), dtype=jnp.float64)
     b = jax_rhs(rhs_field(n), n)
     ref = jax.jit(lambda z: jcg(A, z, M=M, rtol=1e-8, max_it=50))(b)
-    s = PoissonSolver((n,) * 3, dtype=torch.float64, options=SolverOptions(
+    s = PoissonSolver((n,) * 3, dtype=torch.float64, device="cpu", options=SolverOptions(
         ksp_type="cg", pc_type="mg", ksp_rtol=1e-8, ksp_max_it=50))
     res = s.solve(torch.as_tensor(b))
     assert int(ref.iterations) == int(res.iterations) == 6
@@ -124,9 +126,9 @@ def test_options_match_jax(opts):
     b = jax_rhs(rhs_field(n, 3), n)
     ref = jax.jit(jksp.make_solver(jA, JSolverOptions(**opts), grid.n,
                                    grid.deltas, jnp.float64))(b)
-    A = make_laplacian_operator(Grid3D((n,) * 3))
+    A = make_laplacian_operator(Grid3D((n,) * 3, device="cpu"))
     res = ksp.make_solver(A, SolverOptions(**opts), (n,) * 3, grid.deltas,
-                          torch.float64)(torch.as_tensor(b))
+                          torch.float64, device="cpu")(torch.as_tensor(b))
     assert int(res.iterations) == int(ref.iterations)
     np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), rtol=1e-7,
                                atol=1e-10)
@@ -137,7 +139,7 @@ def test_options_match_jax(opts):
 
 def test_warm_start_and_max_it():
     n = 16
-    A = make_laplacian_operator(Grid3D((n,) * 3))
+    A = make_laplacian_operator(Grid3D((n,) * 3, device="cpu"))
     u = torch.as_tensor(rhs_field(n, 4))
     b = A(u)
     cold = cg(A, b, rtol=1e-10, max_it=3)
@@ -151,7 +153,7 @@ def test_warm_start_and_max_it():
 
 def test_ksp_solve_prints(capsys):
     n = 8
-    grid = Grid3D((n,) * 3)
+    grid = Grid3D((n,) * 3, device="cpu")
     A = make_laplacian_operator(grid)
     b = A(torch.as_tensor(rhs_field(n, 5)))
     res = ksp.solve(A, b, Options(["-ksp_type", "cg", "-pc_type", "mg",
@@ -169,14 +171,14 @@ def test_view_matches_jax():
     opts = dict(ksp_type="cg", pc_type="mg", mg_cycle="w")
     jM = jmake_mg((64, 64, 32), (1.0,) * 3, JMGConfig(cycle="w"),
                   dtype=jnp.float64)
-    M = make_mg_preconditioner((64, 64, 32), (1.0,) * 3, MGConfig(cycle="w"))
+    M = make_mg_preconditioner((64, 64, 32), (1.0,) * 3, MGConfig(cycle="w"), device="cpu")
     lines = ksp.view(SolverOptions(**opts), (64, 64, 32), M).splitlines()
     assert lines[-1] == "  resolved: transfers roll, pre-smooth float64"
     assert "\n".join(lines[:-1]) == \
         jksp.view(JSolverOptions(**opts), (64, 64, 32), jM)
     M = make_mg_preconditioner((512,) * 3, (1.0,) * 3,
                                MGConfig(impl="cuda", transfers="matmul"),
-                               torch.float32)
+                               torch.float32, device="cpu")
     assert ksp.view(SolverOptions(**opts), None, M).splitlines()[-1] == \
         "  resolved: transfers matmul, pre-smooth bfloat16"
 
@@ -185,13 +187,13 @@ def test_mg_impl_pallas_runs_as_cuda():
     """A reference command line that says -mg_impl pallas runs unchanged,
     on the kernel path."""
     n = 16
-    grid = Grid3D((n,) * 3)
+    grid = Grid3D((n,) * 3, device="cpu")
     b = make_laplacian_operator(grid)(torch.as_tensor(rhs_field(n, 6)))
     argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-9",
             "-mg_transfers", "matmul", "-mg_impl"]
     res = {}
     for impl in ("pallas", "cuda"):
-        s = PoissonSolver((n,) * 3, dtype=torch.float64,
+        s = PoissonSolver((n,) * 3, dtype=torch.float64, device="cpu",
                           options=Options(argv + [impl]))
         assert getattr(s._solver.M, "apply_update_dots", None) is not None
         res[impl] = s.solve(b)
@@ -212,9 +214,9 @@ def test_jacobi_mgcg_iteration_parity_32():
     jM = jmake_mg(grid.n, grid.deltas, JMGConfig(impl="roll", **kw),
                   dtype=jnp.float64)
     ref = jax.jit(lambda z: jcg(jA, z, M=jM, rtol=rtol, max_it=80))(b)
-    tgrid = Grid3D((n,) * 3)
+    tgrid = Grid3D((n,) * 3, device="cpu")
     A = make_laplacian_operator(tgrid, impl="cuda")
-    M = make_mg_preconditioner(tgrid.n, tgrid.deltas, MGConfig(impl="cuda", **kw))
+    M = make_mg_preconditioner(tgrid.n, tgrid.deltas, MGConfig(impl="cuda", **kw), device="cpu")
     assert A.fused_update is not None and M.apply_dots is not None
     assert getattr(M, "apply_update_dots", None) is None
     res = cg(A, torch.as_tensor(b), M=M, rtol=rtol, max_it=80)
@@ -226,7 +228,7 @@ def test_jacobi_mgcg_iteration_parity_32():
 
 
 def test_demo_runs_on_cpu(capsys):
-    rel = demo.run(Options(["-n", "16", "-ksp_rtol", "1e-8"]))
+    rel = demo.run(Options(["-n", "16", "-ksp_rtol", "1e-8", "-device", "cpu"]))
     assert rel <= 1e-8 * 1.01
     out = capsys.readouterr().out
     for line in ("check_lapl", "check_matrices[assembled]", "verification"):
@@ -235,18 +237,55 @@ def test_demo_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("ksp_type", ["gmres", "pipecg", "richardson", "fft"])
 def test_unported_ksp_types_raise(ksp_type):
-    A = make_laplacian_operator(Grid3D((8, 8, 8)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ksp.make_solver(A, SolverOptions(ksp_type=ksp_type), (8,) * 3,
-                        (0.125,) * 3)
+    """The Krylov methods still to port raise; `fft`, ported with the
+    compact stack, now builds the direct solve: one iteration, u back to
+    rounding (the JAX package's test_ksp_dispatch_fft)."""
+    A = make_laplacian_operator(Grid3D((8, 8, 8), device="cpu"))
+    if ksp_type != "fft":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            ksp.make_solver(A, SolverOptions(ksp_type=ksp_type), (8,) * 3,
+                            (0.125,) * 3, device="cpu")
+        return
+    solver = ksp.make_solver(A, SolverOptions(ksp_type="fft"), (8,) * 3,
+                             (0.125,) * 3, device="cpu")
+    assert solver.M is None
+    u = torch.as_tensor(rhs_field(8, 7))
+    res = solver(A(u))
+    assert int(res.iterations) == 1 and bool(res.converged)
+    np.testing.assert_allclose(res.x.numpy(), u.numpy(), atol=1e-12)
 
 
 def test_unported_facade_entries_raise():
-    with pytest.raises(NotImplementedError):
-        PoissonSolver((8, 8, 8), order=6)
-    s = PoissonSolver((8, 8, 8), dtype=torch.float64)
+    """order=6, which raised until the compact stack was ported, now
+    builds the compact operator; refinement and checkpointing still
+    raise."""
+    s6 = PoissonSolver((8, 8, 8), order=6, dtype=torch.float64, device="cpu",
+                       options=SolverOptions(ksp_type="fft"))
+    u = s6.A.project(torch.as_tensor(rhs_field(8, 8)))
+    b6 = s6.A(u)
+    assert s6.residual_norm(s6.solve(b6).x, b6) < 1e-12
+    s = PoissonSolver((8, 8, 8), dtype=torch.float64, device="cpu")
     b = torch.zeros(8, 8, 8, dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         s.solve_refined(b)
     with pytest.raises(NotImplementedError):
         s.solve_checkpointed(b, "unused")
+
+
+def test_entry_points_default_to_the_card():
+    """PoissonSolver, the demo, Grid3D and the ksp/mg constructors run on
+    the card unless the caller asks for the CPU; without a card a CUDA
+    request raises and never falls back."""
+    assert Grid3D((4, 4, 4)).device.type == "cuda"
+    for fn in (ksp.make_solver, ksp.make_preconditioner, make_mg_preconditioner):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    for order in (2, 6):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            PoissonSolver((8, 8, 8), order=order)
+    with pytest.raises(RuntimeError, match="cuda"):
+        demo.run(Options(["-n", "8"]))
+    A = make_laplacian_operator(Grid3D((8, 8, 8), device="cpu"))
+    with pytest.raises((RuntimeError, AssertionError)):
+        ksp.make_solver(A, SolverOptions(), (8,) * 3, (0.125,) * 3)

@@ -48,7 +48,7 @@ def close(got, ref, rtol=RTOL, atol=ATOL):
 @pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
 def test_roll_matches_jax(shape, length):
     (u,) = fields(shape, 1)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = np.asarray(jstencil.apply_laplacian(jnp.asarray(u), d))
     got = stencil.apply_laplacian(t(u), d).numpy()
     close(got, ref, atol=1e-12 * np.abs(ref).max())
@@ -57,7 +57,7 @@ def test_roll_matches_jax(shape, length):
 @pytest.mark.parametrize("shape,length", GRIDS, ids=GRID_IDS)
 def test_pointwise_matches_jax(shape, length):
     (u,) = fields(shape, 2)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = np.asarray(jstencil.apply_laplacian_pointwise(jnp.asarray(u), d))
     got = stencil.apply_laplacian_pointwise(t(u), d).numpy()
     close(got, ref, atol=1e-12 * np.abs(ref).max())
@@ -83,7 +83,7 @@ def test_star_coeffs_match_jax():
 def test_apply_plain_matches_pallas(shape, length):
     """K1: y = A u."""
     (u,) = fields(shape, 4)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = np.asarray(jpallas.apply_laplacian_pallas(jnp.asarray(u), d))
     close(stencil_cuda.apply_laplacian_plain(t(u), d).numpy(), ref)
 
@@ -92,7 +92,7 @@ def test_apply_plain_matches_pallas(shape, length):
 def test_apply_dot_plain_matches_pallas(shape, length):
     """K2: (A u, <u, A u>)."""
     (u,) = fields(shape, 5)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref, rdot = jpallas.apply_laplacian_dot_pallas(jnp.asarray(u), d)
     y, dot = stencil_cuda.apply_laplacian_dot_plain(t(u), d)
     close(y.numpy(), ref)
@@ -103,7 +103,7 @@ def test_apply_dot_plain_matches_pallas(shape, length):
 def test_residual_plain_matches_pallas(shape, length):
     """K9: r = b - A u."""
     u, b = fields(shape, 6, 2)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = np.asarray(jpallas.residual_pallas(jnp.asarray(u), jnp.asarray(b), d))
     close(stencil_cuda.residual_plain(t(u), t(b), d).numpy(), ref)
 
@@ -126,7 +126,7 @@ def test_cg_fused_update_plain_matches_pallas(shape, length):
 
 def test_cuda_operator_binds_fused_update():
     u, p, r, ap = (t(a) for a in fields((8, 8, 8), 11, 4))
-    grid = Grid3D((8, 8, 8))
+    grid = Grid3D((8, 8, 8), device="cpu")
     assert stencil.make_laplacian_operator(grid, impl="roll").fused_update is None
     A = stencil.make_laplacian_operator(grid, impl="cuda")
     alpha = torch.tensor(0.7, dtype=torch.float64)
@@ -155,7 +155,7 @@ def test_cuda_wrappers_take_plain_version_on_cpu():
 
 @pytest.mark.parametrize("impl", ["roll", "pointwise", "cuda", "auto"])
 def test_operator_impls_agree(impl):
-    grid = Grid3D((16, 12, 8), (1.0, 0.5, 2.0))
+    grid = Grid3D((16, 12, 8), (1.0, 0.5, 2.0), device="cpu")
     (u,) = fields(grid.n, 8)
     A = stencil.make_laplacian_operator(grid, impl=impl)
     ref = np.asarray(jstencil.apply_laplacian(jnp.asarray(u), grid.deltas))
@@ -170,7 +170,7 @@ def test_operator_impls_agree(impl):
 
 def test_unknown_impl_raises():
     with pytest.raises(ValueError):
-        stencil.make_laplacian_operator(Grid3D((8, 8, 8)), impl="pallas")
+        stencil.make_laplacian_operator(Grid3D((8, 8, 8), device="cpu"), impl="pallas")
     with pytest.raises(ValueError):
         stencil.default_impl("meta")
 
@@ -178,7 +178,7 @@ def test_unknown_impl_raises():
 @pytest.mark.parametrize("shape,length", [((6, 4, 8), (1.0, 2.0, 0.5)),
                                           ((2, 3, 4), (1.0, 1.0, 1.0))])
 def test_stencil_matrix_matches_jax(shape, length):
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     M = assemble.assemble_laplacian(shape, d)
     jM = jassemble.assemble_laplacian(shape, d, jnp.float64)
     np.testing.assert_array_equal(M.to_dense(), jM.to_dense())

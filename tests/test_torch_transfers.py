@@ -60,7 +60,7 @@ def half(shape):
 def test_residual_xrestrict_plain_matches_pallas(shape, length):
     """K6 in f64."""
     u, b = fields(shape, 41, 2)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = jpallas.residual_xrestrict_pallas(jnp.asarray(u), jnp.asarray(b), d)
     got = transfer_cuda.residual_xrestrict_plain(t(u), t(b), d)
     assert tuple(got.shape) == half(shape)
@@ -71,7 +71,7 @@ def test_residual_xrestrict_plain_matches_pallas(shape, length):
 def test_residual_xrestrict_bf16_iterate_matches_pallas(shape, length):
     """K6 reading a bf16 iterate with an f32 right-hand side."""
     u, b = fields(shape, 42, 2)
-    d = Grid3D(shape, length).deltas
+    d = Grid3D(shape, length, device="cpu").deltas
     ref = np.asarray(jpallas.residual_xrestrict_pallas(
         jnp.asarray(u, jnp.bfloat16), jnp.asarray(b, jnp.float32), d))
     got = transfer_cuda.residual_xrestrict_plain(
@@ -152,7 +152,7 @@ def fused32():
     n = 32
     shape, d = (n,) * 3, (1.0 / n,) * 3
     M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda",
-                                                        transfers="matmul"))
+                                                        transfers="matmul"), device="cpu")
     jM = jmg.make_mg_preconditioner(
         shape, d, jmg.MGConfig(impl="pallas", transfers="matmul"),
         dtype=jnp.float64)
@@ -183,7 +183,7 @@ def test_fused_leg_bf16_pre_smooth_matches_pallas_path():
     kw = dict(pre_smooth=1, post_smooth=1, pre_dtype="bfloat16",
               transfers="matmul")
     M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(impl="cuda", **kw),
-                                  torch.float32)
+                                  torch.float32, device="cpu")
     jM = jmg.make_mg_preconditioner(shape, d, jmg.MGConfig(impl="pallas", **kw),
                                     dtype=jnp.float32)
     assert getattr(M, "apply_update_dots", None) is not None
@@ -217,7 +217,7 @@ def test_mgcg_fused_legs_iteration_parity_32():
         grid.n, grid.deltas, jmg.MGConfig(impl="roll", transfers="matmul"),
         dtype=jnp.float64)
     ref = jax.jit(lambda z: jcg(jA, z, M=jM, rtol=rtol, max_it=60))(b)
-    s = PoissonSolver((n,) * 3, dtype=torch.float64, options=Options(
+    s = PoissonSolver((n,) * 3, dtype=torch.float64, device="cpu", options=Options(
         ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
          "-ksp_max_it", "60", "-mg_impl", "cuda", "-mg_transfers", "matmul"]))
     assert getattr(s._solver.M, "apply_update_dots", None) is not None

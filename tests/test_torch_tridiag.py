@@ -1,0 +1,126 @@
+"""The port's tridiagonal solvers against the JAX package, in float64:
+the plain stack (ops.tridiag: tdma, tdma_periodic, TridiagFactor with
+seq/pscan, the sweeps) and CudaTridiagFactor's plain versions of K13
+(Thomas) and K14 (circulant PCR), held to PallasTridiagFactor in
+interpret mode (Thomas in float64; its PCR kernel takes float32 only, so
+PCR is compared in float32 too)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from poissbox_tpu.ops import tridiag as jtri
+from poissbox_tpu.ops.tridiag_pallas import PallasTridiagFactor
+from poissbox_tpu_torch.ops import stencil_cuda, tridiag
+from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
+
+TOL = 1e-12
+
+
+def rhs(shape, seed):
+    return np.random.default_rng(seed).uniform(-1.0, 1.0, shape)
+
+
+def compact_system(n, alpha=3.0 / 10.0, dtype=np.float64):
+    return (np.full(n, alpha, dtype), np.ones(n, dtype), np.full(n, alpha, dtype))
+
+
+def general_system(n, seed=3):
+    """Diagonally dominant, not constant (Thomas only)."""
+    g = np.random.default_rng(seed)
+    a, c = g.uniform(-0.4, 0.4, n), g.uniform(-0.4, 0.4, n)
+    return a, g.uniform(1.0, 2.0, n), c
+
+
+def t(*arrs):
+    return [torch.as_tensor(a) for a in arrs]
+
+
+def close(got, ref, tol=TOL):
+    got, ref = np.asarray(got), np.asarray(ref)
+    assert got.shape == ref.shape
+    assert np.abs(got - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("periodic", [True, False])
+@pytest.mark.parametrize("shape,axis", [((16, 8, 12), 0), ((8, 16, 12), 1),
+                                        ((8, 12, 16), 2), ((16,), 0)],
+                         ids=["axis0", "axis1", "axis2", "1d"])
+def test_factors_match_pallas_thomas(shape, axis, periodic):
+    """Every port solver (CudaTridiagFactor thomas/pcr/auto on the CPU,
+    TridiagFactor seq/pscan) against the Pallas Thomas kernel."""
+    n = shape[axis]
+    sysm = compact_system(n) if periodic else general_system(n)
+    d = rhs(shape, 4)
+    ref = np.asarray(PallasTridiagFactor(*map(jnp.asarray, sysm), periodic=periodic,
+                                         algorithm="thomas").solve(jnp.asarray(d), axis))
+    algos = ["thomas", "auto"] + (["pcr"] if periodic else [])
+    for alg in algos:
+        fac = CudaTridiagFactor(*t(*sysm), periodic=periodic, algorithm=alg)
+        close(fac.solve(torch.as_tensor(d), axis).numpy(), ref)
+    for method in ("seq", "pscan"):
+        fac = tridiag.TridiagFactor(*t(*sysm), periodic=periodic, method=method)
+        close(fac.solve(torch.as_tensor(d), axis).numpy(), ref)
+
+
+@pytest.mark.parametrize("n", [16, 40])
+def test_pcr_matches_pallas_pcr_f32(n):
+    """K14's plain version against the Pallas PCR kernel in float32 (at
+    n = 40 the JAX package refuses PCR — Mosaic's extent gate — so the
+    reference there is its Thomas kernel)."""
+    sysm = compact_system(n, 9.0 / 62.0, np.float32)
+    d = rhs((n, 8, 16), 5).astype(np.float32)
+    alg = "pcr" if n == 16 else "thomas"
+    ref = np.asarray(PallasTridiagFactor(*map(jnp.asarray, sysm), periodic=True,
+                                         algorithm=alg).solve(jnp.asarray(d), 0))
+    fac = CudaTridiagFactor(*t(*sysm), periodic=True)
+    assert fac.algorithm == "pcr"
+    got = fac.solve(torch.as_tensor(d), 0)
+    assert got.dtype == torch.float32
+    close(got.numpy(), ref, 2e-6)
+
+
+def test_algorithm_selection():
+    per = t(*compact_system(40))
+    assert CudaTridiagFactor(*per, periodic=True).algorithm == "pcr"
+    assert CudaTridiagFactor(*per, periodic=False).algorithm == "thomas"
+    assert CudaTridiagFactor(*t(*general_system(40)), periodic=True).algorithm == "thomas"
+    with pytest.raises(ValueError):
+        CudaTridiagFactor(*t(*general_system(16)), periodic=True, algorithm="pcr")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        CudaTridiagFactor(*per, periodic=True, algorithm="babe")
+    with pytest.raises(ValueError):
+        CudaTridiagFactor(*per, periodic=True, algorithm="cr")
+
+
+def test_cuda_factor_on_cpu_launches_nothing():
+    d = torch.as_tensor(rhs((16, 4, 4), 6))
+    stencil_cuda.reset_launches()
+    for alg in ("thomas", "pcr"):
+        CudaTridiagFactor(*t(*compact_system(16)), periodic=True,
+                          algorithm=alg).solve(d)
+    assert not any(stencil_cuda.LAUNCHES.values())
+
+
+@pytest.mark.parametrize("method", ["seq", "pscan"])
+def test_tdma_and_sweeps_match_jax(method):
+    n = 12
+    a, b, c = general_system(n, 7)
+    d = rhs((n, 5), 8)
+    close(tridiag.tdma(*t(a, b, c, d), axis=0, method=method).numpy(),
+          jtri.tdma(*map(jnp.asarray, (a, b, c, d)), axis=0, method=method))
+    close(tridiag.tdma_periodic(*t(a, b, c, d), axis=0, method=method).numpy(),
+          jtri.tdma_periodic(*map(jnp.asarray, (a, b, c, d)), axis=0,
+                             method=method))
+    bm, dm = tridiag.fwd_sweep(*t(a, b, c, d), axis=0, method=method)
+    jbm, jdm = jtri.fwd_sweep(*map(jnp.asarray, (a, b, c, d)), axis=0, method=method)
+    close(bm.numpy(), jbm)
+    close(dm.numpy(), jdm)
+    close(tridiag.bwd_sweep(bm, torch.as_tensor(c), dm, axis=0, method=method).numpy(),
+          jtri.bwd_sweep(jbm, jnp.asarray(c), jdm, axis=0, method=method))
+
+
+def test_linrec_rejects_unknown_method():
+    with pytest.raises(ValueError):
+        tridiag.tdma(*t(*general_system(8)), torch.ones(8), method="cr")
