@@ -7,12 +7,13 @@ and fails loudly if any phase fails:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the kernels from poissbox_tpu_torch/csrc with nvcc
      (one compiler per source, in parallel);
-  3. kernels: every stencil7 epilogue, rbsor mode, xfer leg and the CG
-     update against its plain PyTorch version on the same card (64^3 f64,
-     256^3 f32, an anisotropic grid; the bf16 modes on the f32 cases and
-     512^3; the stencil7 epilogues, bf16 too, at (48, 40, 96) f32), then
-     kernel, plain and bound times at 256^3 f32 and, for the modes of the
-     512^3 path, at 512^3 f32; K1 beside Conv3d;
+  3. kernels: every stencil7 epilogue (K12's p-update prologue
+     included), rbsor mode (K11's single colour update included), xfer leg
+     and the CG update against its plain PyTorch version on the same card
+     (64^3 f64, 256^3 f32, an anisotropic grid; the bf16 modes on the f32
+     cases and 512^3; the stencil7 epilogues, bf16 too, at (48, 40, 96)
+     f32), then kernel, plain and bound times at 256^3 f32 and, for the
+     modes of the 512^3 path (and K2, K12), at 512^3 f32; K1 beside Conv3d;
   4. transfers: the banded-matrix y/z transfers against the roll form in
      f32 with TF32 allowed globally (the contractions must not use it),
      and their times against the roll form's;
@@ -40,7 +41,22 @@ and fails loudly if any phase fails:
        (e)   -ksp_type fft at 512^3 f32, order 2 and order 6; FCG with
              -pc_type fft on order 6 at 256^3 f32 and f64;
        (f)   the batched periodic tridiagonal solve of the JAX package's
-             bench at 512^3 f32: CudaTridiagFactor, PCR (auto) and Thomas.
+             bench at 512^3 f32: CudaTridiagFactor, PCR (auto) and Thomas;
+       (g)   GMRES(30), the default KSP: with -pc_type mg at 64^3 f64 rtol
+             1e-8 and 512^3 f32 rtol 1e-6 (a 31-field basis, 16.6 GB),
+             with -pc_type none at 64^3 f64 for 60 iterations (K2 through
+             use_fused; history against the plain path's), the demo;
+       (h)   PIPECG + MG at 64^3 f64 and 256^3 f32, Richardson + MG at
+             256^3 f32;
+       (i)   CG with the deferred p-update (K12 bound on the operator) at
+             256^3 and 512^3 f32, and 512^3 with roll transfers (K8 +
+             K12): the eager path's iterations, warm deferred vs eager;
+       (j)   solve_refined (float32 MG-CG inner solves, float64 residuals)
+             to 1e-12 at 512^3 beside float64 MG-CG, and at 128^3 against
+             the plain path;
+       (k)   solve_checkpointed at 256^3 f32, every 2 iterations, in a
+             temporary directory: killed after chunk 0 and resumed equals
+             the uninterrupted run; a b one ulp away starts fresh.
 
 The last two lines of standard output are a JSON object with one entry
 per kernel mode, then {"ok": true, "device": {...}}.
@@ -50,16 +66,20 @@ per kernel mode, then {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
+from poissbox_tpu_torch import checkpoint
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.mesh import Grid3D
@@ -72,6 +92,9 @@ from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
 from poissbox_tpu_torch.solvers import fft, ksp
 from poissbox_tpu_torch.solvers import mg
+from poissbox_tpu_torch.solvers.cg import cg
+from poissbox_tpu_torch.solvers.gmres import clamp_restart
+from poissbox_tpu_torch.solvers.refine import refine
 
 BF16 = torch.bfloat16
 DEVICE = "cuda"   # every field and solver of the script lives on the card
@@ -90,15 +113,16 @@ INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
 PCR = "poissbox_tpu/ops/compact_pcr.py"
 TRI = "poissbox_tpu/ops/tridiag_pallas.py"
 KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
-    "stencil7.apply": ("stencil7.cu", f"{PALLAS}:348"),
-    "stencil7.apply_dot": ("stencil7.cu", f"{PALLAS}:369"),
+    "stencil7.apply": ("stencil7.cu", f"{PALLAS}:348, {INPLACE}:389"),
+    "stencil7.apply_dot": ("stencil7.cu", f"{PALLAS}:369, {PALLAS}:409, {INPLACE}:389"),
+    "stencil7.pupd_dot": ("stencil7.cu", f"{PALLAS}:471, {PALLAS}:515, {INPLACE}:642"),
     "stencil7.residual": ("stencil7.cu", f"{PALLAS}:649"),
     "stencil7.jacobi": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
     "stencil7.residual.bf16": ("stencil7.cu", f"{PALLAS}:649"),
     "stencil7.jacobi.bf16": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
     "rbsor.zero": ("rbsor.cu", f"{PALLAS}:690"),
     "rbsor.zero_update": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
-    "rbsor.general": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
+    "rbsor.general": ("rbsor.cu", f"{PALLAS}:848, {PALLAS}:663, {INPLACE}:275"),
     "rbsor.dots": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
     "rbsor.zero.bf16": ("rbsor.cu", f"{PALLAS}:690"),
     "rbsor.general.bf16": ("rbsor.cu", f"{PALLAS}:690"),
@@ -129,6 +153,7 @@ ALPHA_TRI = 9.0 / 62.0
 W = 1.0        # SOR weight of the solver of record
 WJ = 8.0 / 9.0  # damped-Jacobi weight of the Jacobi smoother
 ALPHA = 0.37   # CG step for the fused-update checks
+BETA, ZSHIFT = 0.61, 0.013   # CG's (beta, zshift) for the K12 checks
 
 
 def phase(name: str) -> None:
@@ -153,6 +178,10 @@ def mode_calls(deltas, narrow: bool):
         ("stencil7.apply_dot", ["u"], 12,
          lambda f: sc.apply_laplacian_dot_cuda(f["u"], d),
          lambda f: sc.apply_laplacian_dot_plain(f["u"], d)),
+        # K12: p' (3 operations a point), the star (10), the dot (2)
+        ("stencil7.pupd_dot", ["u", "p"], 15,
+         lambda f: sc.pupdate_lapl_dot_cuda(f["u"], f["p"], f["beta"], f["zs"], d),
+         lambda f: sc.pupdate_lapl_dot_plain(f["u"], f["p"], f["beta"], f["zs"], d)),
         ("stencil7.residual", ["u", "b"], 11,
          lambda f: sc.residual_cuda(f["u"], f["b"], d),
          lambda f: sc.residual_plain(f["u"], f["b"], d)),
@@ -172,6 +201,11 @@ def mode_calls(deltas, narrow: bool):
          lambda f: sc.sor_rb_multisweep_cuda(f["u"], f["b"], d, W, 3, dots=True),
          lambda f: sc.sor_rb_multisweep_plain(f["u"], f["b"], d, W, 3, dots=True)),
     ]
+    for colour in (0, 1):
+        # K11: one colour update (half the points updated, all copied)
+        calls.append((f"rbsor.general/colour={colour}", ["u", "b"], 7,
+                      lambda f, c=colour: sc.sor_sweep_cuda(f["u"], f["b"], d, W, c),
+                      lambda f, c=colour: sc.sor_sweep_plain(f["u"], f["b"], d, W, c)))
     for rev in (False, True):
         calls += [
             (f"rbsor.zero/rev={rev}", ["b"], 13,
@@ -260,7 +294,9 @@ def fields(shape, dtype, seed):
     mk = lambda s=shape: torch.rand(s, generator=g, dtype=dtype, device=DEVICE) * 2 - 0.75
     f = {"u": mk(), "b": mk(), "r": mk(), "ap": mk(), "p": mk(),
          "e": mk((shape[0] // 2,) + tuple(shape[1:])),
-         "alpha": torch.tensor(ALPHA, dtype=dtype, device=DEVICE)}
+         "alpha": torch.tensor(ALPHA, dtype=dtype, device=DEVICE),
+         "beta": torch.tensor(BETA, dtype=dtype, device=DEVICE),
+         "zs": torch.tensor(ZSHIFT, dtype=dtype, device=DEVICE)}
     if dtype == torch.float32:
         f["u16"], f["b16"] = f["u"].to(BF16), f["b"].to(BF16)
     return f
@@ -325,7 +361,8 @@ def check_kernels() -> dict:
         for name, ins, ops, kern, plain in mode_calls(deltas, dtype == torch.float32):
             key = name.split("/")[0]
             if n == 512 and key not in AT_512 and not key.startswith(
-                    ("xfer.", "cgupd", "stencil7.jacobi")):
+                    ("xfer.", "cgupd", "stencil7.jacobi", "stencil7.apply_dot",
+                     "stencil7.pupd_dot")):
                 continue      # at 512^3, only the modes of the 512^3 paths
             if shape == (48, 40, 96) and not key.startswith("stencil7."):
                 continue      # the compact cases' shape: KA's epilogues, bf16 too
@@ -334,7 +371,10 @@ def check_kernels() -> dict:
             torch.cuda.synchronize()
             st = stats[key]
             st["max_abs_err"] = max(st["max_abs_err"], err)
-            timed = "/" not in name or name.endswith("rev=False")
+            # a sweep mode's row takes the rev=False sweep; K11's single
+            # colour update is timed and printed beside it
+            record = "/" not in name or name.endswith("rev=False")
+            timed = record or name.endswith("colour=0")
             if n in (256, 512) and timed:
                 ms, plain_ms = median_ms(lambda: kern(f)), median_ms(lambda: plain(f))
                 bd = bound(sum(f[k].nbytes for k in ins) + out_bytes(got),
@@ -342,7 +382,7 @@ def check_kernels() -> dict:
                 print(f"  {name:32s} {n}^3 f32: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
                       f"({bd['bound_by']}), max|diff| {err:.3e}")
-                if n == (512 if key in AT_512 else 256):
+                if record and n == (512 if key in AT_512 else 256):
                     st.update(ms=ms, plain_ms=plain_ms, **bd)
             del got
         if n == 256:
@@ -554,9 +594,17 @@ def rhs(solver, n, dtype):
     return solver.rhs_for(torch.as_tensor(u, dtype=dtype, device=DEVICE))
 
 
+def true_tol(extra) -> float:
+    """The true relative residual a solve to rtol must reach, over rtol:
+    1.01 for the methods that monitor the true residual (CG, PIPECG's
+    recurrence, Richardson); 10 for GMRES, which stops on the
+    preconditioned residual ||M r|| / ||M b||."""
+    return 10.0 if "gmres" in extra else 1.01
+
+
 def solve_case(n, dtype, rtol, extra, expect_its):
-    """One MG-CG solve through PoissonSolver on the card, checked; returns
-    (solver, b, iterations)."""
+    """One solve through PoissonSolver on the card (MG-CG unless `extra`
+    says another -ksp_type), checked; returns (solver, b, iterations)."""
     argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
             "-ksp_max_it", "50", *extra]
     solver = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype,
@@ -571,28 +619,32 @@ def solve_case(n, dtype, rtol, extra, expect_its):
     if tuple(res.x.shape) != (n,) * 3 or not bool(torch.isfinite(res.x).all()):
         raise AssertionError(f"{n}^3: bad solution tensor")
     bad_its = expect_its is not None and its != expect_its
-    if bad_its or not res.reason_enum() > 0 or not rel <= rtol * 1.01:
+    if bad_its or not res.reason_enum() > 0 or not rel <= rtol * true_tol(extra):
         raise AssertionError(f"{n}^3 {dtype} {extra}: {its} iterations "
                              f"(expected {expect_its}), {res.reason_enum().name}, "
                              f"relative residual {rel:.3e} (rtol {rtol:g})")
+    M = solver._solver.M
     print(f"  {n}^3 {dtype} rtol {rtol:g} {' '.join(extra)}: {its} iterations, "
-          f"relative residual {rel:.3e}, first solve {t_solve * 1e3:.2f} ms, "
-          f"M: {solver._solver.M.resolved}", flush=True)
+          f"relative residual {rel:.3e}, monitored {float(res.residual_norm):.3e}, "
+          f"first solve {t_solve * 1e3:.2f} ms"
+          + (f", M: {M.resolved}" if M is not None else ""), flush=True)
     return solver, b, its
 
 
 def run_path(label, cases, required, totals, demo=False, runner=None):
     """Drive one path (`runner`, by default solve_case, on each case) with
     the counters reset before and read after; fail if a kernel the path
-    needs was never launched. Returns the runs."""
+    needs was never launched. `demo` (True, or the demo's extra options)
+    runs the demo at 64^3 too. Returns the runs."""
     print(f"-- path {label}", flush=True)
     sc.reset_launches()
     runs = [(runner or solve_case)(*c) for c in cases]
     if demo:
         from poissbox_tpu_torch import demo as demo_mod
-        rel = demo_mod.run(Options(["-n", "64", "-device", DEVICE]))
-        if not rel <= 1e-5 * 1.01:
-            raise AssertionError(f"demo: relative residual {rel:.3e}")
+        extra = [] if demo is True else list(demo)
+        rel = demo_mod.run(Options(["-n", "64", "-device", DEVICE, *extra]))
+        if not rel <= 1e-5 * true_tol(extra):
+            raise AssertionError(f"demo {extra}: relative residual {rel:.3e}")
     torch.cuda.synchronize()
     launches = dict(sc.LAUNCHES)
     idle = [k for k in required if launches[k] == 0]
@@ -606,7 +658,8 @@ def run_path(label, cases, required, totals, demo=False, runner=None):
 
 def plain_solver(n, dtype, rtol, extra):
     """The same options on the plain PyTorch path on the card: the roll
-    operator, impl='roll', transfers='roll'."""
+    operator, impl='roll', transfers='roll' (`extra` may name another
+    -ksp_type)."""
     argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
             "-ksp_max_it", "50", *extra, "-mg_impl", "roll",
             "-mg_transfers", "roll"]
@@ -781,6 +834,250 @@ def tridiag_path(smi, n: int = 512) -> None:
               f"{rel:.2e} of max|d| ({smi})", flush=True)
 
 
+def gmres_none_case(smi, n: int = 64, its: int = 60) -> None:
+    """Path (g), -pc_type none: GMRES(30) at 64^3 f64 for a fixed 60
+    iterations (rtol 1e-14 is out of reach). The kernel operator hands
+    <V_j, A V_j> from K2 to the Gram-Schmidt step (use_fused); the plain
+    path's roll operator takes it from the basis product. Histories to
+    1e-10 relative."""
+    extra = ["-ksp_type", "gmres", "-pc_type", "none", "-ksp_max_it", str(its)]
+    solver = PoissonSolver((n,) * 3, options=Options(extra + ["-ksp_rtol", "1e-14"]),
+                           dtype=torch.float64, device=DEVICE)
+    if solver.A.apply_dot is None or solver._solver.M is not None:
+        raise AssertionError("gmres -pc_type none: K2 not bound on the operator")
+    b = rhs(solver, n, torch.float64)
+    res = solver.solve(b)
+    plain = plain_solver(n, torch.float64, 1e-14, extra)
+    ref = plain(b)
+    h, hp = res.history.double(), ref.history.double()
+    worst = float(((h - hp).abs() / hp.abs()).max())
+    if int(res.iterations) != its or int(ref.iterations) != its or not worst <= 1e-10:
+        raise AssertionError(f"gmres none: {int(res.iterations)}/{int(ref.iterations)} "
+                             f"iterations, history relative diff {worst:.3e}")
+    med = warm_ms({"kernels": lambda: solver.solve(b), "plain": lambda: plain(b)})
+    print(f"  gmres -pc_type none {n}^3 f64, {its} iterations both: monitored "
+          f"{float(res.residual_norm):.3e} (x{float(res.residual_norm / h[0]):.3e}), "
+          f"history max relative diff {worst:.3e}; warm "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
+          flush=True)
+
+
+def gmres_bf16_case(smi, n: int = 512) -> None:
+    """Why GMRES keeps a float32 pre-smooth at 512^3 f32 (solvers/ksp.py):
+    the same solve with the JAX package's bf16 pre-smooth asked for. GMRES
+    stops on its estimate of ||M r||, which a nonlinear M breaks; printed,
+    not checked."""
+    argv = ["-ksp_type", "gmres", "-pc_type", "mg", "-ksp_rtol", "1e-6",
+            "-ksp_max_it", "50", "-mg_pre_dtype", "bfloat16"]
+    s = PoissonSolver((n,) * 3, options=Options(argv), dtype=torch.float32,
+                      device=DEVICE)
+    b = rhs(s, n, torch.float32)
+    res = s.solve(b)
+    print(f"  gmres + MG with a bf16 pre-smooth, {n}^3 f32 rtol 1e-6: "
+          f"{int(res.iterations)} iterations, {res.reason_enum().name} by its "
+          f"estimate ({float(res.residual_norm / res.history[0]):.3e} of the "
+          f"first), true relative residual {s.residual_norm(res.x, b):.3e} ({smi})",
+          flush=True)
+    del s, b, res
+    torch.cuda.empty_cache()
+
+
+def deferred_solver(n, dtype, rtol, extra):
+    """MG-CG with the deferred p-update: the card's operator with K12 bound
+    as `pupdate_apply_dot` (the JAX package's tests/test_round3.py
+    construction; neither package binds it by default)."""
+    argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
+            "-ksp_max_it", "50", *extra]
+    grid = Grid3D((n,) * 3, device=DEVICE)
+    A = make_laplacian_operator(grid)
+    d = grid.deltas
+    A = dataclasses.replace(A, pupdate_apply_dot=lambda v, p, beta, zs:
+                            sc.pupdate_lapl_dot_cuda(v, p, beta, zs, d))
+    return ksp.make_solver(A, SolverOptions.from_options(Options(argv)),
+                           dtype=dtype, grid=grid)
+
+
+def deferred_case(n, dtype, rtol, extra, expect_its):
+    """Path (i): one deferred solve, checked like solve_case; returns
+    (solver, b, iterations, x)."""
+    solver = deferred_solver(n, dtype, rtol, extra)
+    grid = Grid3D((n,) * 3, device=DEVICE)
+    A = make_laplacian_operator(grid)
+    u = np.random.default_rng(1).uniform(-1.0, 1.0, (n,) * 3)
+    u -= u.mean()
+    b = A(torch.as_tensor(u, dtype=dtype, device=DEVICE))
+    res = solver(b)
+    its = int(res.iterations)
+    rel = float(torch.linalg.vector_norm(A(res.x) - b) / torch.linalg.vector_norm(b))
+    if its != expect_its or not res.reason_enum() > 0 or not rel <= rtol * 1.01:
+        raise AssertionError(f"deferred {n}^3 {extra}: {its} iterations (expected "
+                             f"{expect_its}), relative residual {rel:.3e}")
+    print(f"  deferred p-update {n}^3 {dtype} {' '.join(extra)}: {its} iterations, "
+          f"relative residual {rel:.3e}", flush=True)
+    return solver, b, its, res.x
+
+
+def compare_deferred(runs, cases, smi) -> None:
+    """Path (i) against the eager kernel path (PoissonSolver) and the plain
+    path on the card: equal iterations; then the deciding measurement,
+    warm deferred against eager, five each in turns."""
+    for (dsolver, b, its, x), (n, dtype, rtol, extra, _) in zip(runs, cases):
+        argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
+                "-ksp_max_it", "50", *extra]
+        eager = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype, device=DEVICE)
+        e = eager.solve(b)
+        p_its = int(plain_solver(n, dtype, rtol, extra)(b).iterations)
+        if not int(e.iterations) == p_its == its:
+            raise AssertionError(f"deferred {n}^3 {extra}: {its} iterations, eager "
+                                 f"{int(e.iterations)}, plain {p_its}")
+        dx = float((e.x - x).abs().max())
+        ts = {"deferred (K12)": [], "eager": []}
+        for _ in range(7):      # pairs, in turns
+            ts["deferred (K12)"].append(_wall(lambda: dsolver(b)) * 1e3)
+            ts["eager"].append(_wall(lambda: eager.solve(b)) * 1e3)
+        wins = sum(d < e_ for d, e_ in zip(ts["deferred (K12)"], ts["eager"]))
+        print(f"  {n}^3 {dtype} {' '.join(extra)}: {its} iterations deferred, eager and "
+              f"plain; max|x_deferred - x_eager| {dx:.3e}; warm (median [min, max] of 7) "
+              + ", ".join(f"{k} {statistics.median(v):.2f} [{min(v):.2f}, {max(v):.2f}] ms"
+                          for k, v in ts.items())
+              + f"; deferred faster in {wins} of 7 pairs ({smi})", flush=True)
+        del e, eager
+        torch.cuda.empty_cache()
+
+
+def refine_case(n, smi, against_plain: bool):
+    """Path (j): solve_refined to 1e-12 on b = A u in float64 (u from numpy
+    seed 1). At 512^3 beside float64 MG-CG to the same rtol (warm walls,
+    the MG setup timed apart); with `against_plain` the plain path's
+    refinement (roll operator, roll MG) takes the same outer and inner
+    counts."""
+    f64 = torch.float64
+    s = PoissonSolver((n,) * 3, dtype=f64, device=DEVICE)
+    b = rhs(s, n, f64)
+    bnorm = float(torch.linalg.vector_norm(b))
+    res = s.solve_refined(b, rtol=1e-12, max_outer=4)
+    rel = s.residual_norm(res.x, b)
+    if not (rel <= 1e-12 and float(res.residual_norm) <= 1e-12 * bnorm
+            and res.x.dtype == f64 and bool(torch.isfinite(res.x).all())):
+        raise AssertionError(f"solve_refined {n}^3: relative residual {rel:.3e}")
+    hist = ", ".join(f"{v / bnorm:.3e}" for v in res.history.tolist())
+    print(f"  solve_refined {n}^3: {res.outer_iterations} outer passes, "
+          f"{res.inner_iterations} inner MG-CG iterations, relative residual "
+          f"{rel:.3e} (history {hist})", flush=True)
+    if against_plain:
+        grid = s.grid
+        A = make_laplacian_operator(grid, impl="roll")
+        M = mg.make_mg_preconditioner(grid.n, grid.deltas,
+                                      mg.MGConfig(impl="roll", transfers="roll"),
+                                      dtype=torch.float32, device=DEVICE)
+        ref = refine(A, lambda r: cg(A, r, M=M, rtol=1e-6, max_it=50), b,
+                     rtol=1e-12, max_outer=4)
+        if (ref.outer_iterations, ref.inner_iterations) != (
+                res.outer_iterations, res.inner_iterations):
+            raise AssertionError(f"solve_refined {n}^3: {res.outer_iterations}/"
+                                 f"{res.inner_iterations}, plain path "
+                                 f"{ref.outer_iterations}/{ref.inner_iterations}")
+        print(f"  plain path {n}^3: {ref.outer_iterations} outer, "
+              f"{ref.inner_iterations} inner, relative residual "
+              f"{float(ref.residual_norm) / bnorm:.3e}", flush=True)
+        return
+    setup = statistics.median(
+        _wall(lambda: mg.make_mg_preconditioner(s.grid.n, s.grid.deltas, mg.MGConfig(),
+                                                dtype=torch.float32, device=DEVICE))
+        for _ in range(3))
+    s64 = PoissonSolver((n,) * 3, options=Options(
+        ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-12", "-ksp_max_it", "100"]),
+        dtype=f64, device=DEVICE)
+    r64 = s64.solve(b)
+    rel64 = s64.residual_norm(r64.x, b)
+    if not (r64.reason_enum() > 0 and rel64 <= 1e-12 * 1.01):
+        raise AssertionError(f"f64 MG-CG {n}^3: {r64.reason_enum().name}, {rel64:.3e}")
+    med = warm_ms({"solve_refined": lambda: s.solve_refined(b, rtol=1e-12, max_outer=4),
+                   "f64 MG-CG": lambda: s64.solve(b)})
+    print(f"  f64 MG-CG {n}^3 rtol 1e-12: {int(r64.iterations)} iterations, relative "
+          f"residual {rel64:.3e}; warm "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
+          + f"; MG setup per solve_refined call {setup * 1e3:.2f} ms ({smi})", flush=True)
+
+
+def _wall(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+class Killed(Exception):
+    """Raised by the chunk hook to stand for a preempted run."""
+
+
+def checkpoint_case(n, smi, every: int = 2) -> None:
+    """Path (k): solve_checkpointed at n^3 f32 (rtol 1e-6) in a temporary
+    directory. A run killed after chunk 0 and resumed must give the
+    uninterrupted run's total iterations and x exactly; a b changed in one
+    element by one ulp must start fresh (the exact guard); the plain path
+    takes the same total. Prints the wall against the plain solve."""
+    f32 = torch.float32
+    s = PoissonSolver((n,) * 3, dtype=f32, device=DEVICE)
+    b = rhs(s, n, f32)
+    M = mg.make_mg_preconditioner(s.grid.n, s.grid.deltas, mg.MGConfig(), dtype=f32,
+                                  device=DEVICE)
+    kw = dict(rtol=1e-6, max_it=500, every=every)
+
+    def kill(chunk, result):
+        if chunk == 0:
+            raise Killed
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_") as tmp:
+        full, total = s.solve_checkpointed(b, os.path.join(tmp, "full"), **kw)
+        try:
+            checkpoint.solve_with_checkpoints(s.A, b, os.path.join(tmp, "killed"), M=M,
+                                              on_chunk=kill, **kw)
+            raise AssertionError("the chunk hook did not stop the run")
+        except Killed:
+            pass
+        saved = checkpoint.SolveCheckpoint.from_dict(
+            checkpoint.load(os.path.join(tmp, "killed"), device=DEVICE))
+        resumed, total_r = s.solve_checkpointed(b, os.path.join(tmp, "killed"), **kw)
+        diff = float((resumed.x - full.x).abs().max())
+        if not (bool(full.converged) and total_r == total and diff == 0.0
+                and saved.iterations == every):
+            raise AssertionError(f"checkpoint resume: total {total_r} vs {total}, "
+                                 f"max|dx| {diff:.3e}, saved {saved.iterations}")
+        b2 = b.clone()
+        flat = b2.view(-1)
+        i = flat.numel() // 3
+        flat[i] = torch.nextafter(flat[i], torch.tensor(math.inf, dtype=f32, device=DEVICE))
+        foreign, total_f = s.solve_checkpointed(b2, os.path.join(tmp, "killed"), **kw)
+        fresh, total_0 = s.solve_checkpointed(b2, os.path.join(tmp, "fresh"), **kw)
+        if not (total_f == total_0 and torch.equal(foreign.x, fresh.x)):
+            raise AssertionError(f"a b one ulp away resumed: total {total_f}, fresh "
+                                 f"{total_0}")
+        A = make_laplacian_operator(s.grid, impl="roll")
+        Mp = mg.make_mg_preconditioner(s.grid.n, s.grid.deltas,
+                                       mg.MGConfig(impl="roll", transfers="roll"),
+                                       dtype=f32, device=DEVICE)
+        _, total_p = checkpoint.solve_with_checkpoints(A, b, os.path.join(tmp, "plain"),
+                                                       M=Mp, **kw)
+        if total_p != total:
+            raise AssertionError(f"checkpointed plain path: {total_p} iterations, "
+                                 f"kernel path {total}")
+        size = os.path.getsize(os.path.join(tmp, "full.npz"))
+        walls = {"solve_checkpointed": [], "solve": []}
+        for i in range(3):
+            walls["solve_checkpointed"].append(_wall(lambda: s.solve_checkpointed(
+                b, os.path.join(tmp, f"timed{i}"), **kw)))
+            walls["solve"].append(_wall(lambda: s.solve(b)))
+        med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
+    print(f"  solve_checkpointed {n}^3 f32 every {every}: {total} iterations in "
+          f"{-(-total // every)} chunks, killed after chunk 0 and resumed: same total, "
+          f"max|dx| {diff:.1f}; a b one ulp away started fresh ({total_f} iterations); "
+          f"plain path {total_p}; npz {size / 1e6:.1f} MB; warm "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
+          flush=True)
+
+
 def main() -> int:
     phase("device")
     if not torch.cuda.is_available():
@@ -882,6 +1179,54 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_path("(f) the bench's periodic tridiagonal solve, 512^3 f32", [(smi,)],
              ["tridiag.pcr", "tridiag.thomas"], totals, runner=tridiag_path)
+    torch.cuda.empty_cache()
+
+    gm = ["-ksp_type", "gmres", "-gmres_restart", "30"]
+    cases_g = [(64, f64, 1e-8, gm, 6), (512, f32, 1e-6, gm, None)]
+    runs_g = run_path("(g) GMRES(30) + MG, 64^3 f64 + 512^3 f32, -pc_type none, "
+                      "demo", cases_g,
+                      ["stencil7.apply", "rbsor.zero", "rbsor.general",
+                       "xfer.restrict", "xfer.prolong_add"], totals,
+                      demo=gm + ["-pc_type", "mg"])
+    b512 = runs_g[1][1]
+    print(f"  gmres 512^3 f32: restart 30 resolved to {clamp_restart(30, b512)} "
+          f"(basis {31 * b512.nbytes / 1e9:.1f} GB, budget a quarter of "
+          f"{torch.cuda.mem_get_info(b512.device)[1] / 2**30:.1f} GiB)", flush=True)
+    del b512
+    compare_paths(runs_g, cases_g, smi)
+    del runs_g
+    torch.cuda.empty_cache()
+    gmres_bf16_case(smi)
+    run_path("(g) GMRES(30) -pc_type none, 64^3 f64, 60 iterations (K2 in the "
+             "Gram-Schmidt step)", [(smi,)], ["stencil7.apply", "stencil7.apply_dot"],
+             totals, runner=gmres_none_case)
+    cases_h = [(64, f64, 1e-8, ["-ksp_type", "pipecg"], 6),
+               (256, f32, 1e-6, ["-ksp_type", "pipecg"], None),
+               (256, f32, 1e-6, ["-ksp_type", "richardson"], None)]
+    runs_h = run_path("(h) PIPECG + MG (64^3 f64, 256^3 f32), Richardson + MG "
+                      "(256^3 f32)", cases_h,
+                      ["stencil7.apply", "rbsor.zero", "rbsor.general",
+                       "xfer.restrict", "xfer.prolong_add"], totals)
+    compare_paths(runs_h, cases_h, smi)
+    del runs_h
+    torch.cuda.empty_cache()
+    cases_i = [(256, f32, 1e-6, [], 5), (512, f32, 1e-6, [], 7),
+               (512, f32, 1e-6, roll, 7)]
+    runs_i = run_path("(i) deferred p-update (K12): 256^3, 512^3, 512^3 roll "
+                      "transfers", cases_i,
+                      ["stencil7.pupd_dot", "rbsor.zero_update", "cgupd",
+                       "xfer.restrict.bf16u"], totals, runner=deferred_case)
+    compare_deferred(runs_i, cases_i, smi)
+    del runs_i
+    torch.cuda.empty_cache()
+    run_path("(j) solve_refined: 512^3 beside f64 MG-CG, 128^3 against the plain "
+             "path", [(512, smi, False), (128, smi, True)],
+             ["stencil7.apply", "rbsor.zero_update", "rbsor.general.narrow",
+              "xfer.restrict"], totals, runner=refine_case)
+    torch.cuda.empty_cache()
+    run_path("(k) solve_checkpointed, 256^3 f32, every 2", [(256, smi)],
+             ["stencil7.apply", "rbsor.zero_update", "xfer.restrict"], totals,
+             runner=checkpoint_case)
     idle = [k for k in KERNELS if totals[k] == 0]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")

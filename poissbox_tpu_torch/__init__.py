@@ -17,14 +17,17 @@ mirror the JAX package's paths:
   - tridiagonal solves ... poissbox_tpu_torch.ops.tridiag, ops.tridiag_cuda
   - FFT direct solves .... poissbox_tpu_torch.solvers.fft
   - CG / FCG ............. poissbox_tpu_torch.solvers.cg
+  - PIPECG, GMRES, Richardson  poissbox_tpu_torch.solvers.{pipecg,gmres,richardson}
   - multigrid ............ poissbox_tpu_torch.solvers.mg
   - options-driven solve . poissbox_tpu_torch.solvers.ksp
+  - refinement ........... poissbox_tpu_torch.solvers.refine
+  - checkpointing ........ poissbox_tpu_torch.checkpoint
   - facade ............... poissbox_tpu_torch.api.PoissonSolver
   - options database ..... poissbox_tpu_torch.config
 
 Dtype is an explicit argument (float32 or float64) and every constructor
-takes a ``device``. What is not ported yet raises ``NotImplementedError``;
-ROADMAP.md lists it.
+takes a ``device``. What is not ported yet (ROADMAP.md lists it) is
+absent or raises ``NotImplementedError``.
 """
 
 from poissbox_tpu_torch.config import Options

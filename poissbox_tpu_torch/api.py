@@ -4,7 +4,10 @@ preconditioner + options bound once, then solves.
     solver = PoissonSolver((256, 256, 256), dtype=torch.float32,
                            device="cuda")
     u = solver.random_solution(seed=0)
-    result = solver.solve(solver.rhs_for(u))      # SolveResult
+    b = solver.rhs_for(u)
+    result = solver.solve(b)                      # SolveResult
+    refined = solver.solve_refined(b)             # f64-accurate (RefineResult)
+    result, its = solver.solve_checkpointed(b, "ckpt/solve", every=25)
 """
 
 from __future__ import annotations
@@ -19,7 +22,10 @@ from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
+from poissbox_tpu_torch.solvers.cg import cg
 from poissbox_tpu_torch.solvers.ksp import make_solver
+from poissbox_tpu_torch.solvers.mg import MGConfig, make_mg_preconditioner
+from poissbox_tpu_torch.solvers.refine import RefineResult, refine
 from poissbox_tpu_torch.solvers.result import SolveResult
 
 Tensor = torch.Tensor
@@ -41,6 +47,11 @@ class PoissonSolver:
         Laplacian, on the K15 line kernel; Krylov solves keep the 2nd-order
         GMG preconditioner, spectrally equivalent, and `-ksp_type fft`
         solves it exactly through its symbol).
+
+    Besides the options-driven :meth:`solve` (every `-ksp_type` of the JAX
+    package), :meth:`solve_refined` reaches float64 accuracy by iterative
+    refinement over float32 MG-CG, and :meth:`solve_checkpointed` saves
+    the solve every few iterations so that a killed run resumes.
     """
 
     def __init__(self, n: Sequence[int],
@@ -85,13 +96,27 @@ class PoissonSolver:
         return self._solver(b, x0)
 
     def solve_refined(self, b: Tensor, rtol: float = 1.0e-12,
-                      max_outer: int = 4):
-        raise NotImplementedError(
-            "solve_refined (solvers/refine.py) is not ported yet; see ROADMAP.md")
+                      max_outer: int = 4) -> RefineResult:
+        """float64-accurate solve by mixed-precision iterative refinement:
+        float32 MG-CG corrections (rtol 1e-6, at most 50 iterations each;
+        the MG is built at each call), float64 true residuals."""
+        M = make_mg_preconditioner(self.grid.n, self.grid.deltas, MGConfig(),
+                                   dtype=torch.float32, device=self.grid.device)
+        inner = lambda r: cg(self.A, r, M=M, rtol=1e-6, max_it=50)
+        return refine(self.A, inner, b, rtol=rtol, max_outer=max_outer)
 
-    def solve_checkpointed(self, b: Tensor, path: str, **kw):
-        raise NotImplementedError(
-            "solve_checkpointed (checkpoint.py) is not ported yet; see ROADMAP.md")
+    def solve_checkpointed(self, b: Tensor, path: str, *,
+                           rtol: float = 1.0e-6, max_it: int = 500,
+                           every: int = 25):
+        """Preemption-tolerant MG-CG solve: a snapshot every `every`
+        iterations; a killed run resumes from `path` with at most `every`
+        iterations lost (checkpoint.solve_with_checkpoints). Returns
+        (SolveResult, total_iterations)."""
+        from poissbox_tpu_torch.checkpoint import solve_with_checkpoints
+        M = make_mg_preconditioner(self.grid.n, self.grid.deltas, MGConfig(),
+                                   dtype=self.dtype, device=self.grid.device)
+        return solve_with_checkpoints(self.A, b, path, M=M, rtol=rtol,
+                                      max_it=max_it, every=every)
 
     def residual_norm(self, x: Tensor, b: Tensor) -> float:
         """True relative residual ||A x - b|| / ||b||."""

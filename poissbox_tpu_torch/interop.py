@@ -1,8 +1,9 @@
 """Conversions between numpy arrays and the port's tensors.
 
 Fields cross between the JAX package and the port as numpy arrays (the
-tests hand the same seeded inputs to both). A :class:`SolveResult`
-converts field by field. The solver has no trained weights: its only
+tests hand the same seeded inputs to both). A :class:`SolveResult`, a
+:class:`RefineResult` and a checkpoint's state dict convert field by
+field. The solver has no trained weights: its only
 setup state, the coarse-grid pseudo-inverse, is computed by the same
 numpy code in both packages (solvers.mg._coarse_pinv).
 """
@@ -14,6 +15,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from poissbox_tpu_torch.solvers.refine import RefineResult
 from poissbox_tpu_torch.solvers.result import SolveResult
 
 _FIELDS = SolveResult._fields   # x, iterations, residual_norm, history, reason
@@ -46,3 +48,40 @@ def solve_result_from_numpy(src: Mapping[str, Any] | Any,
         history=hist,
         reason=to_torch(get("reason"), device, torch.int32),
     )
+
+
+def _getter(src):
+    return src.__getitem__ if isinstance(src, Mapping) else lambda f: getattr(src, f)
+
+
+def refine_result_to_numpy(res: RefineResult) -> dict[str, Any]:
+    """Arrays for x, residual_norm and history; ints for the counts."""
+    return {f: (v if isinstance(v, int) else to_numpy(v))
+            for f, v in res._asdict().items()}
+
+
+def refine_result_from_numpy(src: Mapping[str, Any] | Any,
+                             device="cpu") -> RefineResult:
+    """A RefineResult from a mapping or from any result object with the
+    same fields (the JAX package's RefineResult included)."""
+    get = _getter(src)
+    return RefineResult(
+        x=to_torch(get("x"), device),
+        outer_iterations=int(get("outer_iterations")),
+        inner_iterations=int(get("inner_iterations")),
+        residual_norm=to_torch(get("residual_norm"), device, torch.float64),
+        history=to_torch(get("history"), device, torch.float64),
+    )
+
+
+def checkpoint_to_numpy(state: Mapping[str, Any]) -> dict[str, np.ndarray]:
+    """A checkpoint state dict (x, b, iterations, residual_norm) as numpy
+    arrays, the form both packages' npz files hold."""
+    return {k: to_numpy(v) if torch.is_tensor(v) else np.asarray(v)
+            for k, v in state.items()}
+
+
+def checkpoint_from_numpy(state: Mapping[str, Any], device="cpu") -> dict:
+    """A checkpoint state dict of arrays (the JAX package's included) as
+    tensors on `device`."""
+    return {k: to_torch(v, device) for k, v in state.items()}

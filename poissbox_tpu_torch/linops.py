@@ -43,6 +43,11 @@ class LinearOperator:
         entry of its own.
       direct_solve: optional exact x = A^+ b (the FFT solve of the
         7-point and the compact 6th-order operators).
+      pupdate_apply_dot: optional (v, p, beta, zshift) -> (p', A p',
+        <p', A p'>) for p' = (v - zshift) + beta * p (K12): CG then defers
+        its search-direction update into the next matvec. Unbound by
+        default, as in the JAX package; a caller binds it with
+        dataclasses.replace.
     """
 
     apply: Callable[[Tensor], Tensor]
@@ -52,6 +57,7 @@ class LinearOperator:
     apply_dot: Optional[Callable[[Tensor], tuple]] = None
     fused_update: Optional[Callable[..., tuple]] = None
     direct_solve: Optional[Callable[[Tensor], Tensor]] = None
+    pupdate_apply_dot: Optional[Callable[..., tuple]] = None
 
     def __call__(self, x: Tensor) -> Tensor:
         return self.apply(x)

@@ -120,6 +120,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     ll = ctypes.c_longlong
     lib.poissbox_stencil7.argtypes = [i, i, i, p, p, p, p, p, i, i, i] + [d] * 5
     lib.poissbox_stencil7.restype = i
+    lib.poissbox_pupd_dot.argtypes = [i, i] + [p] * 7 + [i, i, i] + [d] * 4
+    lib.poissbox_pupd_dot.restype = i
     lib.poissbox_rbsor.argtypes = ([i, i, i, i, i, p] + [p] * 9 + [i, i, i]
                                    + [d] * 6 + [i])
     lib.poissbox_rbsor.restype = i

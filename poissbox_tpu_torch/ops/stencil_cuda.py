@@ -1,23 +1,34 @@
 """Hopper kernels of the 7-point stencil, the red-black SOR smoother and
 CG's fused update.
 
-The port of :mod:`poissbox_tpu.ops.stencil_pallas` for the kernels on the
-solver of record's path. Three CUDA kernels (``csrc/stencil7.cu``,
-``csrc/rbsor.cu``, ``csrc/cgupd.cu``) cover eight TPU kernels:
+The port of :mod:`poissbox_tpu.ops.stencil_pallas` for the kernels of the
+7-point stack. Three CUDA kernels (``csrc/stencil7.cu``, ``csrc/rbsor.cu``,
+``csrc/cgupd.cu``) cover these TPU kernels:
 
-  ==========================  ======================================  ===
+  ==========================  ======================================  ======
   wrapper                     Pallas counterpart                      TPU
-  ==========================  ======================================  ===
-  apply_laplacian_cuda        apply_laplacian_pallas                  K1
-  apply_laplacian_dot_cuda    apply_laplacian_dot_pallas              K2
+  ==========================  ======================================  ======
+  apply_laplacian_cuda        apply_laplacian_pallas;                 K1,
+                              stencil_inplace.apply_laplacian_stream  K1'
+  apply_laplacian_dot_cuda    apply_laplacian_dot_pallas;             K2,
+                              stencil_inplace.apply_laplacian_dot_    K2'
+                              stream
+  pupdate_lapl_dot_cuda       pupdate_lapl_dot_pallas;                K12
+                              stencil_inplace.pupdate_matvec_stream
   residual_cuda               residual_pallas                         K9
   jacobi_sweep_cuda           jacobi_sweep_pallas                     K10
+  sor_sweep_cuda              sor_sweep_pallas                        K11
   sor_rb_zero_sweep_cuda      sor_rb_zero_sweep_pallas                K3
   sor_rb_zero_update_cuda     sor_rb_zero_update_pallas               K5
   sor_rb_sweep_cuda           sor_rb_sweep_pallas (with ``dots``)     K4
   sor_rb_multisweep_cuda      sor_rb_multisweep_pallas                K4
   cg_fused_update_cuda        cg_fused_update                         K8
-  ==========================  ======================================  ===
+  ==========================  ======================================  ======
+
+K11, one colour update, is KB's general mode; a sweep is two of them
+(``sor_rb_sweep_cuda`` goes through ``sor_sweep_cuda``). K1'/K2', the
+TPU's streamed matvec for fields of 256 MB and more, is KA's apply and
+apply_dot out of place.
 
 The multigrid transfer legs (K6, K7) are in
 :mod:`poissbox_tpu_torch.ops.transfer_cuda`.
@@ -38,7 +49,7 @@ bf16 result (the Pallas kernels compute in bf16 throughout). :data:`DTYPES`
 says which mode takes which input dtype.
 
 :data:`LAUNCHES` counts kernel launches by kernel and mode (``stencil7.*``
-for the star's epilogues, ``rbsor.*`` for the colour update's modes,
+for the star's epilogues and K12's prologue, ``rbsor.*`` for the colour update's modes,
 ``xfer.*`` for the transfer legs, ``cgupd`` for K8, ``compact.x|y|z``
 for K15's line kernel by axis (ops/compact_pcr.py) and ``tridiag.*`` for
 K13/K14 (ops/tridiag_cuda.py); ``.bf16`` marks a
@@ -59,8 +70,9 @@ import torch
 from poissbox_tpu_torch.ops import _build
 
 LAUNCHES: dict[str, int] = {k: 0 for k in (
-    "stencil7.apply", "stencil7.apply_dot", "stencil7.residual",
-    "stencil7.jacobi", "stencil7.residual.bf16", "stencil7.jacobi.bf16",
+    "stencil7.apply", "stencil7.apply_dot", "stencil7.pupd_dot",
+    "stencil7.residual", "stencil7.jacobi", "stencil7.residual.bf16",
+    "stencil7.jacobi.bf16",
     "rbsor.zero", "rbsor.general", "rbsor.zero_update", "rbsor.dots",
     "rbsor.zero.bf16", "rbsor.general.bf16", "rbsor.general.narrow",
     "xfer.restrict", "xfer.restrict.bf16u",
@@ -82,6 +94,7 @@ _WIDE_OR_BF16 = _WIDE + (torch.bfloat16,)
 # iterate u; b, e and the output are float32 or float64)
 DTYPES: dict[str, tuple] = {
     "stencil7.apply": _WIDE, "stencil7.apply_dot": _WIDE,
+    "stencil7.pupd_dot": _WIDE,
     "stencil7.residual": _WIDE_OR_BF16, "stencil7.jacobi": _WIDE_OR_BF16,
     "rbsor.zero": _WIDE_OR_BF16, "rbsor.general": _WIDE_OR_BF16,
     "rbsor.zero_update": _WIDE, "rbsor.dots": _WIDE,
@@ -167,14 +180,13 @@ def colour_parity(shape, device) -> torch.Tensor:
 
 
 def _colour_weights(b: torch.Tensor, winv: float, reverse: bool):
-    """(w1, w2): the masked weight fields of the first and second colour
-    (`_color_weight`; the second is winv - w1, exactly)."""
-    first = 1 if reverse else 0
-    par = colour_parity(b.shape, b.device)
-    wt = torch.tensor(winv, dtype=b.dtype, device=b.device)
-    w1 = torch.where(par == first, wt, torch.zeros((), dtype=b.dtype,
-                                                   device=b.device))
-    return w1, wt - w1
+    """(w1, w2): the masked weight fields of the first and second colour."""
+    c0, c1 = _colours(reverse)
+    return _colour_weight(b, winv, c0), _colour_weight(b, winv, c1)
+
+
+def _colours(reverse: bool) -> tuple[int, int]:
+    return (1, 0) if reverse else (0, 1)
 
 
 def apply_laplacian_plain(u, deltas):
@@ -184,6 +196,14 @@ def apply_laplacian_plain(u, deltas):
 def apply_laplacian_dot_plain(u, deltas):
     y = _star(u, _invs(deltas))
     return y, torch.sum(u * y)
+
+
+def pupdate_lapl_dot_plain(v, p_old, beta, zshift, deltas):
+    """(p', A p', <p', A p'>) for p' = (v - zshift) + beta * p_old, in
+    `_pupd_lapl_dot_kernel_fy`'s grouping."""
+    pn = (v - zshift) + beta * p_old
+    y = _star(pn, _invs(deltas))
+    return pn, y, torch.sum(pn * y)
 
 
 def residual_plain(u, b, deltas):
@@ -197,6 +217,25 @@ def jacobi_sweep_plain(u, b, deltas, weight):
     invs = _invs(deltas)
     uw = _wide(u)
     return (uw + _winv(invs, weight) * (_wide(b) - _star(uw, invs))).to(u.dtype)
+
+
+def _colour_weight(b: torch.Tensor, winv: float, colour: int) -> torch.Tensor:
+    """winv where the parity is `colour`, 0 elsewhere (`_color_weight`)."""
+    par = colour_parity(b.shape, b.device)
+    wt = torch.tensor(winv, dtype=b.dtype, device=b.device)
+    return torch.where(par == colour, wt, torch.zeros((), dtype=b.dtype,
+                                                      device=b.device))
+
+
+def sor_sweep_plain(u, b, deltas, weight, color):
+    """One colour update (K11): the points of parity `color` get
+    x + winv (b - A x), the others are copied, in `_rb_halfstep`'s grouping
+    (KB's general mode); bf16 fields compute in float32 and round at the
+    store."""
+    invs = _invs(deltas)
+    bw = _wide(b)
+    w = _colour_weight(bw, _winv(invs, weight), color)
+    return _halfstep(_wide(u), bw, w, invs).to(u.dtype)
 
 
 def sor_rb_zero_sweep_plain(b, deltas, weight, reverse=False):
@@ -224,11 +263,9 @@ def sor_rb_zero_update_plain(r, ap, alpha, deltas, weight, reverse=False,
 def sor_rb_sweep_plain(u, b, deltas, weight, reverse=False, dots=False):
     """bf16 fields: each colour computes in float32 and rounds at its
     store."""
-    invs = _invs(deltas)
-    bw = _wide(b)
-    w1, w2 = _colour_weights(bw, _winv(invs, weight), reverse)
-    x1 = _halfstep(_wide(u), bw, w1, invs).to(u.dtype)
-    x = _halfstep(_wide(x1), bw, w2, invs).to(u.dtype)
+    c0, c1 = _colours(reverse)
+    x1 = sor_sweep_plain(u, b, deltas, weight, c0)
+    x = sor_sweep_plain(x1, b, deltas, weight, c1)
     return (x, torch.sum(x * b), torch.sum(x)) if dots else x
 
 
@@ -358,6 +395,30 @@ def apply_laplacian_dot_cuda(u: torch.Tensor, deltas):
     return y, torch.sum(part)
 
 
+def pupdate_lapl_dot_cuda(v: torch.Tensor, p_old: torch.Tensor, beta, zshift,
+                          deltas):
+    """(p', A p', <p', A p'>) with p' = (v - zshift) + beta * p_old in one
+    pass (K12): CG's search-direction update formed inside the matvec.
+    beta and zshift (0-d device tensors or numbers) are read on the device;
+    v and p_old stay untouched."""
+    if _on_cpu(v):
+        return pupdate_lapl_dot_plain(v, p_old, beta, zshift, deltas)
+    _check("stencil7.pupd_dot", v, p_old)
+    lib = _build.load()
+    sc = torch.stack([torch.as_tensor(beta, dtype=v.dtype, device=v.device),
+                      torch.as_tensor(zshift, dtype=v.dtype, device=v.device)])
+    pn, y = torch.empty_like(v), torch.empty_like(v)
+    part = _partials(v)
+    ivx, ivy, ivz = _invs(deltas)
+    err = lib.poissbox_pupd_dot(
+        DTYPE_CODE[v.dtype], v.device.index or 0, _stream(v), _ptr(v),
+        _ptr(p_old), _ptr(sc), _ptr(pn), _ptr(y), _ptr(part), *v.shape,
+        ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz))
+    _raise_on(lib, err, "stencil7.pupd_dot")
+    LAUNCHES["stencil7.pupd_dot"] += 1
+    return pn, y, torch.sum(part)
+
+
 def residual_cuda(u: torch.Tensor, b: torch.Tensor, deltas) -> torch.Tensor:
     """r = b - A u (K9); u and b may be bf16 (r is then bf16)."""
     if _on_cpu(u):
@@ -380,8 +441,17 @@ def jacobi_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
     return y
 
 
-def _colours(reverse: bool) -> tuple[int, int]:
-    return (1, 0) if reverse else (0, 1)
+def sor_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas, weight: float,
+                   color: int) -> torch.Tensor:
+    """One red-black colour update (K11, KB's general mode): the points of
+    parity `color` (0 = red, (i+j+k) even) get x + winv (b - A x), the
+    others are copied. u and b may be bf16."""
+    if _on_cpu(u):
+        return sor_sweep_plain(u, b, deltas, weight, color)
+    _check("rbsor.general", u, b)
+    x = torch.empty_like(u)
+    _rbsor("rbsor.general", u, int(color), deltas, weight, x=u, b=b, out=x)
+    return x
 
 
 def sor_rb_zero_sweep_cuda(b: torch.Tensor, deltas, weight: float,
@@ -433,12 +503,10 @@ def sor_rb_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
         return sor_rb_sweep_plain(u, b, deltas, weight, reverse, dots)
     _check("rbsor.dots" if dots else "rbsor.general", u, b)
     c0, c1 = _colours(reverse)
-    x1 = torch.empty_like(u)
-    _rbsor("rbsor.general", u, c0, deltas, weight, x=u, b=b, out=x1)
-    x = torch.empty_like(u)
+    x1 = sor_sweep_cuda(u, b, deltas, weight, c0)
     if not dots:
-        _rbsor("rbsor.general", u, c1, deltas, weight, x=x1, b=b, out=x)
-        return x
+        return sor_sweep_cuda(x1, b, deltas, weight, c1)
+    x = torch.empty_like(u)
     rv, sv = _partials(u), _partials(u)
     _rbsor("rbsor.dots", u, c1, deltas, weight, x=x1, b=b, out=x, part0=rv,
            part1=sv)

@@ -5,9 +5,10 @@ The JAX package runs the iteration inside ``lax.while_loop``; here it is
 a Python loop on the host. Every value stays on the device: the breakdown
 guards use ``torch.where``, and the loop reads one boolean per iteration
 (the stopping test) with a single ``.item()``. The hooks a preconditioner
-or operator binds — ``A.apply_dot``, ``A.fused_update``, ``M.apply_dots``,
-``M.apply_update_dots`` — fold reductions and the residual update into
-the kernels' own passes, as in the JAX package.
+or operator binds — ``A.apply_dot``, ``A.fused_update``,
+``A.pupdate_apply_dot``, ``M.apply_dots``, ``M.apply_update_dots`` — fold
+reductions and the vector updates into the kernels' own passes, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -104,6 +105,15 @@ def cg(
     apply_upd_dots = (getattr(M, "apply_update_dots", None)
                       if not explicit_proj and not flexible
                       and b.dim() == 3 else None)
+    # deferred search-direction update: p' = (v - zshift) + beta*p forms
+    # inside the next iteration's matvec kernel (K12), so the loop carries
+    # (v, beta, zshift) instead of p'; beta and zshift stay on the device
+    defer_p = (getattr(A, "pupdate_apply_dot", None) is not None
+               and b.dim() == 3)
+    if defer_p:
+        # the first direction, (z - 0) + 0 * 0 = z, formed in the kernel
+        v_def, beta, zshift = z, zero, zero
+        p = torch.zeros_like(b)
 
     resnorm = rnorm0
     k = 0
@@ -112,7 +122,9 @@ def cg(
               & torch.isfinite(resnorm))
         if not go.item():
             break
-        if A.apply_dot is not None:
+        if defer_p:
+            p, Ap, pAp = A.pupdate_apply_dot(v_def, p, beta, zshift)
+        elif A.apply_dot is not None:
             Ap, pAp = A.apply_dot(p)
         else:
             Ap = A(p)
@@ -154,7 +166,7 @@ def cg(
             zshift = sv * inv_n
         else:
             rz_new = rv
-            zshift = 0.0
+            zshift = zero
         if flexible:
             # beta_PR = <r_{k+1} - r_k, z_{k+1}> / rz_k = -alpha <Ap, z> / rz_k
             apz = _dot(Ap, v)
@@ -172,7 +184,10 @@ def cg(
             _monitor_print(k, resnorm)
         if apply_upd_dots is not None:
             x = x + alpha * p
-        p = (v - zshift) + beta * p
+        if defer_p:
+            v_def = v
+        else:
+            p = (v - zshift) + beta * p
         rz = rz_new
 
     reason = classify(resnorm, k, bnorm, rtol_, atol_, max_it)

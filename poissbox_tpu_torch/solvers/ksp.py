@@ -2,15 +2,16 @@
 (port of :mod:`poissbox_tpu.solvers.ksp`).
 
 :func:`make_solver` assembles the pipeline from a :class:`SolverOptions`:
-the preconditioner (none/jacobi/fft/mg), the method (cg/fcg, or the FFT
-direct solve), the stopping controls and the monitor. The other Krylov
-methods of the JAX package raise ``NotImplementedError`` until their slice
-lands (ROADMAP.md). Solvers are built for the card unless `device` (or
-the grid's device) says otherwise.
+the preconditioner (none/jacobi/fft/mg), the method (cg/fcg, pipecg,
+gmres — PETSc's default and so the default here — richardson, or the FFT
+direct solve), the stopping controls and the monitor. Solvers are built
+for the card unless `device` (or the grid's device) says otherwise; a
+request for the card without one raises.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Callable, Optional, Sequence
 
 import torch
@@ -19,17 +20,19 @@ from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import cg
 from poissbox_tpu_torch.solvers.fft import fft_solver_result, make_fft_preconditioner
+from poissbox_tpu_torch.solvers.gmres import gmres
 from poissbox_tpu_torch.solvers.mg import (
     MGConfig,
     _build_levels,
+    auto_bf16_presmooth,
     make_mg_preconditioner,
     sweeps_for_level_rtol,
 )
+from poissbox_tpu_torch.solvers.pipecg import pipecg
 from poissbox_tpu_torch.solvers.result import SolveResult
+from poissbox_tpu_torch.solvers.richardson import richardson
 
 Tensor = torch.Tensor
-
-_NOT_PORTED = "is not ported yet; see ROADMAP.md queue 1"
 
 
 def make_preconditioner(
@@ -73,12 +76,28 @@ def make_preconditioner(
             sweeps = -1
         if (opts.mg_cycle_dtype == "bfloat16" and opts.ksp_rtol < 1e-5
                 and opts.ksp_type != "fcg"):
-            import warnings
             warnings.warn(
                 f"mg_cycle_dtype=bfloat16 with ksp_rtol={opts.ksp_rtol:g}: "
                 "bf16 preconditioner noise stalls CG near 5e-6 relative; "
                 "use -ksp_type fcg or ksp_rtol >= 1e-5",
                 stacklevel=2)
+        pre_dtype = opts.mg_pre_dtype
+        if opts.ksp_type == "gmres":
+            # GMRES stops on its estimate of ||M r||, which holds only for
+            # a linear M, and a bf16 pre-smooth is not one: at 512^3 f32
+            # on an H100 the JAX package's default bf16 pre-smooth left a
+            # true residual of 7e-4 behind an estimate converged to 1e-6
+            # (PERF.md). So GMRES keeps the automatic pre-smooth in
+            # float32, and warns on a bf16 one asked for.
+            if "bfloat16" in (opts.mg_pre_dtype, opts.mg_cycle_dtype):
+                warnings.warn(
+                    "a bf16 MG pre-smooth or cycle is not a linear "
+                    "preconditioner: GMRES's residual estimate can then "
+                    "stop far above the true residual; use -ksp_type cg "
+                    "or fcg", stacklevel=2)
+            elif auto_bf16_presmooth(MGConfig(dtype=opts.mg_cycle_dtype,
+                                              pre_dtype=pre_dtype), shape, dtype):
+                pre_dtype = "float32"
         cfg = MGConfig(
             levels=opts.mg_levels,
             smoother=smoother,
@@ -92,7 +111,7 @@ def make_preconditioner(
             cycles=opts.mg_cycles,
             cycle=opts.mg_cycle,
             dtype=opts.mg_cycle_dtype,
-            pre_dtype=opts.mg_pre_dtype,
+            pre_dtype=pre_dtype,
         )
         return make_mg_preconditioner(shape, deltas, cfg, dtype, device)
     raise ValueError(
@@ -117,11 +136,14 @@ def make_solver(
         shape = grid.n if shape is None else shape
         deltas = grid.deltas if deltas is None else deltas
         device = grid.device
-    if opts.ksp_type in ("pipecg", "gmres", "richardson"):
-        raise NotImplementedError(f"ksp_type {opts.ksp_type} {_NOT_PORTED}")
-    if opts.ksp_type not in ("cg", "fcg", "fft"):
+    if opts.ksp_type not in ("cg", "fcg", "pipecg", "gmres", "richardson", "fft"):
         raise ValueError(f"unknown ksp_type {opts.ksp_type!r} "
                          "(expected cg|fcg|pipecg|gmres|richardson|fft)")
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"make_solver(device={str(device)!r}) needs a CUDA "
+                           "device; torch.cuda.is_available() is False")
+    common = dict(rtol=opts.ksp_rtol, atol=opts.ksp_atol,
+                  max_it=opts.ksp_max_it, monitor=opts.ksp_monitor)
     if opts.ksp_type == "fft":
         # a direct solve takes no preconditioner: skip the MG setup
         if deltas is None:
@@ -133,10 +155,20 @@ def make_solver(
     else:
         M = make_preconditioner(A, opts, shape, deltas, dtype, device)
 
-        def solver(b, x0=None):
-            return cg(A, b, x0, M=M, rtol=opts.ksp_rtol, atol=opts.ksp_atol,
-                      max_it=opts.ksp_max_it, norm_type=opts.ksp_norm_type,
-                      flexible=opts.ksp_type == "fcg", monitor=opts.ksp_monitor)
+        if opts.ksp_type in ("cg", "fcg"):
+            def solver(b, x0=None):
+                return cg(A, b, x0, M=M, norm_type=opts.ksp_norm_type,
+                          flexible=opts.ksp_type == "fcg", **common)
+        elif opts.ksp_type == "pipecg":
+            def solver(b, x0=None):
+                return pipecg(A, b, x0, M=M, norm_type=opts.ksp_norm_type,
+                              **common)
+        elif opts.ksp_type == "gmres":
+            def solver(b, x0=None):
+                return gmres(A, b, x0, M=M, restart=opts.gmres_restart, **common)
+        else:
+            def solver(b, x0=None):
+                return richardson(A, b, x0, M=M, **common)
 
     # the built preconditioner and configuration, for `-ksp_view`
     solver.M = M
@@ -156,9 +188,10 @@ def view(opts: SolverOptions, shape=None, M=None) -> str:
         f"  norm type: {opts.ksp_norm_type}",
         f"  tolerances: rtol={opts.ksp_rtol:g}, atol={opts.ksp_atol:g}, "
         f"max_it={opts.ksp_max_it}",
-        "PC Object:",
-        f"  type: {opts.pc_type}",
     ]
+    if opts.ksp_type == "gmres":
+        lines.append(f"  restart: {opts.gmres_restart}")
+    lines += ["PC Object:", f"  type: {opts.pc_type}"]
     cfg = getattr(M, "config", None)
     if opts.pc_type == "mg" and cfg is not None:
         lines += [

@@ -466,6 +466,14 @@ def _resolve_sweeps(cfg: MGConfig, shape: Sequence[int]) -> MGConfig:
         post_smooth=cfg.post_smooth if cfg.post_smooth >= 0 else auto)
 
 
+def auto_bf16_presmooth(cfg: MGConfig, shape: Sequence[int], dtype) -> bool:
+    """True when the JAX package's 512^3-class default applies: a float32
+    field of min(shape) >= 512 whose cycle and pre-smooth dtypes are left
+    unset gets a bf16 pre-smooth."""
+    return (not cfg.pre_dtype and not cfg.dtype and min(shape) >= 512
+            and dtype == torch.float32)
+
+
 def make_mg_preconditioner(
     shape: Sequence[int],
     deltas: Sequence[float],
@@ -484,9 +492,7 @@ def make_mg_preconditioner(
     """
     device = torch.device(device)
     cfg = _resolve_sweeps(cfg, shape)
-    if (not cfg.pre_dtype and not cfg.dtype and min(shape) >= 512
-            and dtype == torch.float32):
-        # the JAX package's 512^3-class default: bf16 pre-smooth
+    if auto_bf16_presmooth(cfg, shape, dtype):
         cfg = dataclasses.replace(cfg, pre_dtype="bfloat16")
     kernels = _kernels(cfg, device)        # both validate the options
     transfers = _transfers(cfg, device)

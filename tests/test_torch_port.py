@@ -58,6 +58,9 @@ WRAPPERS = {
     "sor_rb_multisweep_cuda": lambda u, d: stencil_cuda.sor_rb_multisweep_cuda(
         u, u, d, 1.0, 2, dots=True),
     "jacobi_sweep_cuda": lambda u, d: stencil_cuda.jacobi_sweep_cuda(u, u, d, 0.8),
+    "sor_sweep_cuda": lambda u, d: stencil_cuda.sor_sweep_cuda(u, u, d, 1.0, 1),
+    "pupdate_lapl_dot_cuda": lambda u, d: stencil_cuda.pupdate_lapl_dot_cuda(
+        u, u, 0.5, 0.1, d),
     "cg_fused_update_cuda": lambda u, d: stencil_cuda.cg_fused_update_cuda(
         0.5, u, u, u, u),
     "residual_xrestrict_cuda": lambda u, d: transfer_cuda.residual_xrestrict_cuda(

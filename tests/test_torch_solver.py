@@ -22,7 +22,7 @@ from poissbox_tpu.solvers import ksp as jksp
 from poissbox_tpu.solvers.cg import cg as jcg
 from poissbox_tpu.solvers.mg import MGConfig as JMGConfig
 from poissbox_tpu.solvers.mg import make_mg_preconditioner as jmake_mg
-from poissbox_tpu_torch import demo
+from poissbox_tpu_torch import checkpoint, demo
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.mesh import Grid3D
@@ -237,14 +237,22 @@ def test_demo_runs_on_cpu(capsys):
 
 @pytest.mark.parametrize("ksp_type", ["gmres", "pipecg", "richardson", "fft"])
 def test_unported_ksp_types_raise(ksp_type):
-    """The Krylov methods still to port raise; `fft`, ported with the
-    compact stack, now builds the direct solve: one iteration, u back to
-    rounding (the JAX package's test_ksp_dispatch_fft)."""
+    """Every ksp_type that raised before its slice now builds and
+    converges: the Krylov methods with the MG preconditioner to rtol 1e-8
+    (tests/test_torch_krylov.py holds them to the JAX package); `fft`
+    builds the direct solve: one iteration, u back to rounding (the JAX
+    package's test_ksp_dispatch_fft)."""
     A = make_laplacian_operator(Grid3D((8, 8, 8), device="cpu"))
     if ksp_type != "fft":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            ksp.make_solver(A, SolverOptions(ksp_type=ksp_type), (8,) * 3,
-                            (0.125,) * 3, device="cpu")
+        solver = ksp.make_solver(A, SolverOptions(ksp_type=ksp_type, pc_type="mg",
+                                                  ksp_rtol=1e-8), (8,) * 3,
+                                 (0.125,) * 3, device="cpu")
+        u = torch.as_tensor(rhs_field(8, 7))
+        b = A(u)
+        res = solver(b)
+        assert bool(res.converged) and int(res.iterations) > 0
+        assert float(torch.linalg.vector_norm(A(res.x) - b)) <= \
+            1e-6 * float(torch.linalg.vector_norm(b))
         return
     solver = ksp.make_solver(A, SolverOptions(ksp_type="fft"), (8,) * 3,
                              (0.125,) * 3, device="cpu")
@@ -255,29 +263,34 @@ def test_unported_ksp_types_raise(ksp_type):
     np.testing.assert_allclose(res.x.numpy(), u.numpy(), atol=1e-12)
 
 
-def test_unported_facade_entries_raise():
-    """order=6, which raised until the compact stack was ported, now
-    builds the compact operator; refinement and checkpointing still
-    raise."""
+def test_unported_facade_entries_raise(tmp_path):
+    """Every facade entry that raised before its slice now works: order=6
+    builds the compact operator; solve_refined reaches 1e-12 and
+    solve_checkpointed converges and leaves its checkpoint
+    (tests/test_torch_refine.py and test_torch_checkpoint.py hold them to
+    the JAX package)."""
     s6 = PoissonSolver((8, 8, 8), order=6, dtype=torch.float64, device="cpu",
                        options=SolverOptions(ksp_type="fft"))
     u = s6.A.project(torch.as_tensor(rhs_field(8, 8)))
     b6 = s6.A(u)
     assert s6.residual_norm(s6.solve(b6).x, b6) < 1e-12
     s = PoissonSolver((8, 8, 8), dtype=torch.float64, device="cpu")
-    b = torch.zeros(8, 8, 8, dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        s.solve_refined(b)
-    with pytest.raises(NotImplementedError):
-        s.solve_checkpointed(b, "unused")
+    b = s.rhs_for(torch.as_tensor(rhs_field(8, 9)))
+    ref = s.solve_refined(b)
+    assert float(ref.residual_norm) <= 1e-12 * float(torch.linalg.vector_norm(b))
+    res, total = s.solve_checkpointed(b, str(tmp_path / "ckpt"), every=2)
+    assert bool(res.converged) and total >= int(res.iterations) > 0
+    assert (tmp_path / "ckpt.npz").is_file()
 
 
-def test_entry_points_default_to_the_card():
-    """PoissonSolver, the demo, Grid3D and the ksp/mg constructors run on
-    the card unless the caller asks for the CPU; without a card a CUDA
-    request raises and never falls back."""
+def test_entry_points_default_to_the_card(tmp_path):
+    """PoissonSolver (and with it solve_refined and solve_checkpointed),
+    the demo, Grid3D, the ksp/mg constructors (every ksp_type) and
+    checkpoint.load run on the card unless the caller asks for the CPU;
+    without a card a CUDA request raises and never falls back."""
     assert Grid3D((4, 4, 4)).device.type == "cuda"
-    for fn in (ksp.make_solver, ksp.make_preconditioner, make_mg_preconditioner):
+    for fn in (ksp.make_solver, ksp.make_preconditioner, make_mg_preconditioner,
+               checkpoint.load):
         assert inspect.signature(fn).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         return
@@ -289,3 +302,10 @@ def test_entry_points_default_to_the_card():
     A = make_laplacian_operator(Grid3D((8, 8, 8), device="cpu"))
     with pytest.raises((RuntimeError, AssertionError)):
         ksp.make_solver(A, SolverOptions(), (8,) * 3, (0.125,) * 3)
+    for ksp_type in ("gmres", "pipecg", "richardson"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            ksp.make_solver(A, SolverOptions(ksp_type=ksp_type), (8,) * 3,
+                            (0.125,) * 3)
+    path = checkpoint.save(str(tmp_path / "ckpt"), {"x": torch.zeros(2)})
+    with pytest.raises((RuntimeError, AssertionError)):
+        checkpoint.load(path)

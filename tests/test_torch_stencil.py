@@ -2,9 +2,10 @@
 
 Inputs are made with numpy from a seed and handed to both. The roll and
 pointwise forms are held to the JAX roll and pointwise forms; the plain
-versions of the CUDA stencil kernel (K1, K2, K9) and of CG's fused update
-(K8) to the Pallas kernels, run in interpret mode as the JAX package's own
-tests run them on the CPU.
+versions of the CUDA stencil kernel (K1, K2, K9, K12), of one red-black
+colour update (K11) and of CG's fused update (K8) to the Pallas kernels,
+and K1/K2's to the streamed K1'/K2', run in interpret mode as the JAX
+package's own tests run them on the CPU.
 """
 
 import jax.numpy as jnp
@@ -16,6 +17,7 @@ from poissbox_tpu.mesh import Grid3D as JGrid3D
 from poissbox_tpu.ops import assemble as jassemble
 from poissbox_tpu.ops import stencil as jstencil
 from poissbox_tpu.ops import stencil_pallas as jpallas
+from poissbox_tpu.ops import stencil_inplace as jinplace
 from poissbox_tpu.ops.coefficients import lapl_star_coeffs as jlapl_star_coeffs
 from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops import assemble, stencil, stencil_cuda
@@ -188,3 +190,86 @@ def test_stencil_matrix_matches_jax(shape, length):
     close(M(t(u)).numpy(), ref, atol=1e-12 * np.abs(ref).max())
     with pytest.raises(ValueError):
         M(torch.zeros(3, 3, 3, dtype=torch.float64))
+
+
+def test_pupdate_plain_matches_pallas():
+    """K12: (p', A p', <p', A p'>) for p' = (v - zs) + beta p at 16^3 f64,
+    to the JAX package's own tiers (tests/test_round3.py)."""
+    n = 16
+    v, p = fields((n,) * 3, 12, 2)
+    d = (1.0 / n,) * 3
+    pn, ap, pap = jpallas.pupdate_lapl_dot_pallas(jnp.asarray(v), jnp.asarray(p),
+                                                  0.73, 0.031, d)
+    f64 = torch.float64
+    gpn, gap, gpap = stencil_cuda.pupdate_lapl_dot_plain(
+        t(v), t(p), torch.tensor(0.73, dtype=f64), torch.tensor(0.031, dtype=f64), d)
+    np.testing.assert_allclose(gpn.numpy(), np.asarray(pn), rtol=1e-13, atol=1e-14)
+    np.testing.assert_allclose(gap.numpy(), np.asarray(ap), rtol=1e-12, atol=1e-8)
+    np.testing.assert_allclose(float(gpap), float(pap), rtol=1e-11)
+
+
+def test_pupdate_plain_matches_stream():
+    """K12 against the TPU's aliased streaming form at 32^3 f32, to
+    tests/test_stencil_inplace.py's tolerances."""
+    n = 32
+    u, b = (a.astype(np.float32) for a in fields((n,) * 3, 13, 2))
+    d = (1.0 / n,) * 3
+    pn, ap, pap = jinplace.pupdate_matvec_stream(jnp.asarray(u), jnp.asarray(b),
+                                                 0.7, 0.013, d)
+    gpn, gap, gpap = stencil_cuda.pupdate_lapl_dot_plain(
+        t(u), t(b), torch.tensor(0.7), torch.tensor(0.013), d)
+    assert float(np.abs(gpn.numpy() - np.asarray(pn)).max()) < 1e-6
+    scale = float(np.abs(np.asarray(ap)).max())
+    assert float(np.abs(gap.numpy() - np.asarray(ap)).max()) < 1e-6 * scale
+    assert abs(float(gpap) - float(pap)) <= 1e-4 * abs(float(pap))
+
+
+@pytest.mark.parametrize("color", [0, 1])
+def test_sor_sweep_plain_matches_pallas(color):
+    """K11: one red-black colour update at 16^3 f64."""
+    n = 16
+    u, b = fields((n,) * 3, 14, 2)
+    d = (1.0 / n,) * 3
+    ref = np.asarray(jpallas.sor_sweep_pallas(jnp.asarray(u), jnp.asarray(b), d,
+                                              1.0, color))
+    got = stencil_cuda.sor_sweep_plain(t(u), t(b), d, 1.0, color).numpy()
+    # KB keeps _rb_halfstep's grouping, Pallas's _upd_sor another: an
+    # updated value near zero may differ by an ulp of its O(1) terms
+    np.testing.assert_allclose(got, ref, rtol=1e-13, atol=1e-15)
+    # the other colour is copied
+    par = stencil_cuda.colour_parity((n,) * 3, "cpu").numpy()
+    assert np.array_equal(got[par != color], u[par != color])
+
+
+def test_stream_matvec_is_ka():
+    """K1'/K2', the TPU's streamed matvec, against K1/K2's plain versions
+    at 32^3 f32: fields exact, the dot to rtol 1e-5."""
+    n = 32
+    (u,) = (a.astype(np.float32) for a in fields((n,) * 3, 15))
+    d = (1.0 / n,) * 3
+    ref = np.asarray(jinplace.apply_laplacian_stream(jnp.asarray(u), d))
+    assert float(np.abs(stencil_cuda.apply_laplacian_plain(t(u), d).numpy()
+                        - ref).max()) == 0.0
+    rref, rdot = jinplace.apply_laplacian_dot_stream(jnp.asarray(u), d)
+    y, dot = stencil_cuda.apply_laplacian_dot_plain(t(u), d)
+    assert float(np.abs(y.numpy() - np.asarray(rref)).max()) == 0.0
+    assert abs(float(dot) - float(rdot)) <= 1e-5 * abs(float(rdot))
+
+
+def test_sweep_goes_through_the_colour_update():
+    """A red-black sweep is two K11 colour updates, on the CPU (plain) and
+    in the wrappers' call graph; the new wrappers take their plain
+    versions on CPU tensors, bit for bit, and launch nothing."""
+    u, b, p = (t(a) for a in fields((8, 8, 8), 16, 3))
+    d = (0.125,) * 3
+    stencil_cuda.reset_launches()
+    for rev, (c0, c1) in ((False, (0, 1)), (True, (1, 0))):
+        two = stencil_cuda.sor_sweep_cuda(
+            stencil_cuda.sor_sweep_cuda(u, b, d, 1.0, c0), b, d, 1.0, c1)
+        assert torch.equal(two, stencil_cuda.sor_rb_sweep_cuda(u, b, d, 1.0, rev))
+        assert torch.equal(two, stencil_cuda.sor_rb_sweep_plain(u, b, d, 1.0, rev))
+    beta, zs = torch.tensor(0.4, dtype=u.dtype), torch.tensor(0.02, dtype=u.dtype)
+    for a, c in zip(stencil_cuda.pupdate_lapl_dot_cuda(u, p, beta, zs, d),
+                    stencil_cuda.pupdate_lapl_dot_plain(u, p, beta, zs, d)):
+        assert torch.equal(a, c)
+    assert not any(stencil_cuda.LAUNCHES.values())
