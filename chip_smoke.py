@@ -18,10 +18,13 @@ and fails loudly if any phase fails:
      f32 with TF32 allowed globally (the contractions must not use it),
      and their times against the roll form's;
   5. compact and tridiagonal kernels: K15's line kernel (lapl, grad, div,
-     interp, op_1d: compact.z/y/x) and K13/K14 (tridiag.thomas/pcr)
-     against their plain versions at 64^3 f64, (48, 40, 96) f32 and f64,
-     256^3 f32 and 512^3 f32; sweep, Laplacian and solve times with their
-     bounds, K13/K14 beside torch.linalg.lu_solve;
+     interp, op_1d: compact.z/y/x), K13/K14/K16 (tridiag.thomas/pcr/babe)
+     and K17's four modes (tridiag.compact/dual/chain/sum) against their
+     plain versions at 64^3 f64, (48, 40, 96) f32 and f64, (33, 20, 24)
+     f64 (an odd split for K16), 256^3 f32 and 512^3 f32, and K17's modes
+     again at the line lengths of paths (l) and the 512^3 f64 Laplacian
+     pair, 96^3 f32 and 512^3 f64; sweep, Laplacian, K17 mode and solve
+     times with their bounds, K13/K14/K16 beside torch.linalg.lu_solve;
   6. paths, each with the launch counters reset before and read after,
      each checked against the plain PyTorch path on the card (impl="roll",
      transfers="roll"; for the compact operator method="pscan"), with
@@ -41,7 +44,9 @@ and fails loudly if any phase fails:
        (e)   -ksp_type fft at 512^3 f32, order 2 and order 6; FCG with
              -pc_type fft on order 6 at 256^3 f32 and f64;
        (f)   the batched periodic tridiagonal solve of the JAX package's
-             bench at 512^3 f32: CudaTridiagFactor, PCR (auto) and Thomas;
+             bench at 512^3 f32 and at 64^3 f64: CudaTridiagFactor, PCR
+             (auto), Thomas and the twisted factorization (K16); after the
+             path's counters are read, K16 timed against K13;
        (g)   GMRES(30), the default KSP: with -pc_type mg at 64^3 f64 rtol
              1e-8 and 512^3 f32 rtol 1e-6 (a 31-field basis, 16.6 GB),
              with -pc_type none at 64^3 f64 for 60 iterations (K2 through
@@ -56,7 +61,13 @@ and fails loudly if any phase fails:
              the plain path;
        (k)   solve_checkpointed at 256^3 f32, every 2 iterations, in a
              temporary directory: killed after chunk 0 and resumed equals
-             the uninterrupted run; a b one ulp away starts fresh.
+             the uninterrupted run; a b one ulp away starts fresh;
+       (l)   order 6 through K17: the compact operator with
+             method="pallas" (the JAX package's layout-cycled Thomas
+             pipeline) solved by CG + GMG at 64^3 f64 rtol 1e-8, 256^3 and
+             96^3 f32 rtol 1e-3, with the K15 path's iterations on the same
+             b; then K17's Laplacian against K15's at 512^3 f32 and f64,
+             seven pairs in turns.
 
 The last two lines of standard output are a JSON object with one entry
 per kernel mode, then {"ok": true, "device": {...}}.
@@ -84,9 +95,12 @@ from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops import _build
+from poissbox_tpu_torch.ops import compact
 from poissbox_tpu_torch.ops import compact_pcr as cp
 from poissbox_tpu_torch.ops import stencil_cuda as sc
 from poissbox_tpu_torch.ops import transfer_cuda as tc
+from poissbox_tpu_torch.ops import tridiag_cuda
+from poissbox_tpu_torch.ops.coefficients import compact_grad_coeffs, compact_interp_coeffs
 from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
@@ -137,7 +151,16 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "compact.x": ("compact.cu", f"{PCR}:304, {PCR}:431"),
     "tridiag.thomas": ("tridiag.cu", f"{TRI}:293"),
     "tridiag.pcr": ("compact.cu", f"{TRI}:303"),
+    "tridiag.babe": ("tridiag.cu", f"{TRI}:330"),
+    "tridiag.compact": ("tridiag.cu", f"{TRI}:381"),
+    "tridiag.dual": ("tridiag.cu", f"{TRI}:459"),
+    "tridiag.chain": ("tridiag.cu", f"{TRI}:467"),
+    "tridiag.sum": ("tridiag.cu", f"{TRI}:475"),
 }
+# K17's modes: field passes at the floor (inputs read once, outputs
+# written once) and operations a point (7 for the RHS taps, 2 forward, 3
+# back, 2 correction per operator; the sum's tap sum and final add)
+K17_MODES = {"compact": (2, 14), "dual": (3, 28), "chain": (2, 28), "sum": (4, 30)}
 # the modes of the 512^3 path, timed at 512^3 (the rest at 256^3)
 AT_512 = ("rbsor.zero.bf16", "rbsor.general.bf16", "rbsor.general.narrow",
           "xfer.restrict.bf16u", "xfer.prolong_add.bf16u",
@@ -436,8 +459,11 @@ def check_contractions() -> None:
 
 
 COMPACT_CASES = [((64, 64, 64), torch.float64), ((48, 40, 96), torch.float32),
-                 ((48, 40, 96), torch.float64), ((256, 256, 256), torch.float32),
-                 ((512, 512, 512), torch.float32)]
+                 ((48, 40, 96), torch.float64), ((33, 20, 24), torch.float64),
+                 ((256, 256, 256), torch.float32), ((512, 512, 512), torch.float32)]
+# K17's modes again at the line lengths the main path gives it and no case
+# above has: path (l)'s 96^3 f32 and the 512^3 f64 Laplacian of lapl_pairs
+K17_CASES = [((96, 96, 96), torch.float32), ((512, 512, 512), torch.float64)]
 LAPL_KEYS = ("compact.z", "compact.y", "compact.x")   # lapl_sweeps' order
 
 
@@ -470,8 +496,8 @@ def dense_circulant(n: int, dtype) -> torch.Tensor:
 
 
 def compact_calls(f, F, d):
-    """(name, counters, kernel call, plain call) of K15's programs and the
-    K13/K14 solves on one field."""
+    """(name, counters, kernel call, plain call) of K15's programs, the
+    K13/K14/K16 solves and K17's modes on one field."""
     rt = cp._dtype_rtol(f.dtype)
     calls = [
         ("lapl", LAPL_KEYS, lambda: cp.lapl(f, d), lambda: cp.lapl(f, d, plain=True)),
@@ -487,22 +513,49 @@ def compact_calls(f, F, d):
         calls.append((f"op_1d/axis={axis}", (key,),
                       lambda s=spec, a=axis: cp.op_1d(f, s, a),
                       lambda s=spec, a=axis: cp.op_1d(f, s, a, plain=True)))
-    for alg, axis in (("thomas", 0), ("pcr", 0), ("pcr", 2)):
+    for alg, axis, per in (("thomas", 0, True), ("pcr", 0, True), ("pcr", 2, True),
+                           ("babe", 0, True), ("babe", 2, False)):
         fac = CudaTridiagFactor(*tridiag_system(f.shape[axis], f.dtype),
-                                periodic=True, algorithm=alg)
-        calls.append((f"tridiag.{alg}/axis={axis}", (f"tridiag.{alg}",),
+                                periodic=per, algorithm=alg)
+        calls.append((f"tridiag.{alg}/axis={axis}/periodic={per}", (f"tridiag.{alg}",),
                       lambda fac=fac, a=axis: fac.solve(f, a),
                       lambda fac=fac, a=axis: fac.solve(f, a, plain=True)))
+    for mode, call in k17_calls(f, d).items():
+        calls.append((f"tridiag.{mode}", (f"tridiag.{mode}",), call,
+                      lambda call=call: call(plain=True)))
     return calls
 
 
+def k17_calls(f, d) -> dict:
+    """K17's four modes along axis 0 of f with the compact Laplacian's
+    operators (their factors the "pallas" path's), as the pipeline calls
+    them: mode -> call(plain=False)."""
+    n, dt = f.shape[0], f.dtype
+    oi, oip = (compact._op(compact_interp_coeffs(), st) for st in (-1, +1))
+    og, ogp = (compact._op(compact_grad_coeffs(d[0]), st) for st in (-1, +1))
+    fac = lambda op: compact._pfac(n, op[0], dt)
+    g = torch.Generator(device=DEVICE).manual_seed(n + 5)
+    fb, f3 = (torch.rand(f.shape, generator=g, dtype=dt, device=DEVICE) * 2 - 1
+              for _ in range(2))
+    return {
+        "compact": lambda plain=False: fac(og).solve_compact(f, *og[1], plain=plain),
+        "dual": lambda plain=False: tridiag_cuda.compact_dual(
+            f, fac(oi), oi[1], fac(og), og[1], plain=plain),
+        "chain": lambda plain=False: tridiag_cuda.compact_chain(
+            f, fac(og), og[1], fac(ogp), ogp[1], plain=plain),
+        "sum": lambda plain=False: tridiag_cuda.compact_sum(
+            f, fb, f3, fac(oip), oip[1], fac(ogp), ogp[1], plain=plain),
+    }
+
+
 def check_compact(stats: dict) -> None:
-    """Phase 5: K15's programs and K13/K14 against their plain versions
-    at every case; at 256^3 and 512^3 f32 the times of each Laplacian
-    sweep, the whole Laplacian (kernels, plain, the pscan path) and the
-    two solves (kernel, plain, lu_solve on the dense factor), with their
-    bounds. The JSON entries take the 512^3 times (the JAX package's
-    bench size for compact_lapl and tridiag)."""
+    """Phase 5: K15's programs, K13/K14/K16 and K17's modes against their
+    plain versions at every case (K17's also at K17_CASES); at 256^3 and
+    512^3 f32 the times of each
+    Laplacian sweep, the whole Laplacian (kernels, plain, the pscan path),
+    the three solves (kernel, plain, lu_solve on the dense factor) and
+    K17's modes, with their bounds. The JSON entries take the 512^3 times
+    (the JAX package's bench size for compact_lapl and tridiag)."""
     for shape, dtype in COMPACT_CASES:
         g = torch.Generator(device=DEVICE).manual_seed(sum(shape) + 3)
         f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
@@ -517,6 +570,17 @@ def check_compact(stats: dict) -> None:
         del F
         if shape[0] in (256, 512):
             time_compact(stats, f, d)
+        del f
+        torch.cuda.empty_cache()
+    for shape, dtype in K17_CASES:
+        g = torch.Generator(device=DEVICE).manual_seed(sum(shape) + 3)
+        f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        for mode, call in k17_calls(f, tuple(1.0 / n for n in shape)).items():
+            err = compare(f"tridiag.{mode} {shape} {dtype}", call(), call(plain=True))
+            torch.cuda.synchronize()
+            stats[f"tridiag.{mode}"]["max_abs_err"] = max(
+                stats[f"tridiag.{mode}"]["max_abs_err"], err)
+        print(f"  K17's modes agree at {shape} {dtype}", flush=True)
         del f
         torch.cuda.empty_cache()
 
@@ -566,7 +630,7 @@ def time_compact(stats: dict, f, d) -> None:
     lu, piv = torch.linalg.lu_factor(dense_circulant(n, f.dtype))
     lib = lambda: torch.linalg.lu_solve(lu, piv, B)
     lib_ms = median_ms(lib)
-    for alg in ("thomas", "pcr"):
+    for alg in ("thomas", "pcr", "babe"):
         fac = CudaTridiagFactor(*tridiag_system(n, f.dtype), periodic=True,
                                 algorithm=alg)
         x = fac.solve(f, 0)
@@ -575,7 +639,7 @@ def time_compact(stats: dict, f, d) -> None:
             raise AssertionError(f"lu_solve vs tridiag.{alg}: relative {rel:.3e}")
         ms = median_ms(lambda: fac.solve(f, 0))
         plain_ms = median_ms(lambda: fac.solve(f, 0, plain=True))
-        ops = 7 if alg == "thomas" else program_ops((((0, (fac.pcr_spec,)),),))
+        ops = 7 if alg != "pcr" else program_ops((((0, (fac.pcr_spec,)),),))
         bd = bound(2 * f.nbytes, ops * f.numel())
         print(f"  tridiag.{alg} {n}^3 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
               f"lu_solve {lib_ms:.4f} ms (relative diff {rel:.2e}), bound "
@@ -584,7 +648,15 @@ def time_compact(stats: dict, f, d) -> None:
             stats[f"tridiag.{alg}"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                                            **bd)
         del x
-    del lu, piv
+    del lu, piv, B
+    for mode, call in k17_calls(f, d).items():
+        passes, ops = K17_MODES[mode]
+        ms, plain_ms = median_ms(call), median_ms(lambda: call(plain=True), reps=3, warm=1)
+        bd = bound(passes * f.nbytes, ops * f.numel())
+        print(f"  tridiag.{mode} (K17) {n}^3 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, {passes} passes)", flush=True)
+        if record:
+            stats[f"tridiag.{mode}"].update(ms=ms, plain_ms=plain_ms, **bd)
 
 
 def rhs(solver, n, dtype):
@@ -776,6 +848,91 @@ def compare6(runs, cases, smi) -> None:
               + f" ({smi})", flush=True)
 
 
+def solve6_thomas_case(n, dtype, rtol, argv):
+    """Path (l): the compact operator with method="pallas" (the JAX
+    package's Thomas pipeline, on K17) solved by ksp.make_solver with
+    `argv`, on path (d)'s b (the smooth field through K15's operator);
+    checked by its true residual. Returns (solver, b, iterations)."""
+    grid = Grid3D((n,) * 3, device=DEVICE)
+    A = make_compact_laplacian_operator(grid, method="pallas")
+    opts = Options(argv + ["-ksp_rtol", str(rtol), "-ksp_max_it", "200"])
+    solver = ksp.make_solver(A, SolverOptions.from_options(opts), dtype=dtype, grid=grid)
+    b = make_compact_laplacian_operator(grid)(smooth_u(grid, dtype))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver(b)
+    t_solve = time.perf_counter() - t0
+    its = int(res.iterations)
+    rel = float(torch.linalg.vector_norm(A(res.x) - b) / torch.linalg.vector_norm(b))
+    if (tuple(res.x.shape) != (n,) * 3 or not bool(torch.isfinite(res.x).all())
+            or not res.reason_enum() > 0 or not rel <= rtol * 1.01):
+        raise AssertionError(f"order 6 K17 {n}^3 {dtype}: {its} iterations, "
+                             f"{res.reason_enum().name}, relative residual {rel:.3e}")
+    print(f"  order 6 through K17 {n}^3 {dtype} rtol {rtol:g}: {its} iterations, relative "
+          f"residual {rel:.3e}, first solve {t_solve * 1e3:.2f} ms", flush=True)
+    return solver, b, its
+
+
+def compare6_thomas(runs, cases, smi) -> None:
+    """Path (l) against the K15 path (d), PoissonSolver(order=6), on the
+    same b: equal iterations, then warm walls in turns."""
+    for (solver, b, its), (n, dtype, rtol, argv) in zip(runs, cases):
+        opts = Options(argv + ["-ksp_rtol", str(rtol), "-ksp_max_it", "200"])
+        k15 = PoissonSolver((n,) * 3, options=opts, dtype=dtype, device=DEVICE, order=6)
+        k15_its = int(k15.solve(b).iterations)
+        if k15_its != its:
+            raise AssertionError(f"order 6 {n}^3 {dtype}: K17 path {its} iterations, "
+                                 f"K15 path {k15_its}")
+        med = warm_ms({"K17 (method=pallas)": lambda: solver(b),
+                       "K15 (auto)": lambda: k15.solve(b)})
+        print(f"  order 6 {n}^3 {dtype}: {its} iterations both; warm "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
+              flush=True)
+
+
+def lapl_pairs(smi, n: int = 512) -> None:
+    """The deciding measurement: K17's Laplacian (method="pallas", kernels
+    and transposes) against K15's (method="auto") at n^3 in f32 and f64,
+    seven pairs in turns, each call's time between CUDA events; the
+    kernel launches of one call beside it."""
+    for dtype in (torch.float32, torch.float64):
+        grid = Grid3D((n,) * 3, device=DEVICE)
+        g = torch.Generator(device=DEVICE).manual_seed(11)
+        f = torch.rand((n,) * 3, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        d = grid.deltas
+        fns = {"K17": lambda: compact.lapl(f, d, method="pallas"),
+               "K15": lambda: compact.lapl(f, d, method="auto")}
+        outs, launches = {}, {}
+        for k, fn in fns.items():
+            before = dict(sc.LAUNCHES)
+            outs[k] = fn()
+            torch.cuda.synchronize()
+            launches[k] = {c: v - before[c] for c, v in sc.LAUNCHES.items() if v != before[c]}
+        rel = float((outs["K17"] - outs["K15"]).abs().max() / outs["K15"].abs().max())
+        if not rel <= 10 * FIELD_TOL[dtype]:
+            raise AssertionError(f"K17 lapl vs K15 lapl {n}^3 {dtype}: relative {rel:.3e}")
+        del outs
+        ts = {k: [] for k in fns}
+        for _ in range(7):
+            for k, fn in fns.items():
+                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                torch.cuda.synchronize()
+                a.record()
+                fn()
+                b.record()
+                torch.cuda.synchronize()
+                ts[k].append(a.elapsed_time(b))
+        wins = sum(x < y for x, y in zip(ts["K17"], ts["K15"]))
+        print(f"  compact lapl {n}^3 {str(dtype).replace('torch.', '')}, K17 vs K15 "
+              f"(relative diff {rel:.2e}): median [min, max] of 7 in turns "
+              + ", ".join(f"{k} {statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}] ms "
+                          f"({sum(launches[k].values())} counted launches: {launches[k]})"
+                          for k, v in ts.items())
+              + f"; K17 faster in {wins} of 7 ({smi})", flush=True)
+        del f
+        torch.cuda.empty_cache()
+
+
 def fft_case(order: int, n: int, dtype, smi) -> None:
     """-ksp_type fft through PoissonSolver on the card: the relative
     residual, bounded by twice the plain path's on the same b (the plain
@@ -814,24 +971,62 @@ def fft_case(order: int, n: int, dtype, smi) -> None:
           flush=True)
 
 
-def tridiag_path(smi, n: int = 512) -> None:
+def loop_ms(fn, reps: int = 200) -> float:
+    """Device time of one call from `reps` back-to-back calls between two
+    CUDA events: the kernel's time where it outlasts the host's enqueue of
+    a call (about 10 us through the wrapper), the host's where it does not."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def tridiag_path(smi, n: int = 512, dtype=torch.float32):
     """Path (f): the JAX package's bench_tridiag case on the card, through
-    CudaTridiagFactor: the periodic (alpha, 1, alpha) system at n^3 f32
-    solved along axis 0, by PCR (what "auto" picks) and by Thomas; each
-    against its plain version and by its own residual."""
+    CudaTridiagFactor: the periodic (alpha, 1, alpha) system at n^3
+    solved along axis 0, by PCR (what "auto" picks), by Thomas and by the
+    twisted factorization (K16); each against its plain version and by its
+    own residual. Returns (factors by algorithm, d, tag) for tridiag_pairs."""
     g = torch.Generator(device=DEVICE).manual_seed(2)
-    d = torch.rand((n,) * 3, generator=g, dtype=torch.float32, device=DEVICE)
-    a, bb, c = tridiag_system(n, torch.float32)
-    for alg in ("auto", "thomas"):
+    d = torch.rand((n,) * 3, generator=g, dtype=dtype, device=DEVICE)
+    a, bb, c = tridiag_system(n, dtype)
+    tag = f"{n}^3 {str(dtype).replace('torch.', '')}"
+    facs = {}
+    for alg in ("auto", "thomas", "babe"):
         fac = CudaTridiagFactor(a, bb, c, periodic=True, algorithm=alg)
         x = fac.solve(d, 0)
         compare(f"tridiag {fac.algorithm} path", x, fac.solve(d, 0, plain=True))
         r = ALPHA_TRI * (torch.roll(x, 1, 0) + torch.roll(x, -1, 0)) + x - d
         rel = float(r.abs().max()) / float(d.abs().max())
-        if not rel <= 1e-5:
+        if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
             raise AssertionError(f"tridiag {fac.algorithm}: residual {rel:.3e}")
-        print(f"  tridiag {alg} -> {fac.algorithm} {n}^3 f32: max residual "
+        print(f"  tridiag {alg} -> {fac.algorithm} {tag}: max residual "
               f"{rel:.2e} of max|d| ({smi})", flush=True)
+        facs[alg] = fac
+    return facs, d, tag
+
+
+def tridiag_pairs(runs, smi) -> None:
+    """K16 against K13 on path (f)'s systems, outside the path's counted
+    run: the median of 25 calls between CUDA events and back-to-back
+    launches, in turns (K13, K16, K16, K13)."""
+    show = lambda v: " / ".join(f"{t:.4f}" for t in v)
+    for facs, d, tag in runs:
+        d2 = d.reshape(d.shape[0], -1)
+        ev = {"thomas": [], "babe": []}
+        loop = {"thomas": [], "babe": []}
+        for alg in ("thomas", "babe", "babe", "thomas"):
+            fac = facs[alg]
+            ev[alg].append(median_ms(lambda: fac.solve(d, 0)))
+            loop[alg].append(loop_ms(lambda: fac._solve_lines(d2, False)))
+        print(f"  K16 vs K13 {tag}, in turns: median of 25 calls thomas "
+              f"{show(ev['thomas'])} ms, babe {show(ev['babe'])} ms; back-to-back "
+              f"launches thomas {show(loop['thomas'])} ms, babe {show(loop['babe'])} "
+              f"ms ({smi})", flush=True)
 
 
 def gmres_none_case(smi, n: int = 64, its: int = 60) -> None:
@@ -1177,8 +1372,12 @@ def main() -> int:
     compare6(runs_e, cases_e, smi)
     del runs_e
     torch.cuda.empty_cache()
-    run_path("(f) the bench's periodic tridiagonal solve, 512^3 f32", [(smi,)],
-             ["tridiag.pcr", "tridiag.thomas"], totals, runner=tridiag_path)
+    runs_f = run_path("(f) the bench's periodic tridiagonal solve, 512^3 f32 and "
+                      "64^3 f64", [(smi,), (smi, 64, f64)],
+                      ["tridiag.pcr", "tridiag.thomas", "tridiag.babe"], totals,
+                      runner=tridiag_path)
+    tridiag_pairs(runs_f, smi)
+    del runs_f
     torch.cuda.empty_cache()
 
     gm = ["-ksp_type", "gmres", "-gmres_restart", "30"]
@@ -1227,6 +1426,14 @@ def main() -> int:
     run_path("(k) solve_checkpointed, 256^3 f32, every 2", [(256, smi)],
              ["stencil7.apply", "rbsor.zero_update", "xfer.restrict"], totals,
              runner=checkpoint_case)
+    cases_l = [(64, f64, 1e-8, mgcg), (256, f32, 1e-3, mgcg), (96, f32, 1e-3, mgcg)]
+    runs_l = run_path("(l) order 6 through K17 (method=pallas), CG + GMG", cases_l,
+                      ["tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
+                       "rbsor.general", "xfer.restrict"], totals, runner=solve6_thomas_case)
+    compare6_thomas(runs_l, cases_l, smi)
+    del runs_l
+    torch.cuda.empty_cache()
+    lapl_pairs(smi)
     idle = [k for k in KERNELS if totals[k] == 0]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")

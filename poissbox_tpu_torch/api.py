@@ -44,9 +44,12 @@ class PoissonSolver:
         "cpu"; on "cuda" the operator and every MG level run the
         hand-written kernels, and without a card it raises.
       order: 2 (the 7-point operator) or 6 (the 6th-order compact
-        Laplacian, on the K15 line kernel; Krylov solves keep the 2nd-order
-        GMG preconditioner, spectrally equivalent, and `-ksp_type fft`
-        solves it exactly through its symbol).
+        Laplacian with its default method, "auto": the K15 line kernel;
+        ``ops.compact.make_compact_laplacian_operator(grid,
+        method="pallas")`` builds the K17 Thomas pipeline instead). Krylov
+        solves keep the 2nd-order GMG preconditioner, spectrally
+        equivalent, and `-ksp_type fft` solves it exactly through its
+        symbol.
 
     Besides the options-driven :meth:`solve` (every `-ksp_type` of the JAX
     package), :meth:`solve_refined` reaches float64 accuracy by iterative

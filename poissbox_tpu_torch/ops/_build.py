@@ -136,6 +136,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_compact.restype = i
     lib.poissbox_thomas.argtypes = [i, i, p] + [p] * 6 + [i, ll]
     lib.poissbox_thomas.restype = i
+    lib.poissbox_babe.argtypes = [i, i, p] + [p] * 6 + [i, i, ll]
+    lib.poissbox_babe.restype = i
+    lib.poissbox_compact_thomas.argtypes = ([i, i, i, p] + [p] * 6 + [p] * 8
+                                            + [d, d, i, i] * 2 + [i, ll])
+    lib.poissbox_compact_thomas.restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -9,22 +9,28 @@ x, y, z sweeps (vertex -> cell); `lapl` is div(grad).
 
 ``method`` selects the line solver:
 
-  * ``"auto"``, ``"pcr"``, ``"pallas"``, ``"cuda"``: the circulant PCR
-    path of :mod:`~poissbox_tpu_torch.ops.compact_pcr` — on a CUDA tensor
-    the K15 line kernel for every field, on a CPU tensor its plain
-    versions (``"pallas"`` is accepted so the JAX package's option values
-    run unchanged);
+  * ``"auto"``, ``"pcr"``, ``"cuda"``: the circulant PCR path of
+    :mod:`~poissbox_tpu_torch.ops.compact_pcr` — on a CUDA tensor the K15
+    line kernel for every field, on a CPU tensor its plain versions;
+  * ``"pallas"``: the JAX package's Thomas branch for that value. A 3-D
+    field runs layout-cycled: each sweep moves its axis to the front
+    (``movedim(...).contiguous()``, the copies XLA makes there) and K17
+    (:mod:`~poissbox_tpu_torch.ops.tridiag_cuda`) forms the compact RHS
+    inside the Thomas sweeps along axis 0 — one operator, two operators of
+    one input (dual), a same-axis chain, or the summed final sweep of
+    `div`; `lapl` is the fused pipeline that never stores the gradient.
+    1-D and 2-D fields build the RHS with rolls and solve with the
+    operator's :class:`~poissbox_tpu_torch.ops.tridiag_cuda.CudaTridiagFactor`.
+    The JAX package's tile and batch gates (``f.size // n < 1024``,
+    ``_fused_ok``) have no counterpart: a thread-per-line kernel has no
+    minimum batch. This path exists only so that the option means what it
+    means in the JAX package: no workload prefers it (on an H100 its
+    Laplacian takes 3.2x K15's at 512^3 f32 and 2.1x in f64, PERF.md), and
+    once option parity is no longer required it should go, or route to K15;
   * ``"pscan"``, ``"seq"``: the RHS built with rolls, then the
     :class:`~poissbox_tpu_torch.ops.tridiag.TridiagFactor` solve (the
-    plain, kernel-free path; the reference against which the kernel path
-    is held on the card).
-
-Not ported, on purpose: the JAX package's layout cycling (``_cyc``), its
-``_fused_ok`` gate and the fused Thomas pipeline through K17
-(``compact.py:186-262``, ``:396-425``). They exist because the TPU's PCR
-kernels compile only at Mosaic-safe extents and in 32-bit types; here one
-PCR path serves every n >= 4 in float32 and float64, along any axis in
-the field's own layout.
+    plain, kernel-free path; the reference against which the kernel paths
+    are held on the card).
 """
 
 from __future__ import annotations
@@ -35,7 +41,7 @@ from typing import Sequence
 import torch
 
 from poissbox_tpu_torch.linops import LinearOperator, make_nullspace_projector
-from poissbox_tpu_torch.ops import compact_pcr
+from poissbox_tpu_torch.ops import compact_pcr, tridiag_cuda
 from poissbox_tpu_torch.ops.coefficients import (
     CompactCoeffs,
     compact_grad_coeffs,
@@ -45,12 +51,12 @@ from poissbox_tpu_torch.ops.tridiag import TridiagFactor
 
 Tensor = torch.Tensor
 
-_PCR = ("auto", "pcr", "pallas", "cuda")
+_PCR = ("auto", "pcr", "cuda")
 _TRIDIAG = ("pscan", "seq")
 
 
 def _check_method(method: str) -> None:
-    if method not in _PCR + _TRIDIAG:
+    if method not in _PCR + ("pallas",) + _TRIDIAG:
         raise ValueError(f"unknown compact method {method!r} (expected "
                          "auto|pcr|pallas|cuda|pscan|seq)")
 
@@ -77,13 +83,15 @@ def compact_rhs(f: Tensor, a: float, b: float, opsign: int, stagger: int,
 
 
 @functools.lru_cache(maxsize=None)
-def _toeplitz_factor(n: int, alpha: float, dtype: torch.dtype,
-                     method: str) -> TridiagFactor:
-    """The periodic (alpha, 1, alpha) system of size n, factored once."""
-    return TridiagFactor(torch.full((n,), alpha, dtype=dtype),
-                         torch.ones(n, dtype=dtype),
-                         torch.full((n,), alpha, dtype=dtype),
-                         periodic=True, method=method)
+def _toeplitz_factor(n: int, alpha: float, dtype: torch.dtype, method: str):
+    """The periodic (alpha, 1, alpha) system of size n, factored once:
+    for "pallas" a CudaTridiagFactor (K13/K14 solves, K17's Thomas
+    vectors), else the plain TridiagFactor."""
+    a = torch.full((n,), alpha, dtype=dtype)
+    b = torch.ones(n, dtype=dtype)
+    if method == "pallas":
+        return tridiag_cuda.CudaTridiagFactor(a, b, a.clone(), periodic=True)
+    return TridiagFactor(a, b, a.clone(), periodic=True, method=method)
 
 
 def _apply_compact(f: Tensor, coeffs: CompactCoeffs, stagger: int, axis: int,
@@ -95,6 +103,16 @@ def _apply_compact(f: Tensor, coeffs: CompactCoeffs, stagger: int, axis: int,
         spec = compact_pcr._spec(coeffs, coeffs.opsign, stagger, n,
                                  compact_pcr._dtype_rtol(f.dtype))
         return compact_pcr.op_1d(f.contiguous(), spec, axis)
+    if method == "pallas":
+        # lines-major layout; for a 3-D field the RHS forms inside K17
+        fm = f if axis == 0 else f.movedim(axis, 0)
+        fac = _toeplitz_factor(n, float(coeffs.alpha), f.dtype, method)
+        if fm.dim() == 3:
+            out = fac.solve_compact(fm, *_op(coeffs, stagger)[1])
+        else:
+            rhs = compact_rhs(fm, coeffs.a, coeffs.b, coeffs.opsign, stagger, 0)
+            out = fac.solve(rhs, 0)
+        return out if axis == 0 else out.movedim(0, axis).contiguous()
     rhs = compact_rhs(f, coeffs.a, coeffs.b, coeffs.opsign, stagger, axis)
     return _toeplitz_factor(n, float(coeffs.alpha), f.dtype, method).solve(rhs, axis)
 
@@ -129,6 +147,53 @@ def interp_1d_div(f: Tensor, axis: int = -1, method: str = "auto") -> Tensor:
 # ---------------------------------------------------------------------------
 # 3-D operators
 # ---------------------------------------------------------------------------
+#
+# method="pallas" runs layout-cycled, as the JAX package does: each sweep
+# solves along axis 0, and the layouts cycle (a, b, c) -> (c, a, b) so one
+# transpose feeds each sweep and the last sweep lands in the output layout.
+# Sweeps that share an input run as K17's dual mode, the x sweeps of the
+# Laplacian (grad_x then div_x on one component) as its chain mode, and
+# div's final z sweep, op(f1 + f2) + op'(f3), as its sum mode.
+
+def _cyc(v: Tensor) -> Tensor:
+    """(a, b, c) -> (c, a, b): bring the next sweep axis to the front."""
+    return v.movedim(2, 0).contiguous()
+
+
+def _op(coeffs: CompactCoeffs, stagger: int):
+    """(alpha, rhs spec) of one staggered compact operator; the spec is
+    K17's (a, b, opsign, shift)."""
+    shift = 0 if stagger == -1 else 1
+    return float(coeffs.alpha), (coeffs.a, coeffs.b, coeffs.opsign, shift)
+
+
+def _pfac(n: int, alpha: float, dtype):
+    return _toeplitz_factor(n, alpha, dtype, "pallas")
+
+
+def _dual(f: Tensor, op1, op2):
+    """(op1(f), op2(f)) along axis 0, one K17 launch."""
+    (al1, s1), (al2, s2) = op1, op2
+    n = f.shape[0]
+    return tridiag_cuda.compact_dual(f, _pfac(n, al1, f.dtype), s1,
+                                     _pfac(n, al2, f.dtype), s2)
+
+
+def _chain(f: Tensor, op1, op2) -> Tensor:
+    """op2(op1(f)) along axis 0, one K17 launch."""
+    (al1, s1), (al2, s2) = op1, op2
+    n = f.shape[0]
+    return tridiag_cuda.compact_chain(f, _pfac(n, al1, f.dtype), s1,
+                                      _pfac(n, al2, f.dtype), s2)
+
+
+def _sum2(fa: Tensor, fb: Tensor, f3: Tensor, op1, op2) -> Tensor:
+    """op1(fa + fb) + op2(f3) along axis 0, one K17 launch."""
+    (al1, s1), (al2, s2) = op1, op2
+    n = fa.shape[0]
+    return tridiag_cuda.compact_sum(fa, fb, f3, _pfac(n, al1, fa.dtype), s1,
+                                    _pfac(n, al2, fa.dtype), s2)
+
 
 def grad(f: Tensor, deltas: Sequence[float], method: str = "auto") -> Tensor:
     """Staggered gradient tensor of a cell-centred field: (nx, ny, nz, 3),
@@ -137,6 +202,18 @@ def grad(f: Tensor, deltas: Sequence[float], method: str = "auto") -> Tensor:
     if method in _PCR:
         return compact_pcr.grad(f, deltas)
     dx, dy, dz = deltas
+    if method == "pallas" and f.dim() == 3:
+        op_i = _op(compact_interp_coeffs(), -1)
+        fz = _cyc(f)                                   # (z, x, y)
+        fz_i, fz_d = _dual(fz, op_i, _op(compact_grad_coeffs(dz), -1))
+        yi, yd = _cyc(fz_i), _cyc(fz_d)                # (y, z, x)
+        c1, c2 = _dual(yi, op_i, _op(compact_grad_coeffs(dy), -1))
+        c3 = interp_1d(yd, axis=0, method=method)
+        x1, x2, x3 = _cyc(c1), _cyc(c2), _cyc(c3)      # (x, y, z)
+        g1 = grad_1d(x1, dx, axis=0, method=method)
+        g2 = interp_1d(x2, axis=0, method=method)
+        g3 = interp_1d(x3, axis=0, method=method)
+        return torch.stack([g1, g2, g3], dim=-1)
     fz_i = interp_1d(f, axis=2, method=method)
     fz_d = grad_1d(f, dz, axis=2, method=method)
     c1 = interp_1d(fz_i, axis=1, method=method)
@@ -155,6 +232,19 @@ def div(F: Tensor, deltas: Sequence[float], method: str = "auto") -> Tensor:
     if method in _PCR:
         return compact_pcr.div(F, deltas)
     dx, dy, dz = deltas
+    if method == "pallas" and F.dim() == 4:
+        e1 = div_1d(F[..., 0], dx, axis=0, method=method)
+        e2 = interp_1d_div(F[..., 1], axis=0, method=method)
+        e3 = interp_1d_div(F[..., 2], axis=0, method=method)
+        # y sweep in (y, x, z)
+        y1, y2, y3 = (e.movedim(1, 0).contiguous() for e in (e1, e2, e3))
+        f1 = interp_1d_div(y1, axis=0, method=method)
+        f2 = div_1d(y2, dy, axis=0, method=method)
+        f3 = interp_1d_div(y3, axis=0, method=method)
+        # z sweep in (z, y, x), one launch: interp'(f1 + f2) + div'(f3)
+        out = _sum2(_cyc(f1), _cyc(f2), _cyc(f3), _op(compact_interp_coeffs(), +1),
+                    _op(compact_grad_coeffs(dz), +1))
+        return out.permute(2, 1, 0).contiguous()
     e1 = div_1d(F[..., 0], dx, axis=0, method=method)
     e2 = interp_1d_div(F[..., 1], axis=0, method=method)
     e3 = interp_1d_div(F[..., 2], axis=0, method=method)
@@ -170,6 +260,10 @@ def interp(f: Tensor, stagger: int = -1, method: str = "auto") -> Tensor:
     _check_method(method)
     if method in _PCR:
         return compact_pcr.interp(f, stagger=stagger)
+    if method == "pallas" and f.dim() == 3:
+        out = interp_1d(_cyc(f), stagger=stagger, axis=0, method=method)
+        out = interp_1d(_cyc(out), stagger=stagger, axis=0, method=method)
+        return interp_1d(_cyc(out), stagger=stagger, axis=0, method=method)
     out = interp_1d(f, stagger=stagger, axis=2, method=method)
     out = interp_1d(out, stagger=stagger, axis=1, method=method)
     return interp_1d(out, stagger=stagger, axis=0, method=method)
@@ -183,11 +277,41 @@ def interp_div(f: Tensor, method: str = "auto") -> Tensor:
 def lapl(f: Tensor, deltas: Sequence[float], method: str = "auto") -> Tensor:
     """6th-order compact Laplacian div(grad(f)) (cell -> vertex -> cell);
     on the PCR path the regrouped three-sweep form of
-    :func:`compact_pcr.lapl`."""
+    :func:`compact_pcr.lapl`; with "pallas" the JAX package's fused Thomas
+    pipeline: the same per-component operator chains as div(grad), with
+    the shared-input sweeps as dual launches, the x sweeps of grad and div
+    as chained launches and div's z sweep as the summed launch, so the
+    gradient tensor is never stored."""
     _check_method(method)
     if method in _PCR:
         return compact_pcr.lapl(f, deltas)
-    return div(grad(f, deltas, method), deltas, method)
+    if method != "pallas" or f.dim() != 3:
+        return div(grad(f, deltas, method), deltas, method)
+    dx, dy, dz = deltas
+    op_i = _op(compact_interp_coeffs(), -1)     # interp, cell -> vertex
+    op_ip = _op(compact_interp_coeffs(), +1)    # interp', vertex -> cell
+    gz, gy, gx = (_op(compact_grad_coeffs(d), -1) for d in (dz, dy, dx))
+    dvz, dvx = (_op(compact_grad_coeffs(d), +1) for d in (dz, dx))
+    # grad z sweep in (z, x, y): interp and grad of one read
+    fz_i, fz_d = _dual(_cyc(f), op_i, gz)
+    # grad y sweep in (y, z, x)
+    yi, yd = _cyc(fz_i), _cyc(fz_d)
+    c1, c2 = _dual(yi, op_i, gy)
+    c3 = interp_1d(yd, axis=0, method=method)
+    # x sweeps of grad and div chained: component 1 grad_x -> div'_x,
+    # components 2 and 3 interp_x -> interp'_x
+    x1, x2, x3 = _cyc(c1), _cyc(c2), _cyc(c3)   # (x, y, z)
+    e1 = _chain(x1, gx, dvx)
+    e2 = _chain(x2, op_i, op_ip)
+    e3 = _chain(x3, op_i, op_ip)
+    # div y sweep in (y, x, z)
+    y1, y2, y3 = (e.movedim(1, 0).contiguous() for e in (e1, e2, e3))
+    f1 = interp_1d(y1, stagger=+1, axis=0, method=method)
+    f2 = grad_1d(y2, dy, stagger=+1, axis=0, method=method)
+    f3 = interp_1d(y3, stagger=+1, axis=0, method=method)
+    # div z sweep in (z, y, x): interp'(f1 + f2) + div'(f3), one launch
+    out = _sum2(_cyc(f1), _cyc(f2), _cyc(f3), op_ip, dvz)
+    return out.permute(2, 1, 0).contiguous()
 
 
 def make_compact_laplacian_operator(grid, method: str = "auto") -> LinearOperator:

@@ -52,7 +52,7 @@ says which mode takes which input dtype.
 for the star's epilogues and K12's prologue, ``rbsor.*`` for the colour update's modes,
 ``xfer.*`` for the transfer legs, ``cgupd`` for K8, ``compact.x|y|z``
 for K15's line kernel by axis (ops/compact_pcr.py) and ``tridiag.*`` for
-K13/K14 (ops/tridiag_cuda.py); ``.bf16`` marks a
+K13/K14/K16 and K17's four modes (ops/tridiag_cuda.py); ``.bf16`` marks a
 bf16 launch, ``.narrow`` K5's f32-in, bf16-out second colour and
 ``.bf16u`` a transfer leg reading a bf16 iterate); a wrapper adds one
 where it launches, so a run can show which kernels its path went through.
@@ -79,6 +79,7 @@ LAUNCHES: dict[str, int] = {k: 0 for k in (
     "xfer.prolong_add", "xfer.prolong_add.bf16u",
     "cgupd",
     "compact.x", "compact.y", "compact.z", "tridiag.thomas", "tridiag.pcr",
+    "tridiag.babe", "tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
 )}
 
 _EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2,

@@ -18,7 +18,8 @@ from poissbox_tpu.solvers.result import classify as jclassify
 from poissbox_tpu_torch import constants, interop
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.mesh import Grid3D
-from poissbox_tpu_torch.ops import _build, stencil_cuda, transfer_cuda
+from poissbox_tpu_torch.ops import _build, compact, stencil_cuda, transfer_cuda, tridiag_cuda
+from poissbox_tpu_torch.ops.coefficients import compact_grad_coeffs
 from poissbox_tpu_torch.solvers.result import ConvergedReason, SolveResult, classify
 
 REPO = Path(__file__).resolve().parent.parent
@@ -47,6 +48,15 @@ def test_cuda_request_raises_without_a_card():
         PoissonSolver((8, 8, 8), device="cuda")
 
 
+_GRAD = compact._op(compact_grad_coeffs(0.125), -1)
+
+
+def _pfac(alg):
+    """The 8-point compact gradient's system, factored by `alg`."""
+    a = torch.full((8,), _GRAD[0], dtype=torch.float32)
+    return tridiag_cuda.CudaTridiagFactor(a, torch.ones(8), a, periodic=True, algorithm=alg)
+
+
 WRAPPERS = {
     "apply_laplacian_cuda": lambda u, d: stencil_cuda.apply_laplacian_cuda(u, d),
     "apply_laplacian_dot_cuda": lambda u, d: stencil_cuda.apply_laplacian_dot_cuda(u, d),
@@ -66,6 +76,15 @@ WRAPPERS = {
     "residual_xrestrict_cuda": lambda u, d: transfer_cuda.residual_xrestrict_cuda(
         u, u, d),
     "xprolong_add_cuda": lambda u, d: transfer_cuda.xprolong_add_cuda(u, u[:4]),
+    **{f"tridiag_{alg}": (lambda u, d, alg=alg: _pfac(alg).solve(u, 0))
+       for alg in ("thomas", "pcr", "babe")},
+    "solve_compact": lambda u, d: _pfac("thomas").solve_compact(u, *_GRAD[1]),
+    "compact_dual": lambda u, d: tridiag_cuda.compact_dual(
+        u, _pfac("thomas"), _GRAD[1], _pfac("pcr"), _GRAD[1]),
+    "compact_chain": lambda u, d: tridiag_cuda.compact_chain(
+        u, _pfac("babe"), _GRAD[1], _pfac("thomas"), _GRAD[1]),
+    "compact_sum": lambda u, d: tridiag_cuda.compact_sum(
+        u, u, u, _pfac("thomas"), _GRAD[1], _pfac("thomas"), _GRAD[1]),
 }
 
 

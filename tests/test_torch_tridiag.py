@@ -1,9 +1,10 @@
 """The port's tridiagonal solvers against the JAX package, in float64:
 the plain stack (ops.tridiag: tdma, tdma_periodic, TridiagFactor with
 seq/pscan, the sweeps) and CudaTridiagFactor's plain versions of K13
-(Thomas) and K14 (circulant PCR), held to PallasTridiagFactor in
-interpret mode (Thomas in float64; its PCR kernel takes float32 only, so
-PCR is compared in float32 too)."""
+(Thomas), K14 (circulant PCR) and K16 (the twisted factorization), held
+to PallasTridiagFactor in interpret mode (Thomas and babe in float64, to
+1e-12 relative; its PCR kernel takes float32 only, so PCR is compared in
+float32 too)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -55,7 +56,7 @@ def test_factors_match_pallas_thomas(shape, axis, periodic):
     d = rhs(shape, 4)
     ref = np.asarray(PallasTridiagFactor(*map(jnp.asarray, sysm), periodic=periodic,
                                          algorithm="thomas").solve(jnp.asarray(d), axis))
-    algos = ["thomas", "auto"] + (["pcr"] if periodic else [])
+    algos = ["thomas", "babe", "auto"] + (["pcr"] if periodic else [])
     for alg in algos:
         fac = CudaTridiagFactor(*t(*sysm), periodic=periodic, algorithm=alg)
         close(fac.solve(torch.as_tensor(d), axis).numpy(), ref)
@@ -88,16 +89,54 @@ def test_algorithm_selection():
     assert CudaTridiagFactor(*t(*general_system(40)), periodic=True).algorithm == "thomas"
     with pytest.raises(ValueError):
         CudaTridiagFactor(*t(*general_system(16)), periodic=True, algorithm="pcr")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        CudaTridiagFactor(*per, periodic=True, algorithm="babe")
+    babe = CudaTridiagFactor(*per, periodic=True, algorithm="babe")
+    assert babe.algorithm == "babe" and babe.babe_m == 19
+    assert len(babe.babe) == 4 and babe.babe[3].shape == (43,)   # corr: n + 3
     with pytest.raises(ValueError):
         CudaTridiagFactor(*per, periodic=True, algorithm="cr")
+
+
+@pytest.mark.parametrize("n", [32, 33])
+@pytest.mark.parametrize("periodic", [True, False])
+def test_babe_matches_pallas_babe(periodic, n):
+    """K16's plain version against the Pallas babe kernel on a
+    variable-coefficient system: an even and an odd split (m = 15 at both
+    n, the upward sweep one row longer at 33), to 1e-12 relative."""
+    sysm = general_system(n, seed=n)
+    d = rhs((n, 8, 16), 9)
+    ref = PallasTridiagFactor(*map(jnp.asarray, sysm), periodic=periodic,
+                              algorithm="babe").solve(jnp.asarray(d), 0)
+    fac = CudaTridiagFactor(*t(*sysm), periodic=periodic, algorithm="babe")
+    assert fac.babe_m == (n - 2) // 2
+    close(fac.solve(torch.as_tensor(d), 0).numpy(), ref)
+    # the setup's operands equal the JAX package's
+    jfac = PallasTridiagFactor(*map(jnp.asarray, sysm), periodic=periodic,
+                               algorithm="babe")
+    for got, want in zip(fac.babe, (jfac.babe_wv, jfac.babe_binv, jfac.babe_ca,
+                                    jfac.babe_corr)):
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_babe_small_and_moved_axes():
+    """The twisted solve at the smallest splits (n = 2, 3, 4: m = 0, 0, 1)
+    and along a moved axis, against the plain Thomas solve."""
+    for n in (2, 3, 4):
+        sysm = general_system(n, seed=n)
+        d = torch.as_tensor(rhs((n, 5), n))
+        for periodic in (True, False):
+            got = CudaTridiagFactor(*t(*sysm), periodic=periodic, algorithm="babe").solve(d, 0)
+            ref = tridiag.TridiagFactor(*t(*sysm), periodic=periodic, method="seq").solve(d, 0)
+            close(got.numpy(), ref.numpy())
+    d = torch.as_tensor(rhs((6, 7, 33), 10))
+    sysm = general_system(33)
+    close(CudaTridiagFactor(*t(*sysm), periodic=True, algorithm="babe").solve(d, 2).numpy(),
+          tridiag.TridiagFactor(*t(*sysm), periodic=True, method="seq").solve(d, 2).numpy())
 
 
 def test_cuda_factor_on_cpu_launches_nothing():
     d = torch.as_tensor(rhs((16, 4, 4), 6))
     stencil_cuda.reset_launches()
-    for alg in ("thomas", "pcr"):
+    for alg in ("thomas", "pcr", "babe"):
         CudaTridiagFactor(*t(*compact_system(16)), periodic=True,
                           algorithm=alg).solve(d)
     assert not any(stencil_cuda.LAUNCHES.values())
