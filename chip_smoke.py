@@ -8,12 +8,16 @@ and fails loudly if any phase fails:
   2. build: compiles the kernels from poissbox_tpu_torch/csrc with nvcc
      (one compiler per source, in parallel);
   3. kernels: every stencil7 epilogue (K12's p-update prologue
-     included), rbsor mode (K11's single colour update included), xfer leg
-     and the CG update against its plain PyTorch version on the same card
-     (64^3 f64, 256^3 f32, an anisotropic grid; the bf16 modes on the f32
-     cases and 512^3; the stencil7 epilogues, bf16 too, at (48, 40, 96)
-     f32), then kernel, plain and bound times at 256^3 f32 and, for the
-     modes of the 512^3 path (and K2, K12), at 512^3 f32; K1 beside Conv3d;
+     included), rbsor mode (K11's single colour update and the one-launch
+     sweeps), xfer leg and the CG update against its plain PyTorch version
+     on the same card (64^3 f64, 256^3 f32, an anisotropic grid; the bf16
+     modes on the f32 cases and 512^3; the stencil7 epilogues, bf16 too, at
+     (48, 40, 96) f32; KB and K6 also at a ragged (40, 36, 52) in f64 and
+     f32, at 4^3 and 8^3 f64 and at odd (6, 5, 7) extents), then kernel,
+     plain and bound times at 256^3 f32 and, for the modes of the 512^3 path
+     (and K2, K12), at 512^3 f32; K1 beside Conv3d; then the one-launch
+     general sweep against two K11 launches at 256^3 f32 and 512^3 bf16,
+     seven pairs in turns;
   4. transfers: the banded-matrix y/z transfers against the roll form in
      f32 with TF32 allowed globally (the contractions must not use it),
      and their times against the roll form's;
@@ -25,18 +29,22 @@ and fails loudly if any phase fails:
      again at the line lengths of paths (l) and the 512^3 f64 Laplacian
      pair, 96^3 f32 and 512^3 f64; sweep, Laplacian, K17 mode and solve
      times with their bounds, K13/K14/K16 beside torch.linalg.lu_solve;
-  6. paths, each with the launch counters reset before and read after,
-     each checked against the plain PyTorch path on the card (impl="roll",
-     transfers="roll"; for the compact operator method="pscan"), with
-     warm solve times:
+  6. paths, each with the launch counters reset before and read after
+     (failing if a red-black sweep took two launches), each checked against
+     the plain PyTorch path on the card (impl="roll", transfers="roll"; for
+     the compact operator method="pscan"), with warm solve times:
        (a)   MG-CG through the fused transfer legs (K6/K7): 64^3 f64 rtol
              1e-8 (6 iterations), 256^3 f32 rtol 1e-6 (5), the demo at 64^3;
+             after the counted run, a torch.profiler breakdown of one warm
+             256^3 solve and the demo with -log_view;
        (a/r) the same solves with -mg_transfers roll through the kernels;
        (b)   512^3 f32 rtol 1e-6, the default MGConfig: V(1,1), bf16
-             pre-smooth, K5 storing x1 in bf16, K6/K7 reading it (7);
+             pre-smooth, K5 storing x1 in bf16, K6/K7 reading it (7); a
+             torch.profiler breakdown of one warm solve;
        (b/r) the same with -mg_transfers roll (CG then takes K8);
        (b/s) 512^3 f32 with the bf16 pre-smooth of the Chebyshev smoother
-             (KA's bf16 residual) and of two-sweep Jacobi (K10 in bf16);
+             (KA's bf16 residual), of two-sweep Jacobi (K10 in bf16) and of
+             two-sweep SOR (K4 in bf16);
        (c)   256^3 f32 rtol 1e-6 with -mg_levels_pc_type jacobi: K10 on
              every level, CG on K8 and apply_dots;
        (d)   PoissonSolver(order=6), CG + the 2nd-order GMG: 64^3 f64 rtol
@@ -77,7 +85,9 @@ per kernel mode, then {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
@@ -109,6 +119,7 @@ from poissbox_tpu_torch.solvers import mg
 from poissbox_tpu_torch.solvers.cg import cg
 from poissbox_tpu_torch.solvers.gmres import clamp_restart
 from poissbox_tpu_torch.solvers.refine import refine
+from poissbox_tpu_torch.utils import profiling
 
 BF16 = torch.bfloat16
 DEVICE = "cuda"   # every field and solver of the script lives on the card
@@ -134,13 +145,14 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "stencil7.jacobi": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
     "stencil7.residual.bf16": ("stencil7.cu", f"{PALLAS}:649"),
     "stencil7.jacobi.bf16": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
+    "rbsor.general": ("rbsor.cu", f"{PALLAS}:663"),
     "rbsor.zero": ("rbsor.cu", f"{PALLAS}:690"),
-    "rbsor.zero_update": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
-    "rbsor.general": ("rbsor.cu", f"{PALLAS}:848, {PALLAS}:663, {INPLACE}:275"),
-    "rbsor.dots": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
     "rbsor.zero.bf16": ("rbsor.cu", f"{PALLAS}:690"),
-    "rbsor.general.bf16": ("rbsor.cu", f"{PALLAS}:690"),
-    "rbsor.general.narrow": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
+    "rbsor.sweep": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
+    "rbsor.sweep.bf16": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
+    "rbsor.dots": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
+    "rbsor.zero_update": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
+    "rbsor.zero_update.narrow": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
     "xfer.restrict": ("xfer.cu", f"{PALLAS}:971"),
     "xfer.restrict.bf16u": ("xfer.cu", f"{PALLAS}:971"),
     "xfer.prolong_add": ("xfer.cu", f"{PALLAS}:1044"),
@@ -157,14 +169,22 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "tridiag.chain": ("tridiag.cu", f"{TRI}:467"),
     "tridiag.sum": ("tridiag.cu", f"{TRI}:475"),
 }
+# kernels that no path launches, and why (the idle check skips them; each
+# is still held to its plain version and timed)
+OFF_PATH = {"rbsor.general": "K11: every red-black sweep is one launch of the "
+                             "sweep kernel, so no path runs a single colour"}
 # K17's modes: field passes at the floor (inputs read once, outputs
 # written once) and operations a point (7 for the RHS taps, 2 forward, 3
 # back, 2 correction per operator; the sum's tap sum and final add)
 K17_MODES = {"compact": (2, 14), "dual": (3, 28), "chain": (2, 28), "sum": (4, 30)}
 # the modes of the 512^3 path, timed at 512^3 (the rest at 256^3)
-AT_512 = ("rbsor.zero.bf16", "rbsor.general.bf16", "rbsor.general.narrow",
+AT_512 = ("rbsor.zero.bf16", "rbsor.sweep.bf16", "rbsor.zero_update.narrow",
           "xfer.restrict.bf16u", "xfer.prolong_add.bf16u",
           "stencil7.residual.bf16", "stencil7.jacobi.bf16")
+# float32 sweep modes that paths (b) and (g) launch at 512^3, where the
+# sweep kernel's grid takes its largest x chunk: checked there, timed at
+# 256^3
+CHECK_512 = ("rbsor.zero", "rbsor.sweep", "rbsor.dots")
 # the card's peaks (H100 SXM data sheet): HBM bytes/s, f32 operations/s
 # outside the tensor cores (the kernels' arithmetic is f32 or f64; every
 # timed case is f32 or bf16 stored, f32 computed)
@@ -190,8 +210,8 @@ def as_tuple(out):
 def mode_calls(deltas, narrow: bool):
     """(name, inputs, operations per point, kernel call, plain call) per
     mode; with `narrow` (float32 cases) the bf16 modes too. A timed name
-    is the counter's own; a sweep mode's time is the wrapper's (the whole
-    TPU kernel: K3 = zero + general, K5 = zero_update + general). The
+    is the counter's own; a sweep mode's time is the wrapper's, one launch
+    (the whole TPU kernel: K3, K4, K5). The
     inputs (each read once) and the outputs (each written once) give the
     mode's byte bound; the operations, its arithmetic bound."""
     d = deltas
@@ -239,7 +259,7 @@ def mode_calls(deltas, narrow: bool):
                  f["r"], f["ap"], f["alpha"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_zero_update_plain(
                  f["r"], f["ap"], f["alpha"], d, W, rev)),
-            (f"rbsor.general/rev={rev}", ["u", "b"], 13,
+            (f"rbsor.sweep/rev={rev}", ["u", "b"], 13,
              lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u"], f["b"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u"], f["b"], d, W, rev)),
             (f"rbsor.dots/rev={rev}", ["u", "b"], 16,
@@ -253,11 +273,11 @@ def mode_calls(deltas, narrow: bool):
                 (f"rbsor.zero.bf16/rev={rev}", ["b16"], 13,
                  lambda f, rev=rev: sc.sor_rb_zero_sweep_cuda(f["b16"], d, W, rev),
                  lambda f, rev=rev: sc.sor_rb_zero_sweep_plain(f["b16"], d, W, rev)),
-                (f"rbsor.general.bf16/rev={rev}", ["u16", "b16"], 13,
+                (f"rbsor.sweep.bf16/rev={rev}", ["u16", "b16"], 13,
                  lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u16"], f["b16"], d, W, rev),
                  lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u16"], f["b16"], d, W,
                                                           rev)),
-                (f"rbsor.general.narrow/rev={rev}", ["r", "ap"], 17,
+                (f"rbsor.zero_update.narrow/rev={rev}", ["r", "ap"], 17,
                  lambda f, rev=rev: sc.sor_rb_zero_update_cuda(
                      f["r"], f["ap"], f["alpha"], d, W, rev, out_dtype=BF16),
                  lambda f, rev=rev: sc.sor_rb_zero_update_plain(
@@ -365,12 +385,25 @@ def median_ms(fn, reps: int = 25, warm: int = 3) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
+# KB's and K6's cases beyond the path shapes: a ragged (y, z) tile in f64
+# and f32 (the bf16 modes too), the 4^3 and 8^3 levels, where the 2-cell
+# halo wraps past the whole axis, and odd (y, z) extents, cubic cells and
+# not, where two z-adjacent cells across the wrap share a colour
+SMALL_CASES = [((40, 36, 52), (1.0, 1.0, 1.0), torch.float64),
+               ((40, 36, 52), (1.0, 1.0, 1.0), torch.float32),
+               ((4, 4, 4), (1.0, 1.0, 1.0), torch.float64),
+               ((8, 8, 8), (1.0, 1.0, 1.0), torch.float64),
+               ((6, 5, 7), (6.0, 5.0, 7.0), torch.float64),
+               ((6, 5, 7), (1.0, 1.0, 1.0), torch.float32)]
+
+
 def check_kernels() -> dict:
     """Phase 3: every mode against its plain version; returns, per launch
     counter, the max abs error over the cases and, at the mode's path
     shape (512^3 for AT_512, 256^3 otherwise), its time, the plain
     version's, its bound and, for K1, the library call's."""
     cases = [((64, 64, 64), (1.0, 1.0, 1.0), torch.float64),
+             *SMALL_CASES,
              ((64, 32, 48), (1.0, 0.75, 1.5), torch.float64),
              ((64, 32, 48), (1.0, 0.75, 1.5), torch.float32),
              ((48, 40, 96), (1.0, 1.0, 1.0), torch.float32),
@@ -383,21 +416,24 @@ def check_kernels() -> dict:
         n = shape[0] if len(set(shape)) == 1 else 0
         for name, ins, ops, kern, plain in mode_calls(deltas, dtype == torch.float32):
             key = name.split("/")[0]
-            if n == 512 and key not in AT_512 and not key.startswith(
+            if n == 512 and key not in AT_512 + CHECK_512 and not key.startswith(
                     ("xfer.", "cgupd", "stencil7.jacobi", "stencil7.apply_dot",
                      "stencil7.pupd_dot")):
                 continue      # at 512^3, only the modes of the 512^3 paths
             if shape == (48, 40, 96) and not key.startswith("stencil7."):
                 continue      # the compact cases' shape: KA's epilogues, bf16 too
+            if (shape, length, dtype) in SMALL_CASES and not key.startswith(
+                    ("rbsor.", "xfer.restrict")):
+                continue      # KB's and K6's ragged and wrapped-halo cases
             got = kern(f)
             err = compare(f"{name} {shape} {dtype}", got, plain(f))
             torch.cuda.synchronize()
             st = stats[key]
             st["max_abs_err"] = max(st["max_abs_err"], err)
-            # a sweep mode's row takes the rev=False sweep; K11's single
-            # colour update is timed and printed beside it
-            record = "/" not in name or name.endswith("rev=False")
-            timed = record or name.endswith("colour=0")
+            # a sweep mode's row takes the rev=False sweep, K11's the
+            # colour-0 update
+            record = "/" not in name or name.endswith(("rev=False", "colour=0"))
+            timed = record and not (n == 512 and key in CHECK_512)
             if n in (256, 512) and timed:
                 ms, plain_ms = median_ms(lambda: kern(f)), median_ms(lambda: plain(f))
                 bd = bound(sum(f[k].nbytes for k in ins) + out_bytes(got),
@@ -722,6 +758,8 @@ def run_path(label, cases, required, totals, demo=False, runner=None):
     idle = [k for k in required if launches[k] == 0]
     if idle:
         raise AssertionError(f"path {label}: kernels never launched: {idle}")
+    if launches["rbsor.general"] or launches["rbsor.general.bf16"]:
+        raise AssertionError(f"path {label}: a red-black sweep took two launches")
     print(f"  launches: { {k: v for k, v in launches.items() if v} }", flush=True)
     for k, v in launches.items():
         totals[k] += v
@@ -931,6 +969,96 @@ def lapl_pairs(smi, n: int = 512) -> None:
               + f"; K17 faster in {wins} of 7 ({smi})", flush=True)
         del f
         torch.cuda.empty_cache()
+
+
+def sweep_pairs(smi) -> None:
+    """KB's one-launch general sweep against the same sweep as two K11
+    colour updates, at 256^3 f32 and 512^3 bf16: equal outputs, then seven
+    pairs in turns, each call's device time between CUDA events (the mean
+    of 10 back-to-back calls)."""
+    for n, dtype in ((256, torch.float32), (512, BF16)):
+        g = torch.Generator(device=DEVICE).manual_seed(n + 17)
+        u, b = ((torch.rand((n,) * 3, generator=g, device=DEVICE) * 2 - 0.75).to(dtype)
+                for _ in range(2))
+        d = Grid3D((n,) * 3, device=DEVICE).deltas
+        fns = {"one-pass sweep": lambda: sc.sor_rb_sweep_cuda(u, b, d, W),
+               "two K11 launches": lambda: sc.sor_sweep_cuda(
+                   sc.sor_sweep_cuda(u, b, d, W, 0), b, d, W, 1)}
+        if not torch.equal(fns["one-pass sweep"](), fns["two K11 launches"]()):
+            raise AssertionError(f"sweep {n}^3 {dtype}: one pass differs from two K11 launches")
+        ts = {k: [] for k in fns}
+        for _ in range(7):
+            for k, fn in fns.items():
+                ts[k].append(loop_ms(fn, reps=10))
+        wins = sum(x < y for x, y in zip(ts["one-pass sweep"], ts["two K11 launches"]))
+        print(f"  general sweep {n}^3 {str(dtype).replace('torch.', '')}, equal outputs; "
+              "median [min, max] of 7 in turns "
+              + ", ".join(f"{k} {statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}] ms"
+                          for k, v in ts.items())
+              + f"; one pass faster in {wins} of 7 ({smi})", flush=True)
+        del u, b
+        torch.cuda.empty_cache()
+
+
+def log_view_demo(smi) -> None:
+    """The demo with -log_view on the card, outside any counted path: the
+    table's event lines must be there."""
+    from poissbox_tpu_torch import demo as demo_mod
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rel = demo_mod.run(Options(["-n", "64", "-device", DEVICE, "-log_view",
+                                    "-options_error_if_unused"]))
+    lines = [ln for ln in buf.getvalue().splitlines() if ln.startswith("log_view:")]
+    names = [ln.split()[1] for ln in lines[1:]]
+    if names != ["MatMult", "PCApply", "other", "setup", "solve"] or not rel <= 1e-5:
+        raise AssertionError(f"demo -log_view: events {names}, relative residual {rel:.3e}")
+    for ln in lines:
+        print(f"  {ln}")
+    print(f"  demo -n 64 -log_view: relative residual {rel:.3e} ({smi})", flush=True)
+
+
+# kernel name -> group of the device-time breakdown (first match wins)
+GROUPS = (("KB", ("sweep_kernel", "colour_kernel")), ("K6", ("restrict_kernel",)),
+          ("K7", ("prolong_add_kernel",)), ("KA", ("stencil7_kernel",)),
+          ("K8", ("cgupd",)), ("contractions", ("gemm", "cutlass", "xmma", "sm90")))
+
+
+def profile_solve(label, solver, b, smi) -> None:
+    """One warm solve under torch.profiler: device time by group (the
+    rest is torch's elementwise and reduction kernels), the kernel count,
+    the wall of the profiled solve and the busy share: device time over
+    the median wall of three unprofiled warm solves (the profiled wall
+    carries the profiler's own host cost)."""
+    solver.solve(b)
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solver.solve(b)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    warm = statistics.median(walls)
+    with profiling.trace() as prof:
+        t0 = time.perf_counter()
+        solver.solve(b)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    times = profiling.device_times(prof)
+    if not times:
+        print(f"  profile {label}: the profiler saw no device time", flush=True)
+        return
+    groups = {name: 0.0 for name, _ in GROUPS}
+    groups["elementwise and other"] = 0.0
+    for kname, (_, us) in times.items():
+        grp = next((name for name, keys in GROUPS if any(k in kname for k in keys)),
+                   "elementwise and other")
+        groups[grp] += us / 1e3
+    dev = sum(groups.values())
+    count = sum(c for c, _ in times.values())
+    print(f"  profile {label}: {count} kernels, {dev:.2f} ms device; unprofiled warm "
+          f"wall {warm:.2f} ms (busy {100 * dev / warm:.1f} %), profiled wall "
+          f"{wall:.2f} ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()) + f" ms ({smi})", flush=True)
 
 
 def fft_case(order: int, n: int, dtype, smi) -> None:
@@ -1301,6 +1429,9 @@ def main() -> int:
     phase("kernels against plain versions")
     stats = check_kernels()
 
+    phase("the one-pass sweep against two K11 launches")
+    sweep_pairs(smi)
+
     phase("banded-matrix transfers against the roll form")
     check_contractions()
 
@@ -1316,7 +1447,7 @@ def main() -> int:
     cases_b = [(512, f32, 1e-6, [], 7)]
     cases_br = [(512, f32, 1e-6, roll, 7)]
     cases_c = [(256, f32, 1e-6, ["-mg_levels_pc_type", "jacobi"], None)]
-    base = ["stencil7.apply", "stencil7.apply_dot", "rbsor.general"]
+    base = ["stencil7.apply", "stencil7.apply_dot", "rbsor.sweep"]
     runs_a = run_path("(a) fused legs, 64^3 f64 + 256^3 f32 + demo", cases_a,
                       base + ["rbsor.zero", "rbsor.zero_update", "rbsor.dots",
                               "xfer.restrict", "xfer.prolong_add"],
@@ -1324,17 +1455,19 @@ def main() -> int:
     runs_ar = run_path("(a/r) roll transfers through the kernels", cases_ar,
                        base + ["stencil7.residual", "rbsor.zero_update"], totals)
     compare_paths(runs_a, cases_a, smi, runs_ar)
+    profile_solve("(a) 256^3 f32", *runs_a[1][:2], smi)
     del runs_a, runs_ar
+    log_view_demo(smi)
     torch.cuda.empty_cache()
     runs_b = run_path("(b) 512^3 f32, bf16 pre-smooth", cases_b,
-                      base + ["rbsor.zero_update", "rbsor.general.narrow",
-                              "rbsor.zero.bf16", "rbsor.general.bf16",
+                      base + ["rbsor.zero_update.narrow", "rbsor.zero.bf16",
                               "rbsor.dots", "xfer.restrict.bf16u",
                               "xfer.prolong_add.bf16u"], totals)
     runs_br = run_path("(b/r) 512^3 f32, roll transfers", cases_br,
                        base + ["cgupd", "stencil7.residual",
-                               "rbsor.zero.bf16", "rbsor.general.bf16"], totals)
+                               "rbsor.zero.bf16"], totals)
     compare_paths(runs_b, cases_b, smi, runs_br)
+    profile_solve("(b) 512^3 f32", *runs_b[0][:2], smi)
     del runs_b, runs_br
     torch.cuda.empty_cache()
     runs_c = run_path("(c) 256^3 f32, Jacobi smoother", cases_c,
@@ -1342,11 +1475,14 @@ def main() -> int:
                        "cgupd", "xfer.restrict", "xfer.prolong_add"], totals)
     compare_paths(runs_c, cases_c, smi)
     del runs_c
-    run_path("(b/s) 512^3 f32, bf16 pre-smooths of Chebyshev and two-sweep "
-             "Jacobi", [(512, f32, 1e-6, ["-mg_levels_ksp_type", "chebyshev"], None),
-                        (512, f32, 1e-6, ["-mg_levels_pc_type", "jacobi",
-                                          "-mg_levels_ksp_max_it", "2"], None)],
-             ["stencil7.residual.bf16", "stencil7.jacobi.bf16"], totals)
+    run_path("(b/s) 512^3 f32, bf16 pre-smooths of Chebyshev, two-sweep "
+             "Jacobi and two-sweep SOR",
+             [(512, f32, 1e-6, ["-mg_levels_ksp_type", "chebyshev"], None),
+              (512, f32, 1e-6, ["-mg_levels_pc_type", "jacobi",
+                                "-mg_levels_ksp_max_it", "2"], None),
+              (512, f32, 1e-6, ["-mg_levels_ksp_max_it", "2"], None)],
+             ["stencil7.residual.bf16", "stencil7.jacobi.bf16", "rbsor.zero.bf16",
+              "rbsor.sweep.bf16"], totals)
     torch.cuda.empty_cache()
 
     err32 = f32_operator_error(256)
@@ -1356,7 +1492,7 @@ def main() -> int:
     cases_d = [(64, f64, 1e-8, mgcg), (256, f32, 1e-3, mgcg)]
     lapl_keys = list(LAPL_KEYS)
     runs_d = run_path("(d) order 6, CG + GMG", cases_d,
-                      lapl_keys + ["rbsor.general", "xfer.restrict", "xfer.prolong_add"],
+                      lapl_keys + ["rbsor.sweep", "xfer.restrict", "xfer.prolong_add"],
                       totals, runner=solve6_case)
     compare6(runs_d, cases_d, smi)
     del runs_d
@@ -1384,7 +1520,7 @@ def main() -> int:
     cases_g = [(64, f64, 1e-8, gm, 6), (512, f32, 1e-6, gm, None)]
     runs_g = run_path("(g) GMRES(30) + MG, 64^3 f64 + 512^3 f32, -pc_type none, "
                       "demo", cases_g,
-                      ["stencil7.apply", "rbsor.zero", "rbsor.general",
+                      ["stencil7.apply", "rbsor.zero", "rbsor.sweep",
                        "xfer.restrict", "xfer.prolong_add"], totals,
                       demo=gm + ["-pc_type", "mg"])
     b512 = runs_g[1][1]
@@ -1404,7 +1540,7 @@ def main() -> int:
                (256, f32, 1e-6, ["-ksp_type", "richardson"], None)]
     runs_h = run_path("(h) PIPECG + MG (64^3 f64, 256^3 f32), Richardson + MG "
                       "(256^3 f32)", cases_h,
-                      ["stencil7.apply", "rbsor.zero", "rbsor.general",
+                      ["stencil7.apply", "rbsor.zero", "rbsor.sweep",
                        "xfer.restrict", "xfer.prolong_add"], totals)
     compare_paths(runs_h, cases_h, smi)
     del runs_h
@@ -1420,7 +1556,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     run_path("(j) solve_refined: 512^3 beside f64 MG-CG, 128^3 against the plain "
              "path", [(512, smi, False), (128, smi, True)],
-             ["stencil7.apply", "rbsor.zero_update", "rbsor.general.narrow",
+             ["stencil7.apply", "rbsor.zero_update", "rbsor.zero_update.narrow",
               "xfer.restrict"], totals, runner=refine_case)
     torch.cuda.empty_cache()
     run_path("(k) solve_checkpointed, 256^3 f32, every 2", [(256, smi)],
@@ -1429,12 +1565,12 @@ def main() -> int:
     cases_l = [(64, f64, 1e-8, mgcg), (256, f32, 1e-3, mgcg), (96, f32, 1e-3, mgcg)]
     runs_l = run_path("(l) order 6 through K17 (method=pallas), CG + GMG", cases_l,
                       ["tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
-                       "rbsor.general", "xfer.restrict"], totals, runner=solve6_thomas_case)
+                       "rbsor.sweep", "xfer.restrict"], totals, runner=solve6_thomas_case)
     compare6_thomas(runs_l, cases_l, smi)
     del runs_l
     torch.cuda.empty_cache()
     lapl_pairs(smi)
-    idle = [k for k in KERNELS if totals[k] == 0]
+    idle = [k for k in KERNELS if totals[k] == 0 and k not in OFF_PATH]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")
     print(f"  chip_smoke wall so far {time.perf_counter() - t_start:.1f} s")

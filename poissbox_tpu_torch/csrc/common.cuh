@@ -1,9 +1,10 @@
 // Shared launch geometry and block reductions for the Hopper stencil kernels.
 //
-// Every kernel runs one thread per grid point on a 3-D launch grid:
+// The point kernels run one thread per grid point on a 3-D launch grid:
 // blockIdx.z is the x plane, a block of kBX x kBY threads covers a
 // (y, z) tile, and z (the contiguous axis of the C-order field) is the
-// fastest thread index, so a warp reads 32 consecutive z values.
+// fastest thread index, so a warp reads 32 consecutive z values. The
+// streaming kernels (below kTZ) walk a chunk of x planes per block.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -61,6 +62,72 @@ inline dim3 launch_block() { return dim3(kBX, kBY, 1); }
 __device__ __forceinline__ int wrap_m(int i, int n) { return i == 0 ? n - 1 : i - 1; }
 __device__ __forceinline__ int wrap_p(int i, int n) { return i == n - 1 ? 0 : i + 1; }
 
+// i mod n in [0, n) for any i, so that a halo wider than the extent (a
+// 2-cell halo on a 2-, 3- or 4-cell axis) wraps as often as it must.
+__device__ __forceinline__ int pmod(int i, int n) {
+  const int r = i % n;
+  return r < 0 ? r + n : r;
+}
+
+// The streaming kernels (rbsor.cu's sweep, xfer.cu's restriction): a block
+// of kTZ x kTileRows threads owns a kTZ x kTY (y, z) tile, z fastest (in the
+// restriction a warp is one row of 32 z values and a thread owns rows ty
+// and ty + kTileRows; in the sweep a thread owns a z-adjacent pair),
+// and walks a chunk of x planes, staging each plane's tile with a periodic
+// halo in shared memory. A thread issues the loads of the next plane into
+// registers right after the step's barrier, so they are in flight while it
+// computes.
+constexpr int kTZ = 32;
+constexpr int kTY = 16;
+constexpr int kTileRows = 8;
+constexpr int kRowsPerThread = kTY / kTileRows;
+constexpr int kTileThreads = kTZ * kTileRows;
+constexpr int kTileWarps = kTileThreads / 32;
+// the fewest blocks a streaming launch aims for (about 15 per SM on 132
+// SMs): the chunk of x planes a block walks shrinks, down to 4, until the
+// grid has this many
+constexpr long kMinBlocks = 2048;
+
+inline dim3 tile_block() { return dim3(kTZ, kTileRows, 1); }
+
+inline int tiles(int ny, int nz) { return ((nz + kTZ - 1) / kTZ) * ((ny + kTY - 1) / kTY); }
+
+// x planes a block walks: `start` halved while the grid would have fewer
+// than kMinBlocks blocks, but not below 4.
+inline int tile_chunk(int nx, int ny, int nz, int start) {
+  int c = start;
+  while (c > 4 && (long)tiles(ny, nz) * ((nx + c - 1) / c) < kMinBlocks) c /= 2;
+  return c;
+}
+
+inline dim3 tile_grid(int nx, int ny, int nz, int chunk) {
+  return dim3((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY, (nx + chunk - 1) / chunk);
+}
+
+// The (y, z) window of the tile at (j0, k0) with an H-cell periodic halo:
+// (kTY + 2H) x (kTZ + 2H) cells, row-major, z fastest. Thread `tid` stages
+// cells tid + r * kTileThreads (r < kR, those below kN): `off` holds their
+// offsets in a plane, from wrapped global indices.
+template <int H>
+struct TileWindow {
+  static constexpr int kZ = kTZ + 2 * H;
+  static constexpr int kY = kTY + 2 * H;
+  static constexpr int kN = kZ * kY;
+  static constexpr int kR = (kN + kTileThreads - 1) / kTileThreads;
+  int off[kR];
+  __device__ __forceinline__ TileWindow(int j0, int k0, int ny, int nz, int tid) {
+#pragma unroll
+    for (int r = 0; r < kR; ++r) {
+      const int e = tid + r * kTileThreads;
+      const int j = pmod(j0 - H + e / kZ, ny), k = pmod(k0 - H + e % kZ, nz);
+      off[r] = j * nz + k;
+    }
+  }
+  __device__ __forceinline__ static bool has(int r, int tid) {
+    return tid + r * kTileThreads < kN;
+  }
+};
+
 // The point this thread owns, with the offsets of its six periodic
 // neighbours. `active` is false for threads past the ragged (y, z) edge.
 struct Point {
@@ -100,11 +167,11 @@ __device__ __forceinline__ T warp_sum(T v) {
 // pb (pb may be null). Accumulation is in the working dtype T, as the
 // JAX kernels' per-block jnp.sum is; the caller sums the partials with
 // torch.sum, so no atomics and the result is the same from run to run.
-// Every thread of the block must call this.
-template <typename T>
+// Every thread of the block (NWARPS warps, 32 threads a row) must call this.
+template <typename T, int NWARPS = kWarps>
 __device__ __forceinline__ void block_partials(T a, T b, T* pa, T* pb) {
-  __shared__ T sa[kWarps];
-  __shared__ T sb[kWarps];
+  __shared__ T sa[NWARPS];
+  __shared__ T sb[NWARPS];
   const int tid = threadIdx.x + kBX * threadIdx.y;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -116,8 +183,8 @@ __device__ __forceinline__ void block_partials(T a, T b, T* pa, T* pb) {
   }
   __syncthreads();
   if (warp == 0) {
-    a = lane < kWarps ? sa[lane] : T(0);
-    b = lane < kWarps ? sb[lane] : T(0);
+    a = lane < NWARPS ? sa[lane] : T(0);
+    b = lane < NWARPS ? sb[lane] : T(0);
     a = warp_sum(a);
     b = warp_sum(b);
     if (lane == 0) {

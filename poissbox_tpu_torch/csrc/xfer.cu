@@ -23,69 +23,139 @@
 // ops/transfer_cuda.py do.
 //
 // Bound on an H100 SXM (3.35 TB/s): restrict reads u and b and writes
-// half a field, 2.5 field passes (0.050 ms at 256^3 f32; with a bf16 u at
-// 512^3, 2.0 passes = 0.321 ms); prolong_add reads u and half a field and
-// writes a field, also 2.5 passes. Design: one thread per output point,
-// the launch geometry of common.cuh. A restrict thread recomputes the four
-// fine residuals it needs, each with its own six neighbours, so the two
-// residuals shared with the next coarse plane are computed twice: double
-// the flops, not the HBM bytes (the neighbour planes come through L2).
-// Streaming planes through shared memory is the later optimisation.
+// half a field, 2.5 field passes (0.050 ms at 256^3 f32, 0.401 ms at 512^3;
+// with a bf16 u at 512^3, 2.0 passes = 0.321 ms); prolong_add reads u and
+// half a field and writes a field, also 2.5 passes.
+//
+// Design of restrict (restrict_kernel): each fine residual b - A u is
+// computed once. A block of 256 threads owns a 32 x 16 (y, z) tile, z
+// fastest, two rows a thread, and walks a chunk of coarse planes I
+// (tile_chunk: 16 at 512^3, 8 at 256^3). A ring of four u planes, each the
+// tile with a 1-cell periodic (y, z) halo, sits in shared memory (u upcast
+// as it is staged); one barrier a fine plane suffices, since the plane
+// staged next never overwrites one still read, and the next plane's loads
+// are issued into registers right after it. Each coarse plane takes two new
+// fine residuals, 2I+1 and 2I+2; 2I-1 and 2I stay in registers from the
+// plane before. b is read once, by the thread that owns the point; the u
+// halo cells of neighbouring tiles come from L2. On an NVIDIA H100 80GB HBM3
+// at 700.00 W (chip_smoke.py): 0.088 ms at 256^3 f32 (57 % of the
+// bound), 0.600 at 512^3 (67 %), 0.536 with a bf16 u (60 %). prolong_add
+// keeps one thread per fine point, the launch geometry of common.cuh.
 #include "common.cuh"
 
 namespace poissbox {
 
 enum XferMode { kRestrict = 0, kProlongAdd = 1 };
 
-// b - A u at the fine point (i, j, k), u read through its own type.
-template <typename TU, typename T, bool ISO>
-__device__ __forceinline__ T fine_residual(const TU* __restrict__ u, const T* __restrict__ b,
-                                           int i, int j, int k, int nx, int ny, int nz, T ivx,
-                                           T ivy, T ivz, T center, T six_iv) {
-  const size_t plane = (size_t)ny * nz;
-  const size_t base = (size_t)i * plane;
-  const size_t row = (size_t)j * nz;
-  const size_t p = base + row + k;
-  const T c = cvt<T>(u[p]);
-  const T xm = cvt<T>(u[(size_t)wrap_m(i, nx) * plane + row + k]);
-  const T xp = cvt<T>(u[(size_t)wrap_p(i, nx) * plane + row + k]);
-  const T ym = cvt<T>(u[base + (size_t)wrap_m(j, ny) * nz + k]);
-  const T yp = cvt<T>(u[base + (size_t)wrap_p(j, ny) * nz + k]);
-  const T zm = cvt<T>(u[base + row + wrap_m(k, nz)]);
-  const T zp = cvt<T>(u[base + row + wrap_p(k, nz)]);
-  T star;
-  if (ISO) {
-    const T s = ((xm + xp) + (ym + yp)) + (zm + zp);
-    star = s * ivx - six_iv * c;
-  } else {
-    T s = (xm + xp) * ivx;
-    s = s + (ym + yp) * ivy;
-    s = s + (zm + zp) * ivz;
-    star = s - center * c;
-  }
-  return b[p] - star;
-}
+// The coarse planes a restriction block walks.
+inline int restrict_chunk(int nx, int ny, int nz) { return tile_chunk(nx / 2, ny, nz, 16); }
 
-// One thread per coarse point (I, j, k) of the (nx/2, ny, nz) output.
+// rc = R_x(b - A u) over the (nx/2, ny, nz) output (see the header).
 template <typename TU, typename T, bool ISO>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, 4)
 restrict_kernel(const TU* __restrict__ u, const T* __restrict__ b, T* __restrict__ out, int nx,
-                int ny, int nz, T ivx, T ivy, T ivz, T center, T six_iv) {
-  const int k = blockIdx.x * kBX + threadIdx.x;
-  const int j = blockIdx.y * kBY + threadIdx.y;
-  const int I = blockIdx.z;
-  if (k >= nz || j >= ny) return;
-  const int i0 = 2 * I;
-  const T r_even = fine_residual<TU, T, ISO>(u, b, i0, j, k, nx, ny, nz, ivx, ivy, ivz, center,
-                                             six_iv);
-  const T r_odd = fine_residual<TU, T, ISO>(u, b, i0 + 1, j, k, nx, ny, nz, ivx, ivy, ivz,
-                                            center, six_iv);
-  const T r_up = fine_residual<TU, T, ISO>(u, b, wrap_p(i0 + 1, nx), j, k, nx, ny, nz, ivx, ivy,
-                                           ivz, center, six_iv);
-  const T r_dn = fine_residual<TU, T, ISO>(u, b, wrap_m(i0, nx), j, k, nx, ny, nz, ivx, ivy,
-                                           ivz, center, six_iv);
-  out[(size_t)I * ny * nz + (size_t)j * nz + k] =
-      ((T(3) * (r_even + r_odd) + r_up) + r_dn) * T(0.125);
+                int ny, int nz, int chunk, T ivx, T ivy, T ivz, T center, T six_iv) {
+  using UW = TileWindow<1>;
+  __shared__ T us[4][UW::kN];
+  const int tid = threadIdx.x + kTZ * threadIdx.y;
+  const int j0 = blockIdx.y * kTY, k0 = blockIdx.x * kTZ;
+  const int I0 = blockIdx.z * chunk;
+  const int m = min(chunk, nx / 2 - I0);
+  const size_t plane = (size_t)ny * nz;
+  const UW uw(j0, k0, ny, nz, tid);
+  const int kk = k0 + threadIdx.x;
+  bool own[kRowsPerThread];
+  size_t ooff[kRowsPerThread];
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; ++h) {
+    const int j = j0 + threadIdx.y + h * kTileRows;
+    own[h] = j < ny && kk < nz;
+    ooff[h] = (size_t)j * nz + kk;
+  }
+  const int f0 = 2 * I0 - 1;  // the first fine plane whose residual the block needs
+  // ring slot of fine plane q (q >= f0 - 1)
+  auto slot = [f0](int q) { return (q - f0 + 1) & 3; };
+  // the wrapped index of the plane after wrapped index q: plane indices
+  // advance one a step, so `%` is taken only before the loop
+  auto next = [nx](int q) { return q + 1 == nx ? 0 : q + 1; };
+
+  // the register stage: u plane i+1 and b at the points owned in plane i
+  // of the next step (i = f0 + t); q is the wrapped index of plane i
+  TU ur[UW::kR];
+  T br[kRowsPerThread];
+  auto stage = [&](int q) {
+    const TU* src = u + (size_t)next(q) * plane;
+#pragma unroll
+    for (int rr = 0; rr < UW::kR; ++rr)
+      if (UW::has(rr, tid)) ur[rr] = src[uw.off[rr]];
+    const T* bsrc = b + (size_t)q * plane;
+#pragma unroll
+    for (int h = 0; h < kRowsPerThread; ++h)
+      if (own[h]) br[h] = bsrc[ooff[h]];
+  };
+  int sq = pmod(f0, nx);  // the wrapped plane i of the next stage
+  // r[2I-1], r[2I], r[2I+1] of each row owned
+  T r_dn[kRowsPerThread], r_even[kRowsPerThread], r_odd[kRowsPerThread];
+  for (int q = f0 - 1; q <= f0; ++q) {
+    const TU* src = u + (size_t)pmod(q, nx) * plane;
+#pragma unroll
+    for (int rr = 0; rr < UW::kR; ++rr)
+      if (UW::has(rr, tid)) us[slot(q)][tid + rr * kTileThreads] = cvt<T>(src[uw.off[rr]]);
+  }
+  stage(sq);
+  sq = next(sq);
+  // Step t (fine plane i = f0 + t): store the staged u plane i+1, one
+  // barrier, stage the planes of step t + 1, take the residual at plane i.
+  // One barrier suffices: a thread still in step t-1 reads u planes
+  // i-2..i, none in the slot step t writes.
+  for (int t = 0; t <= 2 * m + 1; ++t) {
+    const int i = f0 + t;
+#pragma unroll
+    for (int rr = 0; rr < UW::kR; ++rr)
+      if (UW::has(rr, tid)) us[slot(i + 1)][tid + rr * kTileThreads] = cvt<T>(ur[rr]);
+    T bv[kRowsPerThread];
+#pragma unroll
+    for (int h = 0; h < kRowsPerThread; ++h) bv[h] = br[h];
+    __syncthreads();
+    if (t <= 2 * m) stage(sq);
+    sq = next(sq);
+    const T* u0 = us[slot(i)];
+    const T* um = us[slot(i - 1)];
+    const T* up = us[slot(i + 1)];
+#pragma unroll
+    for (int h = 0; h < kRowsPerThread; ++h) {
+      if (!own[h]) continue;
+      const int oc = (threadIdx.y + h * kTileRows + 1) * UW::kZ + threadIdx.x + 1;
+      const T c = u0[oc];
+      const T xm = um[oc], xp = up[oc];
+      const T ym = u0[oc - UW::kZ], yp = u0[oc + UW::kZ];
+      const T zm = u0[oc - 1], zp = u0[oc + 1];
+      T star;
+      if (ISO) {
+        const T s = ((xm + xp) + (ym + yp)) + (zm + zp);
+        star = s * ivx - six_iv * c;
+      } else {
+        T s = (xm + xp) * ivx;
+        s = s + (ym + yp) * ivy;
+        s = s + (zm + zp) * ivz;
+        star = s - center * c;
+      }
+      const T res = bv[h] - star;  // the residual at fine plane i
+      if (t == 0) {
+        r_dn[h] = res;
+      } else if (t == 1) {
+        r_even[h] = res;
+      } else if (t & 1) {  // i = 2I + 2: coarse plane I is complete
+        const int I = I0 + (t - 3) / 2;
+        out[(size_t)I * plane + ooff[h]] =
+            ((T(3) * (r_even[h] + r_odd[h]) + res) + r_dn[h]) * T(0.125);
+        r_dn[h] = r_odd[h];
+        r_even[h] = res;
+      } else {
+        r_odd[h] = res;
+      }
+    }
+  }
 }
 
 // One thread per fine point (i, j, k) of the (nx, ny, nz) output.
@@ -115,13 +185,16 @@ cudaError_t launch_xfer(int mode, int iso, cudaStream_t s, const void* u, const 
   const T* bb = static_cast<const T*>(be);
   T* oo = static_cast<T*>(out);
   if (mode == kRestrict) {
-    const dim3 grid = launch_grid(nx / 2, ny, nz);
+    const int chunk = restrict_chunk(nx, ny, nz);
+    const dim3 grid = tile_grid(nx / 2, ny, nz, chunk);
     if (iso)
-      restrict_kernel<TU, T, true><<<grid, launch_block(), 0, s>>>(
-          uu, bb, oo, nx, ny, nz, T(k.ivx), T(k.ivy), T(k.ivz), T(k.center), T(k.six_iv));
+      restrict_kernel<TU, T, true><<<grid, tile_block(), 0, s>>>(
+          uu, bb, oo, nx, ny, nz, chunk, T(k.ivx), T(k.ivy), T(k.ivz), T(k.center),
+          T(k.six_iv));
     else
-      restrict_kernel<TU, T, false><<<grid, launch_block(), 0, s>>>(
-          uu, bb, oo, nx, ny, nz, T(k.ivx), T(k.ivy), T(k.ivz), T(k.center), T(k.six_iv));
+      restrict_kernel<TU, T, false><<<grid, tile_block(), 0, s>>>(
+          uu, bb, oo, nx, ny, nz, chunk, T(k.ivx), T(k.ivy), T(k.ivz), T(k.center),
+          T(k.six_iv));
   } else if (mode == kProlongAdd) {
     prolong_add_kernel<TU, T><<<launch_grid(nx, ny, nz), launch_block(), 0, s>>>(uu, bb, oo, nx,
                                                                                ny, nz);

@@ -122,9 +122,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_stencil7.restype = i
     lib.poissbox_pupd_dot.argtypes = [i, i] + [p] * 7 + [i, i, i] + [d] * 4
     lib.poissbox_pupd_dot.restype = i
-    lib.poissbox_rbsor.argtypes = ([i, i, i, i, i, p] + [p] * 9 + [i, i, i]
-                                   + [d] * 6 + [i])
-    lib.poissbox_rbsor.restype = i
+    lib.poissbox_rbsor_sweep.argtypes = ([i, i, i, i, i, p] + [p] * 9 + [i, i, i]
+                                         + [d] * 6 + [i])
+    lib.poissbox_rbsor_sweep.restype = i
+    lib.poissbox_rbsor_sweep_blocks.argtypes = [i, i, i]
+    lib.poissbox_rbsor_sweep_blocks.restype = i
+    lib.poissbox_rbsor_colour.argtypes = [i, i, i, p, p, p, p, i, i, i] + [d] * 6 + [i]
+    lib.poissbox_rbsor_colour.restype = i
     lib.poissbox_xfer.argtypes = [i, i, i, i, i, p, p, p, p, i, i, i] + [d] * 5
     lib.poissbox_xfer.restype = i
     lib.poissbox_cgupd_blocks.argtypes = [ll, i]

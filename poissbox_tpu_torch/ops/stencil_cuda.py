@@ -25,8 +25,9 @@ The port of :mod:`poissbox_tpu.ops.stencil_pallas` for the kernels of the
   cg_fused_update_cuda        cg_fused_update                         K8
   ==========================  ======================================  ======
 
-K11, one colour update, is KB's general mode; a sweep is two of them
-(``sor_rb_sweep_cuda`` goes through ``sor_sweep_cuda``). K1'/K2', the
+K11, one colour update, is KB's colour kernel; a sweep (K3, K4, K5) is
+ONE launch of KB's sweep kernel, which recomputes the first colour on a
+halo of its tile instead of storing it (``csrc/rbsor.cu``). K1'/K2', the
 TPU's streamed matvec for fields of 256 MB and more, is KA's apply and
 apply_dot out of place.
 
@@ -38,24 +39,28 @@ the Pallas formula and its grouping (not the roll path's). A tensor on the
 CPU takes the plain version; a CUDA tensor launches the kernel or raises.
 There is no fallback from a failed build or launch to the plain version.
 
-bf16: the SOR colour updates take bfloat16 fields (the bf16 pre-smooth of
-the 512^3-class cycle), and K5 can store its swept iterate narrow
-(``out_dtype``); so do the residual (K9) and the Jacobi sweep (K10), which
-the Chebyshev and multi-sweep Jacobi pre-smooths reach. A bf16 value is
-upcast to float32, each colour update (or residual, or Jacobi sweep) runs
-in float32 and rounds once where the kernel stores it; the plain versions
-round at the same stores. This is the port's definition of the
+bf16: the SOR colour update and sweeps take bfloat16 fields (the bf16
+pre-smooth of the 512^3-class cycle), and K5 can store its swept iterate
+narrow (``out_dtype``); so do the residual (K9) and the Jacobi sweep
+(K10), which the Chebyshev and multi-sweep Jacobi pre-smooths reach. A
+bf16 value is upcast to float32, each colour update (or residual, or
+Jacobi sweep) runs in float32 and rounds once where the two-launch sweep
+stored it (the sweep kernel rounds its first colour to the input dtype
+before the second reads it); the plain versions round at the same stores.
+This is the port's definition of the
 bf16 result (the Pallas kernels compute in bf16 throughout). :data:`DTYPES`
 says which mode takes which input dtype.
 
 :data:`LAUNCHES` counts kernel launches by kernel and mode (``stencil7.*``
-for the star's epilogues and K12's prologue, ``rbsor.*`` for the colour update's modes,
-``xfer.*`` for the transfer legs, ``cgupd`` for K8, ``compact.x|y|z``
-for K15's line kernel by axis (ops/compact_pcr.py) and ``tridiag.*`` for
-K13/K14/K16 and K17's four modes (ops/tridiag_cuda.py); ``.bf16`` marks a
-bf16 launch, ``.narrow`` K5's f32-in, bf16-out second colour and
-``.bf16u`` a transfer leg reading a bf16 iterate); a wrapper adds one
-where it launches, so a run can show which kernels its path went through.
+for the star's epilogues and K12's prologue, ``rbsor.general`` for K11's
+colour update, ``rbsor.zero``/``sweep``/``dots``/``zero_update`` for KB's
+sweeps (one launch a sweep: K3, K4, K4 with dots, K5), ``xfer.*`` for the
+transfer legs, ``cgupd`` for K8, ``compact.x|y|z`` for K15's line kernel
+by axis (ops/compact_pcr.py) and ``tridiag.*`` for K13/K14/K16 and K17's
+four modes (ops/tridiag_cuda.py); ``.bf16`` marks a bf16 launch,
+``.narrow`` K5 storing its swept iterate in bf16 and ``.bf16u`` a transfer
+leg reading a bf16 iterate); a wrapper adds one where it launches, so a
+run can show which kernels its path went through.
 Reductions come back as per-block partials that the wrapper sums with
 ``torch.sum``, as the JAX wrappers sum theirs.
 """
@@ -73,8 +78,9 @@ LAUNCHES: dict[str, int] = {k: 0 for k in (
     "stencil7.apply", "stencil7.apply_dot", "stencil7.pupd_dot",
     "stencil7.residual", "stencil7.jacobi", "stencil7.residual.bf16",
     "stencil7.jacobi.bf16",
-    "rbsor.zero", "rbsor.general", "rbsor.zero_update", "rbsor.dots",
-    "rbsor.zero.bf16", "rbsor.general.bf16", "rbsor.general.narrow",
+    "rbsor.general", "rbsor.general.bf16",
+    "rbsor.zero", "rbsor.zero.bf16", "rbsor.sweep", "rbsor.sweep.bf16",
+    "rbsor.dots", "rbsor.zero_update", "rbsor.zero_update.narrow",
     "xfer.restrict", "xfer.restrict.bf16u",
     "xfer.prolong_add", "xfer.prolong_add.bf16u",
     "cgupd",
@@ -84,8 +90,9 @@ LAUNCHES: dict[str, int] = {k: 0 for k in (
 
 _EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2,
         "stencil7.jacobi": 3}
-_MODE = {"rbsor.zero": 0, "rbsor.general": 1, "rbsor.zero_update": 2,
-         "rbsor.dots": 3}
+# KB's sweep modes (csrc/rbsor.cu SweepMode)
+_SWEEP = {"rbsor.sweep": 0, "rbsor.dots": 1, "rbsor.zero": 2,
+          "rbsor.zero_update": 3}
 # dtype codes of the C interface (csrc/common.cuh DType)
 DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
@@ -97,8 +104,9 @@ DTYPES: dict[str, tuple] = {
     "stencil7.apply": _WIDE, "stencil7.apply_dot": _WIDE,
     "stencil7.pupd_dot": _WIDE,
     "stencil7.residual": _WIDE_OR_BF16, "stencil7.jacobi": _WIDE_OR_BF16,
-    "rbsor.zero": _WIDE_OR_BF16, "rbsor.general": _WIDE_OR_BF16,
-    "rbsor.zero_update": _WIDE, "rbsor.dots": _WIDE,
+    "rbsor.general": _WIDE_OR_BF16, "rbsor.zero": _WIDE_OR_BF16,
+    "rbsor.sweep": _WIDE_OR_BF16, "rbsor.zero_update": _WIDE,
+    "rbsor.dots": _WIDE,
     "xfer.restrict": _WIDE_OR_BF16, "xfer.prolong_add": _WIDE_OR_BF16,
     "cgupd": _WIDE,
 }
@@ -347,21 +355,32 @@ def _stencil7(key: str, u, b, y, part, deltas, weight: float = 0.0) -> None:
     LAUNCHES[key] += 1
 
 
-def _rbsor(mode: str, like, colour: int, deltas, weight, *, x=None, b=None,
-           r=None, ap=None, alpha=None, out=None, bout=None, part0=None,
-           part1=None) -> None:
-    """One colour launch; `like` carries the input dtype, `out` the output
-    dtype."""
-    lib = _build.load()
+def _coefs(deltas, weight) -> tuple:
+    """(ivx, ivy, ivz, center, 6*ivx, winv) and iso, as KB takes them."""
     invs = _invs(deltas)
     ivx, ivy, ivz = invs
-    err = lib.poissbox_rbsor(
-        DTYPE_CODE[like.dtype], DTYPE_CODE[out.dtype], _MODE[mode],
-        int(ivx == ivy == ivz), like.device.index or 0, _stream(like),
-        _ptr(x), _ptr(b), _ptr(r), _ptr(ap), _ptr(alpha), _ptr(out),
-        _ptr(bout), _ptr(part0), _ptr(part1), *like.shape,
-        ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz), 6.0 * ivx,
-        _winv(invs, weight), colour)
+    return ((ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz), 6.0 * ivx,
+             _winv(invs, weight)), int(ivx == ivy == ivz))
+
+
+def _sweep(mode: str, like, out, reverse: bool, deltas, weight, *, x=None,
+           b=None, r=None, ap=None, alpha=None, bout=None,
+           sums: bool = False):
+    """One launch of KB's sweep kernel; `like` carries the input dtype,
+    `out` the output dtype. With `sums`, returns the two reductions
+    (their per-block partials summed)."""
+    lib = _build.load()
+    part0 = part1 = None
+    if sums:
+        nblk = lib.poissbox_rbsor_sweep_blocks(*like.shape)
+        part0, part1 = (torch.empty(nblk, dtype=like.dtype, device=like.device)
+                        for _ in range(2))
+    coefs, iso = _coefs(deltas, weight)
+    err = lib.poissbox_rbsor_sweep(
+        DTYPE_CODE[like.dtype], DTYPE_CODE[out.dtype], _SWEEP[mode], iso,
+        like.device.index or 0, _stream(like), _ptr(x), _ptr(b), _ptr(r),
+        _ptr(ap), _ptr(alpha), _ptr(out), _ptr(bout), _ptr(part0),
+        _ptr(part1), *like.shape, *coefs, _colours(reverse)[0])
     key = mode
     if like.dtype == torch.bfloat16:
         key += ".bf16"
@@ -369,6 +388,9 @@ def _rbsor(mode: str, like, colour: int, deltas, weight, *, x=None, b=None,
         key += ".narrow"
     _raise_on(lib, err, key)
     LAUNCHES[key] += 1
+    if sums:
+        return torch.sum(part0), torch.sum(part1)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -450,23 +472,27 @@ def sor_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas, weight: float,
     if _on_cpu(u):
         return sor_sweep_plain(u, b, deltas, weight, color)
     _check("rbsor.general", u, b)
+    lib = _build.load()
     x = torch.empty_like(u)
-    _rbsor("rbsor.general", u, int(color), deltas, weight, x=u, b=b, out=x)
+    coefs, iso = _coefs(deltas, weight)
+    err = lib.poissbox_rbsor_colour(
+        DTYPE_CODE[u.dtype], iso, u.device.index or 0, _stream(u), _ptr(u),
+        _ptr(b), _ptr(x), *u.shape, *coefs, int(color))
+    key = "rbsor.general" + (".bf16" if u.dtype == torch.bfloat16 else "")
+    _raise_on(lib, err, key)
+    LAUNCHES[key] += 1
     return x
 
 
 def sor_rb_zero_sweep_cuda(b: torch.Tensor, deltas, weight: float,
                            reverse: bool = False) -> torch.Tensor:
-    """One red-black sweep from x = 0 (K3): the first colour is
+    """One red-black sweep from x = 0 (K3), one launch: the first colour is
     winv * mask * b, the second a general colour update. b may be bf16."""
     if _on_cpu(b):
         return sor_rb_zero_sweep_plain(b, deltas, weight, reverse)
     _check("rbsor.zero", b)
-    c0, c1 = _colours(reverse)
-    x1 = torch.empty_like(b)
-    _rbsor("rbsor.zero", b, c0, deltas, weight, b=b, out=x1)
     x = torch.empty_like(b)
-    _rbsor("rbsor.general", b, c1, deltas, weight, x=x1, b=b, out=x)
+    _sweep("rbsor.zero", b, x, reverse, deltas, weight, b=b)
     return x
 
 
@@ -476,42 +502,34 @@ def sor_rb_zero_update_cuda(r: torch.Tensor, ap: torch.Tensor, alpha,
     """(b, x1, ||b||^2, sum(b)) with b = r - alpha*Ap and x1 the zero-guess
     sweep for A x = b (K5): CG's residual update fused into the V-cycle's
     first kernel. r and Ap stay untouched: both are still live in the
-    caller (CG keeps r until the iteration ends). `out_dtype` (bf16)
-    stores x1 narrow: the second colour reads float32 and writes bf16."""
+    caller (CG keeps r until the iteration ends). One launch. `out_dtype`
+    (bf16) stores x1 narrow: the second colour reads float32 and writes
+    bf16."""
     if _on_cpu(r):
         return sor_rb_zero_update_plain(r, ap, alpha, deltas, weight, reverse,
                                         out_dtype)
     _check("rbsor.zero_update", r, ap)
     a = torch.as_tensor(alpha, dtype=r.dtype, device=r.device).reshape(1)
-    c0, c1 = _colours(reverse)
     b = torch.empty_like(r)
-    x1 = torch.empty_like(r)
-    rr, sr = _partials(r), _partials(r)
-    _rbsor("rbsor.zero_update", r, c0, deltas, weight, r=r, ap=ap, alpha=a,
-           out=x1, bout=b, part0=rr, part1=sr)
     x = torch.empty_like(r, dtype=out_dtype or r.dtype)
-    _rbsor("rbsor.general", r, c1, deltas, weight, x=x1, b=b, out=x)
-    return b, x, torch.sum(rr), torch.sum(sr)
+    rr, sr = _sweep("rbsor.zero_update", r, x, reverse, deltas, weight, r=r,
+                    ap=ap, alpha=a, bout=b, sums=True)
+    return b, x, rr, sr
 
 
 def sor_rb_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
                       weight: float, reverse: bool = False,
                       dots: bool = False):
-    """One red-black sweep, both colours (K4); u and b may be bf16.
-    `dots=True` (float32/float64) also returns (<x_out, b>, sum(x_out))
-    from the second colour's pass."""
+    """One red-black sweep, both colours, one launch (K4); u and b may be
+    bf16. `dots=True` (float32/float64) also returns (<x_out, b>,
+    sum(x_out)), taken as the second colour is stored."""
     if _on_cpu(u):
         return sor_rb_sweep_plain(u, b, deltas, weight, reverse, dots)
-    _check("rbsor.dots" if dots else "rbsor.general", u, b)
-    c0, c1 = _colours(reverse)
-    x1 = sor_sweep_cuda(u, b, deltas, weight, c0)
-    if not dots:
-        return sor_sweep_cuda(x1, b, deltas, weight, c1)
+    mode = "rbsor.dots" if dots else "rbsor.sweep"
+    _check(mode, u, b)
     x = torch.empty_like(u)
-    rv, sv = _partials(u), _partials(u)
-    _rbsor("rbsor.dots", u, c1, deltas, weight, x=x1, b=b, out=x, part0=rv,
-           part1=sv)
-    return x, torch.sum(rv), torch.sum(sv)
+    sums = _sweep(mode, u, x, reverse, deltas, weight, x=u, b=b, sums=dots)
+    return (x, *sums) if dots else x
 
 
 def sor_rb_multisweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,

@@ -11,6 +11,9 @@ request for the card without one raises.
 
 from __future__ import annotations
 
+import contextlib
+import io
+import time
 import warnings
 from typing import Callable, Optional, Sequence
 
@@ -31,6 +34,7 @@ from poissbox_tpu_torch.solvers.mg import (
 from poissbox_tpu_torch.solvers.pipecg import pipecg
 from poissbox_tpu_torch.solvers.result import SolveResult
 from poissbox_tpu_torch.solvers.richardson import richardson
+from poissbox_tpu_torch.utils.profiling import kernel_time
 
 Tensor = torch.Tensor
 
@@ -216,6 +220,61 @@ def view(opts: SolverOptions, shape=None, M=None) -> str:
     return "\n".join(lines)
 
 
+def _print_log_view(A: LinearOperator, b: Tensor, M, result,
+                    t_setup: float, t_solve: float) -> None:
+    """`-log_view` analogue: PETSc's per-event performance summary
+    (count, time/call, total, fraction), as the JAX package prints it.
+
+    The events are not timed inside the solve: each event's time/call is
+    measured standalone by the differenced protocol
+    (:func:`poissbox_tpu_torch.utils.profiling.kernel_time`, chained
+    applications decayed by 1e-3 so the values stay finite) and multiplied
+    by its count, MatMult it+1 and PCApply it. The rest of the warm solve
+    wall ("other") is the vector algebra, the reductions, the host loop and
+    the fused hooks' gain or loss against the standalone events.
+    """
+    def _warm_time(name, fn):
+        try:
+            return kernel_time(fn, b, lo=2, hi=8, scale=1e-3)
+        except (RuntimeError, ValueError) as err:
+            # an event that cannot run alone is left out of the table
+            print(f"log_view:   {name} not timed: {err}")
+            return None
+
+    it = max(int(result.iterations), 1)
+    events = []
+    t_mat = _warm_time("MatMult", A.apply)
+    if t_mat is not None:
+        events.append(("MatMult", it + 1, t_mat))
+    if M is not None:
+        t_pc = _warm_time("PCApply", M)
+        if t_pc is not None:
+            events.append(("PCApply", it, t_pc))
+    ndof = b.numel()
+    print("log_view: event        count   time/call        total   %solve")
+    accounted = 0.0
+    for name, count, tc in events:
+        tot = count * tc
+        accounted += tot
+        print(f"log_view:   {name:<10} {count:5d}   {tc * 1e3:9.3f} ms"
+              f"   {tot:8.4f} s   {100.0 * tot / max(t_solve, 1e-12):5.1f}%")
+    if events:
+        rest = t_solve - accounted
+        print(f"log_view:   {'other':<10} {'':5}   {'':12}"
+              f"   {rest:8.4f} s   {100.0 * rest / max(t_solve, 1e-12):5.1f}%"
+              "  (vector algebra, reductions, fusion/overlap delta)")
+    print(f"log_view:   {'setup':<10} {1:5d}   {'':12}   {t_setup:8.4f} s")
+    print(f"log_view:   {'solve':<10} {1:5d}   {'':12}   {t_solve:8.4f} s"
+          f"   ({int(result.iterations)} iterations, "
+          f"{t_solve / it * 1e3:.3f} ms/it, "
+          f"{ndof * it / max(t_solve, 1e-12) / 1e9:.2f} GDoF/s)")
+
+
+def _sync(t: Tensor) -> None:
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
 def solve(
     A: LinearOperator,
     b: Tensor,
@@ -226,18 +285,30 @@ def solve(
     grid=None,
 ) -> SolveResult:
     """One-shot options-driven solve (KSPSolve analogue). Prints
-    `-ksp_view`, `-ksp_monitor` and `-ksp_converged_reason` output when
-    those flags are set. (`-log_view` is not ported yet.)"""
+    `-ksp_view`, `-ksp_monitor`, `-ksp_converged_reason` and `-log_view`
+    output when those flags are set. With `-log_view` the solve runs a
+    second time, warm (kernels built, caches filled), and that solve's wall
+    is the table's; the result returned is the first solve's."""
     db = opts if isinstance(opts, Options) else None
     if isinstance(opts, Options):
         opts = SolverOptions.from_options(opts)
     opts = opts or SolverOptions()
+    log_view = db is not None and db.get_bool("log_view")
+    t0 = time.perf_counter()
     solver = make_solver(A, opts, shape, deltas, b.dtype, b.device, grid=grid)
+    t_setup = time.perf_counter() - t0
     if opts.ksp_view:
         print(view(opts, solver.shape, solver.M))
     result = solver(b, x0)
-    if b.device.type == "cuda":
-        torch.cuda.synchronize(b.device)
+    _sync(b)
+    if log_view:
+        # the same solver again, its monitor's second history discarded
+        with contextlib.redirect_stdout(io.StringIO()):
+            t0 = time.perf_counter()
+            solver(b, x0)
+            _sync(b)
+        t_solve = time.perf_counter() - t0
+        _print_log_view(A, b, solver.M, result, t_setup, t_solve)
     if db is not None and (db.get_bool("options_left")
                            or db.get_bool("options_error_if_unused")):
         db.check_unused()

@@ -293,3 +293,148 @@ def test_kernel_dtype_table():
             stencil_cuda.check_dtype(mode, dt)
         with pytest.raises(TypeError):
             stencil_cuda.check_dtype(mode, torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# KB's one-launch sweep (csrc/rbsor.cu sweep_kernel): its premise on the CPU
+# ---------------------------------------------------------------------------
+
+def kernel_tile(shape, start=32):
+    """(chunk, 16, 32): the x planes and (y, z) tile of a sweep block, as
+    csrc/common.cuh tile_chunk picks them."""
+    nx, ny, nz = shape
+    tiles = -(-nz // 32) * -(-ny // 16)
+    c = start
+    while c > 4 and tiles * -(-nx // c) < 2048:
+        c //= 2
+    return c, 16, 32
+
+
+def _window(f, lo, n, shape):
+    """f on planes/rows/columns lo[a] .. lo[a] + n[a] - 1, every index
+    wrapped (a halo wider than the extent wraps more than once)."""
+    idx = [torch.arange(lo[a], lo[a] + n[a]) % shape[a] for a in range(3)]
+    return f[idx[0]][:, idx[1]][:, :, idx[2]], idx
+
+
+def _update(x, b, invs, winv):
+    """c + winv (b - A x) on the interior of window x, _rb_halfstep's
+    grouping (b already on the interior)."""
+    ivx, ivy, ivz = invs
+    c = x[1:-1, 1:-1, 1:-1]
+    xm, xp = x[:-2, 1:-1, 1:-1], x[2:, 1:-1, 1:-1]
+    ym, yp = x[1:-1, :-2, 1:-1], x[1:-1, 2:, 1:-1]
+    zm, zp = x[1:-1, 1:-1, :-2], x[1:-1, 1:-1, 2:]
+    if ivx == ivy == ivz:
+        s = ((xm + xp) + (ym + yp)) + (zm + zp)
+        res = (b - ivx * s) + (6.0 * ivx) * c
+    else:
+        acc = (xm + xp) * ivx
+        acc = acc + (ym + yp) * ivy
+        acc = acc + (zm + zp) * ivz
+        res = b - (acc - (2.0 * (ivx + ivy + ivz)) * c)
+    return c + winv * res
+
+
+def tiled_sweep(mode, f, deltas, reverse, tile, out_dtype=None):
+    """The sweep as one block of the kernel computes it, block by block:
+    the first colour x' from the input x alone, on the tile and a 1-cell
+    halo (x on a 2-cell halo), rounded to the input dtype; then the second
+    colour on the tile from x' alone. Partials of the sums over the points
+    each block owns. Returns (out, sums) and for zero_update (b, x, sums)."""
+    src = f["r"] if mode == "zero_update" else f["b"]
+    shape, ti = tuple(src.shape), src.dtype
+    wide = lambda t: t.float() if t.dtype == torch.bfloat16 else t
+    invs = stencil_cuda._invs(deltas)
+    winv = stencil_cuda._winv(invs, W)
+    c0, c1 = (1, 0) if reverse else (0, 1)
+    out = torch.empty(shape, dtype=out_dtype or ti)
+    bout = torch.empty(shape, dtype=ti)
+    s0, s1 = [], []
+    ch, ty, tz = tile
+    for i0 in range(0, shape[0], ch):
+        for j0 in range(0, shape[1], ty):
+            for k0 in range(0, shape[2], tz):
+                n = (min(ch, shape[0] - i0), min(ty, shape[1] - j0), min(tz, shape[2] - k0))
+                lo, ext = (i0 - 2, j0 - 2, k0 - 2), (n[0] + 4, ty + 4, tz + 4)
+                if mode == "zero_update":
+                    bw = (_window(f["r"], lo, ext, shape)[0]
+                          - f["alpha"] * _window(f["ap"], lo, ext, shape)[0])
+                else:
+                    bw = wide(_window(f["b"], lo, ext, shape)[0])
+                idx = _window(f["b"] if "b" in f else f["r"], lo, ext, shape)[1]
+                par = (idx[0].view(-1, 1, 1) + idx[1].view(1, -1, 1)
+                       + idx[2].view(1, 1, -1)) % 2
+                b1, p1 = bw[1:-1, 1:-1, 1:-1], par[1:-1, 1:-1, 1:-1]
+                if mode in ("sweep", "dots"):
+                    xw = wide(_window(f["u"], lo, ext, shape)[0])
+                    x1 = torch.where(p1 == c0, _update(xw, b1, invs, winv),
+                                     xw[1:-1, 1:-1, 1:-1])
+                else:
+                    w = torch.where(p1 == c0, torch.tensor(winv, dtype=b1.dtype),
+                                    torch.zeros((), dtype=b1.dtype))
+                    x1 = w * b1
+                x1 = wide(x1.to(ti))
+                b2 = b1[1:-1, 1:-1, 1:-1]
+                x2 = torch.where(p1[1:-1, 1:-1, 1:-1] == c1, _update(x1, b2, invs, winv),
+                                 x1[1:-1, 1:-1, 1:-1])
+                own = (slice(0, n[0]), slice(0, n[1]), slice(0, n[2]))
+                dst = (slice(i0, i0 + n[0]), slice(j0, j0 + n[1]), slice(k0, k0 + n[2]))
+                out[dst] = x2[own].to(out.dtype)
+                if mode == "dots":
+                    s0.append(torch.sum(x2[own] * b2[own]))
+                    s1.append(torch.sum(x2[own]))
+                elif mode == "zero_update":
+                    bout[dst] = b2[own]
+                    s0.append(torch.sum(b2[own] * b2[own]))
+                    s1.append(torch.sum(b2[own]))
+    sums = (torch.sum(torch.stack(s0)), torch.sum(torch.stack(s1))) if s0 else ()
+    return (bout, out, sums) if mode == "zero_update" else (out, sums)
+
+
+# (shape, deltas, tile): odd extents, cubic and not, with small ragged
+# tiles; a 4^3 level (the 2-cell halo wraps past the whole axis); the
+# anisotropic (64, 32, 48) level at the kernel's own tile
+SWEEP_CASES = [((5, 6, 7), (1.0, 1.0, 1.0), (2, 4, 8)),
+               ((5, 6, 7), (0.2, 0.25, 0.125), (3, 4, 4)),
+               ((4, 4, 4), (0.25, 0.25, 0.25), kernel_tile((4, 4, 4))),
+               ((64, 32, 48), (1 / 64, 0.75 / 32, 1.5 / 48), kernel_tile((64, 32, 48)))]
+SWEEP_IDS = ["odd", "odd-aniso", "4^3", "aniso-64x32x48"]
+SWEEP_MODES = ["sweep", "sweep.bf16", "dots", "zero", "zero.bf16", "zero_update",
+               "zero_update.narrow"]
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("mode", SWEEP_MODES)
+@pytest.mark.parametrize("shape,deltas,tile", SWEEP_CASES, ids=SWEEP_IDS)
+def test_one_pass_sweep_premise_matches_plain(shape, deltas, tile, mode, reverse):
+    """KB's sweep in one pass: x' from the input x alone on a halo of the
+    tile, then the second colour from x' alone, equals the two-colour plain
+    versions bit for bit (fields; the block-summed reductions to
+    rounding), ragged tiles and wrapped halos included."""
+    base, _, kind = mode.partition(".")
+    u, b, r, ap = (t(a) for a in fields(shape, 25, 4))
+    f = {"u": u, "b": b, "r": r, "ap": ap, "alpha": torch.tensor(0.41, dtype=torch.float64)}
+    if kind == "bf16":
+        f["u"], f["b"] = u.float().to(torch.bfloat16), b.float().to(torch.bfloat16)
+    if kind == "narrow":
+        f["r"], f["ap"], f["alpha"] = r.float(), ap.float(), f["alpha"].float()
+    out_dtype = torch.bfloat16 if kind == "narrow" else None
+    got = tiled_sweep(base, f, deltas, reverse, tile, out_dtype)
+    if base in ("sweep", "dots"):
+        ref = stencil_cuda.sor_rb_sweep_plain(f["u"], f["b"], deltas, W, reverse,
+                                              dots=base == "dots")
+    elif base == "zero":
+        ref = stencil_cuda.sor_rb_zero_sweep_plain(f["b"], deltas, W, reverse)
+    else:
+        ref = stencil_cuda.sor_rb_zero_update_plain(f["r"], f["ap"], f["alpha"], deltas,
+                                                    W, reverse, out_dtype)
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    fields_got = got[:-1]
+    assert len(ref) == len(fields_got) + len(got[-1])
+    for g, e in zip(fields_got, ref):
+        assert g.dtype == e.dtype
+        assert torch.equal(g, e)
+    for g, e in zip(got[-1], ref[len(fields_got):]):
+        np.testing.assert_allclose(float(g), float(e), rtol=1e-5 if kind else 1e-12,
+                                   atol=1e-12 * float(torch.sum(torch.abs(ref[0]))))

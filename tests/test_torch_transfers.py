@@ -226,3 +226,81 @@ def test_mgcg_fused_legs_iteration_parity_32():
     assert int(res.reason) == int(ref.reason) > 0
     np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), rtol=1e-8,
                                atol=1e-11)
+
+
+# ---------------------------------------------------------------------------
+# K6 streamed along x (csrc/xfer.cu restrict_kernel): its premise on the CPU
+# ---------------------------------------------------------------------------
+
+def streamed_restrict(u, b, deltas, tile):
+    """R_x(b - A u) as the kernel's blocks compute it: a block owns a
+    (y, z) tile and a chunk of coarse planes, computes each fine residual
+    it needs once, from u on the tile and a 1-cell wrapped halo, and
+    combines 2I-1 .. 2I+2 in K6's grouping."""
+    shape = tuple(u.shape)
+    nx, ny, nz = shape
+    ivx, ivy, ivz = stencil_cuda._invs(deltas)
+    out = torch.empty((nx // 2, ny, nz), dtype=b.dtype)
+    ch, ty, tz = tile
+    for I0 in range(0, nx // 2, ch):
+        m = min(ch, nx // 2 - I0)
+        for j0 in range(0, ny, ty):
+            for k0 in range(0, nz, tz):
+                idx = [torch.arange(2 * I0 - 2, 2 * (I0 + m) + 2) % nx,
+                       torch.arange(j0 - 1, j0 + ty + 1) % ny,
+                       torch.arange(k0 - 1, k0 + tz + 1) % nz]
+                uw = u[idx[0]][:, idx[1]][:, :, idx[2]].to(b.dtype)
+                bw = b[idx[0][1:-1]][:, idx[1][1:-1]][:, :, idx[2][1:-1]]
+                c = uw[1:-1, 1:-1, 1:-1]
+                xm, xp = uw[:-2, 1:-1, 1:-1], uw[2:, 1:-1, 1:-1]
+                ym, yp = uw[1:-1, :-2, 1:-1], uw[1:-1, 2:, 1:-1]
+                zm, zp = uw[1:-1, 1:-1, :-2], uw[1:-1, 1:-1, 2:]
+                if ivx == ivy == ivz:
+                    s = ((xm + xp) + (ym + yp)) + (zm + zp)
+                    star = s * ivx - (6.0 * ivx) * c
+                else:
+                    s = (xm + xp) * ivx
+                    s = s + (ym + yp) * ivy
+                    s = s + (zm + zp) * ivz
+                    star = s - (2.0 * (ivx + ivy + ivz)) * c
+                r = bw - star   # fine planes 2I0-1 .. 2(I0+m), each once
+                dn, even, odd, up = r[0:-3:2], r[1:-2:2], r[2:-1:2], r[3::2]
+                rc = ((3.0 * (even + odd) + up) + dn) * 0.125
+                jn, kn = min(ty, ny - j0), min(tz, nz - k0)
+                out[I0:I0 + m, j0:j0 + jn, k0:k0 + kn] = rc[:, :jn, :kn]
+    return out
+
+
+def kernel_restrict_tile(shape):
+    """(chunk, 16, 32): the coarse planes and (y, z) tile of a K6 block, as
+    csrc/common.cuh tile_chunk picks them."""
+    nxc, ny, nz = shape[0] // 2, shape[1], shape[2]
+    tiles = -(-nz // 32) * -(-ny // 16)
+    c = 16
+    while c > 4 and tiles * -(-nxc // c) < 2048:
+        c //= 2
+    return c, 16, 32
+
+
+RESTRICT_CASES = [((8, 8, 8), (1.0, 1.0, 1.0), (1, 4, 8)),
+                  ((6, 5, 7), (0.2, 0.25, 0.125), (2, 2, 4)),
+                  ((4, 4, 4), (0.25, 0.25, 0.25), kernel_restrict_tile((4, 4, 4))),
+                  ((40, 36, 52), (1.0, 1.0, 1.0), kernel_restrict_tile((40, 36, 52))),
+                  ((64, 32, 48), (1 / 64, 0.75 / 32, 1.5 / 48),
+                   kernel_restrict_tile((64, 32, 48)))]
+RESTRICT_IDS = ["8^3", "odd-aniso", "4^3", "40x36x52", "aniso-64x32x48"]
+
+
+@pytest.mark.parametrize("udtype", ["float64", "float32", "bf16u-float32", "bf16u-float64"])
+@pytest.mark.parametrize("shape,deltas,tile", RESTRICT_CASES, ids=RESTRICT_IDS)
+def test_streamed_restrict_matches_plain(shape, deltas, tile, udtype):
+    """K6 with each fine residual computed once per block, streamed along
+    x, equals residual_xrestrict_plain bit for bit, ragged tiles, wrapped
+    halos and a bf16 iterate included."""
+    u, b = (t(a) for a in fields(shape, 33, 2))
+    bdt = torch.float64 if udtype.endswith("float64") else torch.float32
+    b = b.to(bdt)
+    u = u.to(torch.bfloat16) if udtype.startswith("bf16u") else u.to(bdt)
+    got = streamed_restrict(u, b, deltas, tile)
+    ref = transfer_cuda.residual_xrestrict_plain(u, b, deltas)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
