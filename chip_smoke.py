@@ -12,23 +12,27 @@ and fails loudly if any phase fails:
      sweeps), xfer leg and the CG update against its plain PyTorch version
      on the same card (64^3 f64, 256^3 f32, an anisotropic grid; the bf16
      modes on the f32 cases and 512^3; the stencil7 epilogues, bf16 too, at
-     (48, 40, 96) f32; KB and K6 also at a ragged (40, 36, 52) in f64 and
-     f32, at 4^3 and 8^3 f64 and at odd (6, 5, 7) extents), then kernel,
-     plain and bound times at 256^3 f32 and, for the modes of the 512^3 path
-     (and K2, K12), at 512^3 f32; K1 beside Conv3d; then the one-launch
-     general sweep against two K11 launches at 256^3 f32 and 512^3 bf16,
-     seven pairs in turns;
+     (48, 40, 96) f32; KA, KB and K6 also at a ragged (40, 36, 52) in f64
+     and f32, at 4^3 and 8^3 f64 and at odd (6, 5, 7) extents; KA's grid
+     against ops/stencil_cuda.ka_blocks), then kernel, plain and bound
+     times at 256^3 f32 and, for the modes of the 512^3 path (and K2, K12),
+     at 512^3 f32, with K2's share of its floor; K1 beside Conv3d; then the
+     one-launch general sweep against two K11 launches at 256^3 f32 and
+     512^3 bf16, seven pairs in turns;
   4. transfers: the banded-matrix y/z transfers against the roll form in
      f32 with TF32 allowed globally (the contractions must not use it),
      and their times against the roll form's;
-  5. compact and tridiagonal kernels: K15's line kernel (lapl, grad, div,
-     interp, op_1d: compact.z/y/x), K13/K14/K16 (tridiag.thomas/pcr/babe)
-     and K17's four modes (tridiag.compact/dual/chain/sum) against their
-     plain versions at 64^3 f64, (48, 40, 96) f32 and f64, (33, 20, 24)
-     f64 (an odd split for K16), 256^3 f32 and 512^3 f32, and K17's modes
-     again at the line lengths of paths (l) and the 512^3 f64 Laplacian
-     pair, 96^3 f32 and 512^3 f64; sweep, Laplacian, K17 mode and solve
-     times with their bounds, K13/K14/K16 beside torch.linalg.lu_solve;
+  5. compact and tridiagonal kernels: K15 (lapl, grad, div, interp, op_1d:
+     compact.z/y/x; the register kernel for lines of 32 m points, the tile
+     kernel for the rest, each case printing the kernels it took and the
+     tile kernel's lane widths held bit-equal), K13/K14/K16
+     (tridiag.thomas/pcr/babe) and K17's four modes
+     (tridiag.compact/dual/chain/sum) against their plain versions at 64^3
+     f64, (48, 40, 96) f32 and f64 (both K15 kernels in one Laplacian),
+     (33, 20, 24) f64 (an odd split for K16), 96^3 f32, 256^3 f32 and
+     512^3 f32 and f64; sweep, Laplacian, K17 mode and solve times with
+     their bounds and each K15 sweep's share of its floor (512^3 f64: the
+     sweeps and the Laplacian), K13/K14/K16 beside torch.linalg.lu_solve;
   6. paths, each with the launch counters reset before and read after
      (failing if a red-black sweep took two launches), each checked against
      the plain PyTorch path on the card (impl="roll", transfers="roll"; for
@@ -48,7 +52,10 @@ and fails loudly if any phase fails:
        (c)   256^3 f32 rtol 1e-6 with -mg_levels_pc_type jacobi: K10 on
              every level, CG on K8 and apply_dots;
        (d)   PoissonSolver(order=6), CG + the 2nd-order GMG: 64^3 f64 rtol
-             1e-8, 256^3 f32 rtol 1e-3 (what f32 can certify there);
+             1e-8, 256^3 f32 rtol 1e-3 (what f32 can certify there), 48^3
+             f64 rtol 1e-8 (K15's tile kernel; the others take the
+             register kernel); a torch.profiler breakdown of one warm
+             256^3 solve;
        (e)   -ksp_type fft at 512^3 f32, order 2 and order 6; FCG with
              -pc_type fft on order 6 at 256^3 f32 and f64;
        (f)   the batched periodic tridiagonal solve of the JAX package's
@@ -132,6 +139,9 @@ FIELD_TOL = {torch.float32: 1e-5, torch.float64: 1e-12, BF16: 2.0 ** -7}
 RED_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # banded-matrix transfers against the roll form, float32
 MM_TOL = 1e-6
+# the kernels whose fields must equal their plain versions bit for bit
+# (KA's epilogues, K15 on both of its kernels, K14)
+BIT_EQUAL = ("stencil7.", "compact.", "tridiag.pcr")
 
 PALLAS = "poissbox_tpu/ops/stencil_pallas.py"
 INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
@@ -309,6 +319,11 @@ def bound(nbytes: float, ops: float) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
+def share(bd: dict, ms: float) -> str:
+    """The kernel's share of its floor: bound over measured time."""
+    return f"{100 * bd['bound_ms'] / ms:.1f} % of its floor"
+
+
 def out_bytes(out) -> int:
     """Bytes written: every field output (reductions are a few scalars)."""
     return sum(t.nbytes for t in as_tuple(out) if t.dim() > 0)
@@ -411,6 +426,10 @@ def check_kernels() -> dict:
              ((512, 512, 512), (1.0, 1.0, 1.0), torch.float32)]
     stats = {k: {"max_abs_err": 0.0, "library_ms": None} for k in KERNELS}
     for shape, length, dtype in cases:
+        gz, gy, gx, _ = sc.ka_blocks(shape)
+        if _build.load().poissbox_num_blocks(*shape) != gz * gy * gx:
+            raise AssertionError(f"KA's grid at {shape}: the library's block count "
+                                 f"differs from ka_blocks' {gz * gy * gx}")
         deltas = Grid3D(shape, length, DEVICE).deltas
         f = fields(shape, dtype, seed=sum(shape))
         n = shape[0] if len(set(shape)) == 1 else 0
@@ -423,11 +442,14 @@ def check_kernels() -> dict:
             if shape == (48, 40, 96) and not key.startswith("stencil7."):
                 continue      # the compact cases' shape: KA's epilogues, bf16 too
             if (shape, length, dtype) in SMALL_CASES and not key.startswith(
-                    ("rbsor.", "xfer.restrict")):
-                continue      # KB's and K6's ragged and wrapped-halo cases
+                    ("rbsor.", "xfer.restrict", "stencil7.")):
+                continue      # KA's, KB's and K6's ragged and wrapped-halo cases
             got = kern(f)
             err = compare(f"{name} {shape} {dtype}", got, plain(f))
             torch.cuda.synchronize()
+            if key.startswith(BIT_EQUAL) and err != 0.0:
+                raise AssertionError(f"{name} {shape} {dtype}: field max|diff| {err:.3e}, "
+                                     "not bit-equal")
             st = stats[key]
             st["max_abs_err"] = max(st["max_abs_err"], err)
             # a sweep mode's row takes the rev=False sweep, K11's the
@@ -440,7 +462,7 @@ def check_kernels() -> dict:
                            ops * f["u"].numel())
                 print(f"  {name:32s} {n}^3 f32: kernel {ms:.4f} ms, plain "
                       f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-                      f"({bd['bound_by']}), max|diff| {err:.3e}")
+                      f"({bd['bound_by']}), {share(bd, ms)}, max|diff| {err:.3e}")
                 if record and n == (512 if key in AT_512 else 256):
                     st.update(ms=ms, plain_ms=plain_ms, **bd)
             del got
@@ -494,12 +516,13 @@ def check_contractions() -> None:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+# K15's and K17's cases: every line length and dtype the paths give them
+# (96^3 f32 is path (l)'s, 512^3 f64 the Laplacian of lapl_pairs), mixed
+# register and tile lines ((48, 40, 96)) and an odd split for K16
 COMPACT_CASES = [((64, 64, 64), torch.float64), ((48, 40, 96), torch.float32),
                  ((48, 40, 96), torch.float64), ((33, 20, 24), torch.float64),
-                 ((256, 256, 256), torch.float32), ((512, 512, 512), torch.float32)]
-# K17's modes again at the line lengths the main path gives it and no case
-# above has: path (l)'s 96^3 f32 and the 512^3 f64 Laplacian of lapl_pairs
-K17_CASES = [((96, 96, 96), torch.float32), ((512, 512, 512), torch.float64)]
+                 ((96, 96, 96), torch.float32), ((256, 256, 256), torch.float32),
+                 ((512, 512, 512), torch.float32), ((512, 512, 512), torch.float64)]
 LAPL_KEYS = ("compact.z", "compact.y", "compact.x")   # lapl_sweeps' order
 
 
@@ -586,82 +609,90 @@ def k17_calls(f, d) -> dict:
 
 def check_compact(stats: dict) -> None:
     """Phase 5: K15's programs, K13/K14/K16 and K17's modes against their
-    plain versions at every case (K17's also at K17_CASES); at 256^3 and
-    512^3 f32 the times of each
-    Laplacian sweep, the whole Laplacian (kernels, plain, the pscan path),
-    the three solves (kernel, plain, lu_solve on the dense factor) and
-    K17's modes, with their bounds. The JSON entries take the 512^3 times
-    (the JAX package's bench size for compact_lapl and tridiag)."""
+    plain versions at every case, with the K15 kernels each case took
+    (checked against compact_pcr.route) and, where a line takes the tile
+    kernel, every lane width it is built for held bit-equal; at 256^3 and
+    512^3 the times of each Laplacian sweep and the whole Laplacian and, in
+    f32, those of the three solves (kernel, plain, lu_solve on the dense
+    factor) and K17's modes, with their bounds. The JSON entries take the
+    512^3 f32 times (the JAX package's bench size for compact_lapl and
+    tridiag)."""
     for shape, dtype in COMPACT_CASES:
         g = torch.Generator(device=DEVICE).manual_seed(sum(shape) + 3)
         f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
         F = torch.rand(shape + (3,), generator=g, dtype=dtype, device=DEVICE) * 2 - 1
         d = tuple(1.0 / n for n in shape)
+        routes = {cp.route(n) for n in shape}
+        for k in cp.ROUTE_LAUNCHES:
+            cp.ROUTE_LAUNCHES[k] = 0
         for name, keys, kern, plain in compact_calls(f, F, d):
             err = compare(f"{name} {shape} {dtype}", kern(), plain())
             torch.cuda.synchronize()
+            if keys[0].startswith(BIT_EQUAL) and err != 0.0:
+                raise AssertionError(f"{name} {shape} {dtype}: field max|diff| {err:.3e}, "
+                                     "not bit-equal")
             for key in keys:
                 stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-        print(f"  compact and tridiagonal kernels agree at {shape} {dtype}", flush=True)
+        took = {k for k, v in cp.ROUTE_LAUNCHES.items() if v}
+        if took != routes:
+            raise AssertionError(f"K15 at {shape}: launched {took}, the extents take {routes}")
+        if "tile" in routes:
+            tile_widths(f, d)
+        print(f"  compact and tridiagonal kernels agree at {shape} {dtype}; K15 "
+              f"launches by kernel {dict(cp.ROUTE_LAUNCHES)} (lines "
+              + ", ".join(f"{n}: {cp.route(n)}" for n in shape) + ")", flush=True)
         del F
         if shape[0] in (256, 512):
             time_compact(stats, f, d)
         del f
         torch.cuda.empty_cache()
-    for shape, dtype in K17_CASES:
-        g = torch.Generator(device=DEVICE).manual_seed(sum(shape) + 3)
-        f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
-        for mode, call in k17_calls(f, tuple(1.0 / n for n in shape)).items():
-            err = compare(f"tridiag.{mode} {shape} {dtype}", call(), call(plain=True))
-            torch.cuda.synchronize()
-            stats[f"tridiag.{mode}"]["max_abs_err"] = max(
-                stats[f"tridiag.{mode}"]["max_abs_err"], err)
-        print(f"  K17's modes agree at {shape} {dtype}", flush=True)
-        del f
-        torch.cuda.empty_cache()
+
+
+def tile_widths(f, d) -> None:
+    """The Laplacian with each lane width the tile kernel is built for on
+    its sweeps (the register kernel's take none), bit-equal to the default
+    one (tile_width picks the widest that lets two blocks share an SM)."""
+    ref = cp.lapl(f, d)
+    for w in cp.WIDTHS:
+        out = [f]
+        for program, axis in cp.lapl_sweeps(f.shape, d, f.dtype):
+            tiled = cp.route(f.shape[axis]) == "tile"
+            out = cp.sweep(program, out, axis, width=w if tiled else None)
+        if not torch.equal(out[0], ref):
+            raise AssertionError(f"compact lapl {tuple(f.shape)}: width {w} differs")
 
 
 def time_compact(stats: dict, f, d) -> None:
     n = f.shape[0]
-    record = n == 512
+    f32 = f.dtype == torch.float32
+    tag = f"{n}^3 {str(f.dtype).replace('torch.', '')}"
+    record = n == 512 and f32
     fields = [f]
     for (program, axis), key in zip(cp.lapl_sweeps(f.shape, d, f.dtype), LAPL_KEYS):
         ins = fields
         outs = cp.sweep(program, ins, axis)
         ms = median_ms(lambda: cp.sweep(program, ins, axis))
-        plain_ms = median_ms(lambda: cp.sweep_plain(program, ins, axis))
+        plain_ms = median_ms(lambda: cp.sweep_plain(program, ins, axis), reps=5)
         bd = bound((len(ins) + len(outs)) * f.nbytes, program_ops(program) * f.numel())
-        print(f"  {key} (lapl sweep, {len(ins)}r {len(outs)}w) {n}^3 f32: kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-              f"({bd['bound_by']})", flush=True)
+        print(f"  {key} (lapl sweep, {len(ins)}r {len(outs)}w, {cp.route(n)} kernel) {tag}: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
+              f"({bd['bound_by']}), {share(bd, ms)}", flush=True)
         if record:
             stats[key].update(ms=ms, plain_ms=plain_ms, **bd)
         fields = outs
     del fields, outs, ins
-    if record:
-        # the lane widths the kernel is built for, the three sweeps in turn
-        # (tile_width picks the widest that lets two blocks share an SM)
-        sweeps = cp.lapl_sweeps(f.shape, d, f.dtype)
-
-        def chain(w):
-            out = [f]
-            for program, axis in sweeps:
-                out = cp.sweep(program, out, axis, width=w)
-            return out[0]
-        ref = cp.lapl(f, d)
-        for w in cp.WIDTHS:
-            if not torch.equal(chain(w), ref):
-                raise AssertionError(f"compact lapl at width {w} differs")
-            print(f"  compact lapl {n}^3 f32, {w} lanes a block: "
-                  f"{median_ms(lambda: chain(w)):.4f} ms", flush=True)
-        del ref
     ms = median_ms(lambda: cp.lapl(f, d))
+    floor = 10 * f.nbytes / HBM_BPS * 1e3
+    if not f32:
+        print(f"  compact lapl {tag}: kernels {ms:.4f} ms, bound (10 passes) {floor:.4f} ms, "
+              f"{100 * floor / ms:.1f} % of it", flush=True)
+        return
     plain_ms = median_ms(lambda: cp.lapl(f, d, plain=True), reps=5)
     pscan_ms = median_ms(lambda: make_compact_laplacian_operator(
         Grid3D(f.shape, device=DEVICE), method="pscan").apply(f), reps=3, warm=1)
-    print(f"  compact lapl {n}^3 f32: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"pscan path {pscan_ms:.4f} ms, bound (10 passes) "
-          f"{10 * f.nbytes / HBM_BPS * 1e3:.4f} ms", flush=True)
+    print(f"  compact lapl {tag}: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"pscan path {pscan_ms:.4f} ms, bound (10 passes) {floor:.4f} ms, "
+          f"{100 * floor / ms:.1f} % of it", flush=True)
     B = f.reshape(n, -1)
     lu, piv = torch.linalg.lu_factor(dense_circulant(n, f.dtype))
     lib = lambda: torch.linalg.lu_solve(lu, piv, B)
@@ -739,13 +770,16 @@ def solve_case(n, dtype, rtol, extra, expect_its):
     return solver, b, its
 
 
-def run_path(label, cases, required, totals, demo=False, runner=None):
+def run_path(label, cases, required, totals, demo=False, runner=None, routes=()):
     """Drive one path (`runner`, by default solve_case, on each case) with
     the counters reset before and read after; fail if a kernel the path
-    needs was never launched. `demo` (True, or the demo's extra options)
-    runs the demo at 64^3 too. Returns the runs."""
+    needs was never launched, or a K15 kernel in `routes`. `demo` (True,
+    or the demo's extra options) runs the demo at 64^3 too. Returns the
+    runs."""
     print(f"-- path {label}", flush=True)
     sc.reset_launches()
+    for k in cp.ROUTE_LAUNCHES:
+        cp.ROUTE_LAUNCHES[k] = 0
     runs = [(runner or solve_case)(*c) for c in cases]
     if demo:
         from poissbox_tpu_torch import demo as demo_mod
@@ -756,11 +790,14 @@ def run_path(label, cases, required, totals, demo=False, runner=None):
     torch.cuda.synchronize()
     launches = dict(sc.LAUNCHES)
     idle = [k for k in required if launches[k] == 0]
+    idle += [f"K15 {r} kernel" for r in routes if cp.ROUTE_LAUNCHES[r] == 0]
     if idle:
         raise AssertionError(f"path {label}: kernels never launched: {idle}")
     if launches["rbsor.general"] or launches["rbsor.general.bf16"]:
         raise AssertionError(f"path {label}: a red-black sweep took two launches")
-    print(f"  launches: { {k: v for k, v in launches.items() if v} }", flush=True)
+    print(f"  launches: { {k: v for k, v in launches.items() if v} }"
+          + (f"; K15 by kernel {dict(cp.ROUTE_LAUNCHES)}"
+             if any(cp.ROUTE_LAUNCHES.values()) else ""), flush=True)
     for k, v in launches.items():
         totals[k] += v
     return runs
@@ -1020,7 +1057,8 @@ def log_view_demo(smi) -> None:
 # kernel name -> group of the device-time breakdown (first match wins)
 GROUPS = (("KB", ("sweep_kernel", "colour_kernel")), ("K6", ("restrict_kernel",)),
           ("K7", ("prolong_add_kernel",)), ("KA", ("stencil7_kernel",)),
-          ("K8", ("cgupd",)), ("contractions", ("gemm", "cutlass", "xmma", "sm90")))
+          ("K8", ("cgupd",)), ("K15", ("compact_reg_kernel", "compact_kernel")),
+          ("contractions", ("gemm", "cutlass", "xmma", "sm90")))
 
 
 def profile_solve(label, solver, b, smi) -> None:
@@ -1423,7 +1461,7 @@ def main() -> int:
     log = _build.library_path().with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
 
     phase("kernels against plain versions")
@@ -1489,12 +1527,13 @@ def main() -> int:
     print(f"  compact Laplacian at 256^3, smooth u: f32 evaluation error "
           f"{err32:.3e} of ||A u|| (the floor of any f32 residual there)", flush=True)
     mgcg = ["-ksp_type", "cg", "-pc_type", "mg"]
-    cases_d = [(64, f64, 1e-8, mgcg), (256, f32, 1e-3, mgcg)]
+    cases_d = [(64, f64, 1e-8, mgcg), (256, f32, 1e-3, mgcg), (48, f64, 1e-8, mgcg)]
     lapl_keys = list(LAPL_KEYS)
     runs_d = run_path("(d) order 6, CG + GMG", cases_d,
                       lapl_keys + ["rbsor.sweep", "xfer.restrict", "xfer.prolong_add"],
-                      totals, runner=solve6_case)
+                      totals, runner=solve6_case, routes=("registers", "tile"))
     compare6(runs_d, cases_d, smi)
+    profile_solve("(d) order 6 256^3 f32", *runs_d[1][:2], smi)
     del runs_d
     torch.cuda.empty_cache()
     fcg = ["-ksp_type", "fcg", "-pc_type", "fft"]

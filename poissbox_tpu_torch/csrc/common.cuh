@@ -93,10 +93,10 @@ inline dim3 tile_block() { return dim3(kTZ, kTileRows, 1); }
 inline int tiles(int ny, int nz) { return ((nz + kTZ - 1) / kTZ) * ((ny + kTY - 1) / kTY); }
 
 // x planes a block walks: `start` halved while the grid would have fewer
-// than kMinBlocks blocks, but not below 4.
-inline int tile_chunk(int nx, int ny, int nz, int start) {
+// than `min_blocks` blocks, but not below 4.
+inline int tile_chunk(int nx, int ny, int nz, int start, long min_blocks = kMinBlocks) {
   int c = start;
-  while (c > 4 && (long)tiles(ny, nz) * ((nx + c - 1) / c) < kMinBlocks) c /= 2;
+  while (c > 4 && (long)tiles(ny, nz) * ((nx + c - 1) / c) < min_blocks) c /= 2;
   return c;
 }
 

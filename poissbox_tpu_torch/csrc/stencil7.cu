@@ -18,22 +18,22 @@
 // streamed K1 and K2 for large fields) as K1 and K2 out of place.
 //
 // K12 is the star with an input prologue: the kernel is templated on a
-// loader, and K12's loader forms p' = (v - zs) + beta * p_old at each of the
-// seven loads (two loads and the affine form each) in
-// _pupd_lapl_dot_kernel_fy's grouping. beta and zs are read on the device
-// from a 2-element tensor, as K8 reads alpha, so the host never waits for
-// them.
+// loader, and K12's loader forms p' = (v - zs) + beta * p_old once a cell,
+// as the cell is staged in shared memory, in _pupd_lapl_dot_kernel_fy's
+// grouping. beta and zs are read on the device from a 2-element tensor, as
+// K8 reads alpha, so the host never waits for them.
 //
 // Types: float32 and float64 in every epilogue (K12 included); bfloat16 u
 // and b in the residual and Jacobi epilogues (the bf16 pre-smooths of the
-// Chebyshev and multi-sweep Jacobi smoothers at 512^3-class sizes). A bf16 value is
-// upcast to float32, the star and the epilogue run in float32, and the
-// result rounds once (RNE) at the store, as KB's bf16 colour updates do.
+// Chebyshev and multi-sweep Jacobi smoothers at 512^3-class sizes). A bf16
+// value is upcast to float32, the star and the epilogue run in float32, and
+// the result rounds once (RNE) at the store, as KB's bf16 colour updates do.
 // The star keeps _star_into's grouping,
 //   ((u[i-1]+u[i+1])*ivx + (u[j-1]+u[j+1])*ivy) + (u[k-1]+u[k+1])*ivz
 //   - 2*(ivx+ivy+ivz)*u,
 // and the library is built with --fmad=false, so the kernel rounds as the
-// plain version in ops/stencil_cuda.py does.
+// plain version in ops/stencil_cuda.py does: the fields are bit-equal to it.
+// The dot's partials are sums in another order than torch.sum's.
 //
 // Bound on an H100 SXM (3.35 TB/s): the star reads u and writes y, 2 field
 // passes (3 for the residual and the Jacobi sweep, which also read b). At
@@ -42,35 +42,51 @@
 // reads v and p_old and writes p' and A p', 4 passes: 0.080 ms at 256^3
 // f32, 0.641 ms at 512^3.
 //
-// Design: one thread per point; z, the contiguous axis, is the fastest
-// thread index, so each warp's loads and stores coalesce; periodic
-// neighbours come from wrapped indices. The x and y neighbour loads hit
-// L2 (and L1) when the neighbouring planes and rows were just read by
-// other blocks. What this first design leaves on the table: no shared-
-// memory tile and no register blocking along x, so each u value is
-// fetched up to 7 times through the caches; no TMA or cp.async pipeline;
-// and the 32 x 8 block wastes lanes on the coarse MG levels (nz < 32).
-// K12 forms p' again at each of the up to 7 loads of a point (14 cached
-// loads where one of each field would do).
+// Design: streamed along x, on the geometry of rbsor.cu's sweep and
+// xfer.cu's restriction (common.cuh: tile_block, tile_grid, tile_chunk,
+// TileWindow). A block of 256 threads owns a 32 x 16 (y, z) tile, z
+// fastest, two rows a thread, and walks a chunk of x planes (ka_chunk:
+// about kKaMinBlocks = 4096 blocks, 64 planes at 512^3, 8 at 256^3; at most
+// 40 registers a thread, so six blocks share an SM). The plane at
+// hand sits in shared memory with a 1-cell periodic (y, z) halo, in a ring
+// of three slots, so one barrier a plane suffices (the slot written in a
+// step is never the one a thread still in the step before reads). A thread
+// keeps its points' u[x-1] in registers from the step before and reads
+// u[x+1] at its own cells of the next plane's slot, so the x neighbours
+// cost no extra load; each u value is read from HBM about once (the halo
+// cells of neighbouring tiles and the plane before a chunk come from L2).
+// The next plane's window (and b at the owned points) is loaded into
+// registers right after the step's barrier, so it is in flight while the
+// step computes. The dot is summed over the chunk in each thread and
+// written as one partial per block, at most a few thousand at 512^3, summed
+// by the wrapper with torch.sum in the working type (C: float for bf16).
+// Planes advance by compare and select; `%` is taken only before the loop.
 #include "common.cuh"
 
 namespace poissbox {
 
 enum Epilogue { kApply = 0, kApplyDot = 1, kResidual = 2, kJacobi = 3, kPUpdDot = 4 };
 
-// The field the star reads: u itself (K1, K2, K9, K10).
+// The field the star reads: u itself (K1, K2, K9, K10). `fetch` loads
+// what a cell needs, `value` forms the cell's value from it, in C.
 template <typename T>
 struct LoadField {
   using C = typename Compute<T>::type;
+  using Raw = T;
   const T* u;
   __device__ __forceinline__ void prepare() {}
-  __device__ __forceinline__ C operator()(size_t i) const { return cvt<C>(u[i]); }
+  __device__ __forceinline__ Raw fetch(size_t i) const { return u[i]; }
+  __device__ __forceinline__ C value(Raw r) const { return cvt<C>(r); }
 };
 
 // K12's prologue: p' = (v - zs) + beta * p_old, with (beta, zs) = sc[0..1]
-// read on the device.
+// read on the device. The two loads are staged raw, and p' is formed when
+// the cell is stored to shared memory, so the loads stay in flight.
 template <typename T>
 struct LoadPUpdate {
+  struct Raw {
+    T v, p;
+  };
   const T* v;
   const T* p;
   const T* sc;
@@ -79,47 +95,155 @@ struct LoadPUpdate {
     beta = sc[0];
     zs = sc[1];
   }
-  __device__ __forceinline__ T operator()(size_t i) const { return (v[i] - zs) + beta * p[i]; }
+  __device__ __forceinline__ Raw fetch(size_t i) const { return Raw{v[i], p[i]}; }
+  __device__ __forceinline__ T value(Raw r) const { return (r.v - zs) + beta * r.p; }
 };
 
-// y = star(load); `pout` (K12) receives the loaded centre value p'.
+// the x planes a KA block walks: the chunk halves from 128 until the grid
+// holds kKaMinBlocks blocks (or the chunk is 4); blocks an SM holds. Chosen
+// on an NVIDIA H100 80GB HBM3 at 700 W among 1024 to 8192 blocks, with and
+// without the register cap: 4096 with six blocks an SM was the fastest or
+// within noise of it for every epilogue at 256^3 and 512^3.
+constexpr long kKaMinBlocks = 4096;
+constexpr int kKaResident = 6;
+
+inline int ka_chunk(int nx, int ny, int nz) { return tile_chunk(nx, ny, nz, 128, kKaMinBlocks); }
+
+// y = star(load) over the block's tile and chunk (see the header); `pout`
+// (K12) receives p' at the points owned, `part` one partial of the dot.
 template <typename T, int EPI, typename Load>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kTileThreads, kKaResident)
 stencil7_kernel(Load load, const T* __restrict__ b, T* __restrict__ y, T* __restrict__ pout,
-                typename Compute<T>::type* __restrict__ part, int nx, int ny, int nz,
+                typename Compute<T>::type* __restrict__ part, int nx, int ny, int nz, int chunk,
                 typename Compute<T>::type ivx, typename Compute<T>::type ivy,
                 typename Compute<T>::type ivz, typename Compute<T>::type center,
                 typename Compute<T>::type winv) {
   using C = typename Compute<T>::type;
+  using UW = TileWindow<1>;
+  using Raw = typename Load::Raw;
   constexpr bool kDot = EPI == kApplyDot || EPI == kPUpdDot;
+  constexpr bool kB = EPI == kResidual || EPI == kJacobi;
+  __shared__ C us[3][UW::kN];
+  const int tid = threadIdx.x + kTZ * threadIdx.y;
+  const int j0 = blockIdx.y * kTY, k0 = blockIdx.x * kTZ;
+  const int i0 = blockIdx.z * chunk;
+  const int n = min(chunk, nx - i0);
+  const size_t plane = (size_t)ny * nz;
+  const UW uw(j0, k0, ny, nz, tid);
   load.prepare();
-  const Point q = locate(nx, ny, nz);
-  C dot = C(0);
-  if (q.active) {
-    const C c = load(q.p);
-    C acc = (load(q.xm) + load(q.xp)) * ivx;
-    acc = acc + (load(q.ym) + load(q.yp)) * ivy;
-    acc = acc + (load(q.zm) + load(q.zp)) * ivz;
-    C out = acc - center * c;
-    if (EPI == kResidual) out = cvt<C>(b[q.p]) - out;
-    if (EPI == kJacobi) out = c + winv * (cvt<C>(b[q.p]) - out);
-    y[q.p] = cvt<T>(out);
-    if constexpr (EPI == kPUpdDot) pout[q.p] = cvt<T>(c);
-    if (kDot) dot = c * out;
+  // the points owned: rows threadIdx.y + h * kTileRows of the tile
+  const int kk = k0 + threadIdx.x;
+  bool own[kRowsPerThread];
+  size_t ooff[kRowsPerThread];
+  int oc[kRowsPerThread];
+#pragma unroll
+  for (int h = 0; h < kRowsPerThread; ++h) {
+    const int r = threadIdx.y + h * kTileRows;
+    own[h] = j0 + r < ny && kk < nz;
+    ooff[h] = (size_t)(j0 + r) * nz + kk;
+    oc[h] = (r + 1) * UW::kZ + threadIdx.x + 1;
   }
-  if (kDot) block_partials(dot, C(0), part, (C*)nullptr);
+  auto next = [nx](int q) { return q + 1 == nx ? 0 : q + 1; };
+
+  // the register stage: the window of a plane, b at the points owned
+  Raw ur[UW::kR];
+  T br[kRowsPerThread];
+  auto stage_u = [&](int q) {
+    const size_t base = (size_t)q * plane;
+#pragma unroll
+    for (int rr = 0; rr < UW::kR; ++rr)
+      if (UW::has(rr, tid)) ur[rr] = load.fetch(base + uw.off[rr]);
+  };
+  auto stage_b = [&](int q) {
+    if constexpr (kB) {
+      const size_t base = (size_t)q * plane;
+#pragma unroll
+      for (int h = 0; h < kRowsPerThread; ++h)
+        if (own[h]) br[h] = b[base + ooff[h]];
+    }
+  };
+  auto put = [&](C* dst) {
+#pragma unroll
+    for (int rr = 0; rr < UW::kR; ++rr)
+      if (UW::has(rr, tid)) dst[tid + rr * kTileThreads] = load.value(ur[rr]);
+  };
+
+  // plane i0 in slot 0; the owned centres of plane i0-1; plane i0+1 and b
+  // of plane i0 staged
+  int qi = i0;  // the wrapped plane i of the step (i0 < nx)
+  stage_u(qi);
+  put(us[0]);
+  C um[kRowsPerThread];  // u[x-1] at the points owned
+  {
+    const size_t base = (size_t)pmod(i0 - 1, nx) * plane;
+#pragma unroll
+    for (int h = 0; h < kRowsPerThread; ++h)
+      um[h] = own[h] ? load.value(load.fetch(base + ooff[h])) : C(0);
+  }
+  stage_u(next(qi));
+  stage_b(qi);
+  int s0 = 0, s1 = 1;  // the slots of planes i and i+1
+  C dot = C(0);
+  // Step t (plane i = i0 + t): store the staged plane i+1, one barrier,
+  // stage plane i+2 and b of plane i+1, compute plane i.
+  for (int t = 0; t < n; ++t) {
+    put(us[s1]);
+    T bv[kRowsPerThread];
+    if constexpr (kB) {
+#pragma unroll
+      for (int h = 0; h < kRowsPerThread; ++h) bv[h] = br[h];
+    }
+    __syncthreads();
+    const int q1 = next(qi);
+    if (t + 1 < n) {
+      stage_u(next(q1));
+      stage_b(q1);
+    }
+    const C* u0 = us[s0];
+    const C* up = us[s1];
+#pragma unroll
+    for (int h = 0; h < kRowsPerThread; ++h) {
+      if (!own[h]) continue;
+      const int o = oc[h];
+      const C c = u0[o];
+      C acc = (um[h] + up[o]) * ivx;
+      acc = acc + (u0[o - UW::kZ] + u0[o + UW::kZ]) * ivy;
+      acc = acc + (u0[o - 1] + u0[o + 1]) * ivz;
+      C out = acc - center * c;
+      if (EPI == kResidual) out = cvt<C>(bv[h]) - out;
+      if (EPI == kJacobi) out = c + winv * (cvt<C>(bv[h]) - out);
+      const size_t g = (size_t)qi * plane + ooff[h];
+      y[g] = cvt<T>(out);
+      if constexpr (EPI == kPUpdDot) pout[g] = cvt<T>(c);
+      if (kDot) dot += c * out;
+      um[h] = c;
+    }
+    const int s2 = 3 - s0 - s1;
+    s0 = s1;
+    s1 = s2;
+    qi = q1;
+  }
+  if constexpr (kDot) block_partials<C, kTileWarps>(dot, C(0), part, (C*)nullptr);
+}
+
+template <typename T, int EPI, typename Load>
+cudaError_t launch_ka(cudaStream_t stream, const Load& load, const void* b, void* y, void* pout,
+                      void* part, int nx, int ny, int nz, double ivx, double ivy, double ivz,
+                      double center, double winv) {
+  using C = typename Compute<T>::type;
+  const int chunk = ka_chunk(nx, ny, nz);
+  stencil7_kernel<T, EPI, Load><<<tile_grid(nx, ny, nz, chunk), tile_block(), 0, stream>>>(
+      load, static_cast<const T*>(b), static_cast<T*>(y), static_cast<T*>(pout),
+      static_cast<C*>(part), nx, ny, nz, chunk, C(ivx), C(ivy), C(ivz), C(center), C(winv));
+  return cudaGetLastError();
 }
 
 template <typename T, int EPI>
 cudaError_t launch_epi(cudaStream_t stream, const void* u, const void* b, void* y, void* part,
                        int nx, int ny, int nz, double ivx, double ivy, double ivz,
                        double center, double winv) {
-  using C = typename Compute<T>::type;
-  stencil7_kernel<T, EPI, LoadField<T>><<<launch_grid(nx, ny, nz), launch_block(), 0, stream>>>(
-      LoadField<T>{static_cast<const T*>(u)}, static_cast<const T*>(b), static_cast<T*>(y),
-      static_cast<T*>(nullptr), static_cast<C*>(part), nx, ny, nz, C(ivx), C(ivy), C(ivz),
-      C(center), C(winv));
-  return cudaGetLastError();
+  return launch_ka<T, EPI>(stream, LoadField<T>{static_cast<const T*>(u)}, b, y, nullptr, part,
+                           nx, ny, nz, ivx, ivy, ivz, center, winv);
 }
 
 template <typename T>
@@ -150,10 +274,8 @@ cudaError_t launch_pupd_dot(cudaStream_t stream, const void* v, const void* p, c
                             double ivx, double ivy, double ivz, double center) {
   const LoadPUpdate<T> load{static_cast<const T*>(v), static_cast<const T*>(p),
                             static_cast<const T*>(sc), T(0), T(0)};
-  stencil7_kernel<T, kPUpdDot, LoadPUpdate<T>><<<launch_grid(nx, ny, nz), launch_block(), 0, stream>>>(
-      load, static_cast<const T*>(nullptr), static_cast<T*>(y), static_cast<T*>(pout),
-      static_cast<T*>(part), nx, ny, nz, T(ivx), T(ivy), T(ivz), T(center), T(0));
-  return cudaGetLastError();
+  return launch_ka<T, kPUpdDot>(stream, load, nullptr, y, pout, part, nx, ny, nz, ivx, ivy,
+                                ivz, center, 0.0);
 }
 
 // bf16 u and b: the residual and Jacobi epilogues only.
@@ -174,9 +296,10 @@ cudaError_t launch_stencil7_bf16(int epi, cudaStream_t stream, const void* u, co
 
 extern "C" {
 
-// Number of blocks (and of reduction partials) a launch over the grid uses.
+// Number of blocks (and of reduction partials) of a KA launch over the
+// grid (ops/stencil_cuda.ka_blocks computes the same).
 int poissbox_num_blocks(int nx, int ny, int nz) {
-  const dim3 g = poissbox::launch_grid(nx, ny, nz);
+  const dim3 g = poissbox::tile_grid(nx, ny, nz, poissbox::ka_chunk(nx, ny, nz));
   return (int)(g.x * g.y * g.z);
 }
 

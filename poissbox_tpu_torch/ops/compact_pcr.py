@@ -12,26 +12,37 @@ quarter ulp of the dtype (:func:`pcr_schedule` with rtol > 0) is a handful
 of steps for any n, powers of two or not.
 
 The plain versions (:func:`_vrhs`, :func:`_vpcr`, :func:`_vop`,
-:func:`pcr_op`) use ``torch.roll``. The kernel (``csrc/compact.cu``) runs
-one *sweep*: a program of up to three outputs along one axis, each the sum
-of up to two chains of up to two operators applied to one of up to three
+:func:`pcr_op`) use ``torch.roll``. K15 (``csrc/compact.cu``) runs one
+*sweep*: a program of up to three outputs along one axis, each the sum of
+up to two chains of up to two operators applied to one of up to three
 inputs (:func:`sweep`). The Pallas kernels hold a whole (T, ny, nz) x-slab
 in VMEM and chain the z and y sweeps there; a 256^3 f32 plane is more than
 the 227 KB of shared memory a Hopper block may use, so here every sweep is
-its own launch over tiles of whole lines:
+its own launch:
 
   * :func:`lapl`: 3 launches, 10 HBM passes (z: 1r 2w; y: 2r 2w; x: 2r 1w)
     against the TPU's regrouped 6;
   * :func:`grad`, :func:`div`, :func:`interp`: 3 launches each;
   * :func:`op_1d`: 1 launch.
 
+A launch takes one of two kernels, by the line length n alone
+(:func:`route`). For n = 32 m with m in :data:`REG_M` (64, 96, 128, 256,
+384, 512, 640) the register kernel: a warp holds a line in registers as 32
+chunks of m points, every shift of the taps and the PCR steps a register
+rename or a warp shuffle (:func:`reg_source`), the whole program run with
+no shared-memory pass between operators, so a sweep is bound by its
+arithmetic and HBM traffic. Every other n >= 4 takes the tile kernel,
+whose operators are passes over a tile of lines in shared memory (bound
+by shared-memory traffic and barriers), up to the length whose tile fits
+(:func:`tile_width`). A failure of either raises; neither stands in for
+the other.
+
 A CPU tensor runs the plain versions (:func:`sweep_plain`); a CUDA tensor
-launches the kernel or raises. Launches count in
+launches a kernel or raises. Launches count in
 :data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES` as ``compact.x``,
-``compact.y`` and ``compact.z`` by the sweep's axis. The Mosaic-safe
-extent gate of the JAX package (``_tile_ok``) has no counterpart: the
-kernel takes every n >= 4 in float32 and float64, up to the length whose
-tile fits shared memory (:func:`tile_width`).
+``compact.y`` and ``compact.z`` by the sweep's axis, and in
+:data:`ROUTE_LAUNCHES` by kernel. The Mosaic-safe extent gate of the JAX
+package (``_tile_ok``) has no counterpart.
 """
 
 from __future__ import annotations
@@ -60,7 +71,27 @@ MAX_STEPS = 12          # csrc/compact.cu kMaxSteps
 SMEM_BYTES = 232448     # shared memory one Hopper block may use (227 KB)
 SM_SMEM_BYTES = 233472  # shared memory of one SM (228 KB)
 BLOCK_RESERVED_BYTES = 1024   # of it, reserved per resident block
-WIDTHS = (32, 16, 8)    # lanes per block the kernel is built for
+WIDTHS = (32, 16, 8)    # lanes per block the tile kernel is built for
+# chunk lengths m of the register kernel's lines, n = 32 m
+# (csrc/compact.cu run_compact_reg)
+REG_M = (2, 3, 4, 8, 12, 16, 20)
+# launches by kernel: the register kernel and the tile kernel
+ROUTE_LAUNCHES: dict[str, int] = {"registers": 0, "tile": 0}
+
+
+def route(n: int) -> str:
+    """The kernel a sweep over lines of `n` points takes: "registers" for
+    n = 32 m with m in REG_M, "tile" for any other n."""
+    return "registers" if n % 32 == 0 and n // 32 in REG_M else "tile"
+
+
+def reg_source(j: int, s: int, m: int) -> tuple[int, int]:
+    """Where the register kernel finds point l*m + j + s of a line of
+    n = 32 m points for lane l, which holds points l*m .. l*m + m - 1:
+    (lane offset, register), the lane being (l + offset) mod 32. Any
+    shift s; the line wraps with the lanes."""
+    t = j + s % (32 * m)
+    return (t // m) % 32, t % m
 
 
 # ---------------------------------------------------------------------------
@@ -263,11 +294,12 @@ def _view3(t: Tensor, axis: int) -> tuple[int, int, int]:
 def sweep(program, inputs: Sequence[Tensor], axis: int,
           key: str | None = None, width: int | None = None) -> list[Tensor]:
     """Run `program` along `axis`: the plain version for CPU tensors, one
-    K15 launch for CUDA tensors (counted under `key`, by default
-    ``compact.x|y|z``: lines along the first, a middle or the last axis;
-    `width` lanes per block, by default :func:`tile_width`'s). Inputs are
-    fields of one shape, dtype and device; the outputs are new tensors of
-    that shape."""
+    K15 launch for CUDA tensors (the kernel :func:`route` names; counted
+    under `key`, by default ``compact.x|y|z``: lines along the first, a
+    middle or the last axis). `width` is the tile kernel's lanes per
+    block, by default :func:`tile_width`'s; a line length the register
+    kernel takes refuses it. Inputs are fields of one shape, dtype and
+    device; the outputs are new tensors of that shape."""
     axis %= inputs[0].dim()
     if inputs[0].device.type == "cpu":
         return sweep_plain(program, inputs, axis)
@@ -286,7 +318,13 @@ def sweep(program, inputs: Sequence[Tensor], axis: int,
     if n < 4:
         raise ValueError(f"compact sweep: lines of {n} < 4 points")
     nbuf = 3 if any(len(out) == 2 for out in program) else 2
-    if width is None:
+    kernel = route(n)
+    if kernel == "registers":
+        if width is not None:
+            raise ValueError(f"compact sweep: lines of {n} take the register "
+                             "kernel, which has no lane width")
+        width = 0
+    elif width is None:
         width = tile_width(n, f0.dtype, nbuf)
     elif width not in WIDTHS or nbuf * n * (width + 1) * f0.element_size() > SMEM_BYTES:
         raise ValueError(f"compact sweep: width {width} is not one of {WIDTHS} "
@@ -303,8 +341,9 @@ def sweep(program, inputs: Sequence[Tensor], axis: int,
         *map(ptr, ins), *map(ptr, optr), P, n, Q, width, nbuf)
     if key is None:   # by the lines' layout: the axis's counter for 3-D
         key = "compact.z" if Q == 1 else ("compact.x" if P == 1 else "compact.y")
-    _raise_on(lib, err, key)
+    _raise_on(lib, err, f"{key} ({kernel} kernel)")
     LAUNCHES[key] += 1
+    ROUTE_LAUNCHES[kernel] += 1
     return outs
 
 

@@ -62,7 +62,9 @@ four modes (ops/tridiag_cuda.py); ``.bf16`` marks a bf16 launch,
 leg reading a bf16 iterate); a wrapper adds one where it launches, so a
 run can show which kernels its path went through.
 Reductions come back as per-block partials that the wrapper sums with
-``torch.sum``, as the JAX wrappers sum theirs.
+``torch.sum``, as the JAX wrappers sum theirs. KA streams x planes
+through a (y, z) tile, as KB's sweeps and K6 do (:func:`ka_blocks`): one
+partial a block, a few thousand at 512^3.
 """
 
 from __future__ import annotations
@@ -335,10 +337,28 @@ def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
 
+# KA's geometry (csrc/stencil7.cu ka_chunk, csrc/common.cuh): a block owns
+# a TILE_Z x TILE_Y (z, y) tile and walks a chunk of x planes
+TILE_Z, TILE_Y, KA_MIN_BLOCKS = 32, 16, 4096
+
+
+def ka_blocks(shape) -> tuple[int, int, int, int]:
+    """KA's launch over a field of `shape`: (blocks along z, along y,
+    along x, x planes a block walks), the chunk halved from 128 until the
+    grid holds KA_MIN_BLOCKS blocks, but not below 4. One dot partial a
+    block."""
+    nx, ny, nz = shape
+    gz, gy = -(-nz // TILE_Z), -(-ny // TILE_Y)
+    chunk = 128
+    while chunk > 4 and gz * gy * -(-nx // chunk) < KA_MIN_BLOCKS:
+        chunk //= 2
+    return gz, gy, -(-nx // chunk), chunk
+
+
 def _partials(u: torch.Tensor) -> torch.Tensor:
-    """One slot per block of a launch over u's grid."""
-    return torch.empty(_build.load().poissbox_num_blocks(*u.shape),
-                       dtype=u.dtype, device=u.device)
+    """One slot per block of KA's launch over u's grid."""
+    gz, gy, gx, _ = ka_blocks(u.shape)
+    return torch.empty(gz * gy * gx, dtype=u.dtype, device=u.device)
 
 
 def _stencil7(key: str, u, b, y, part, deltas, weight: float = 0.0) -> None:

@@ -238,6 +238,153 @@ def test_tile_width_limits():
         compact_pcr.tile_width(4096, torch.float64, 2)
 
 
+# ---------------------------------------------------------------------------
+# the register kernel's line layout, mirrored on the CPU
+# ---------------------------------------------------------------------------
+#
+# The register kernel holds a line of n = 32 m points as 32 lanes of m
+# registers and reads every shifted point by compact_pcr.reg_source. The
+# mirror below runs the kernel's operations on lines reshaped to (32, m),
+# each shift a gather by that rule, and must equal the plain version bit for
+# bit: only the index algebra differs.
+
+REG_EXTENTS = (64, 96, 128)
+
+
+def _lanes_shift(v, s, m):
+    """Point l*m + j + s for every lane l and register j of lines (..., 32, m)."""
+    out = torch.empty_like(v)
+    for j in range(m):
+        q, r = compact_pcr.reg_source(j, s, m)
+        out[..., :, j] = torch.roll(v[..., :, r], -q, dims=-1)   # from lane l + q
+    return out
+
+
+def _mirror_op(d, spec, m):
+    a, b, opsign, shift, (fs, bF, aF) = spec
+    if b is None:
+        d = d * a
+    else:
+        s = float(opsign)
+        at = lambda k: _lanes_shift(d, k, m)
+        d = a * (at(shift) + s * at(shift - 1)) + b * (at(shift + 1) + s * at(shift - 2))
+    k = 1
+    for f in fs:
+        d = d - f * (_lanes_shift(d, -k, m) + _lanes_shift(d, k, m))
+        k *= 2
+    if aF == 0.0:
+        return d * (1.0 / bF)
+    inv = 1.0 / (bF * bF - 4.0 * aF * aF)
+    return (bF * inv) * d - (2.0 * aF * inv) * _lanes_shift(d, 16 * m, m)
+
+
+def _mirror_sweep(program, inputs, axis, used):
+    """compact_pcr.sweep as the register kernel computes it where the line
+    length takes that kernel; the plain version elsewhere (the tile
+    kernel's lines). `used` counts the register sweeps."""
+    axis %= inputs[0].dim()
+    n = inputs[0].shape[axis]
+    if compact_pcr.route(n) != "registers":
+        return compact_pcr.sweep_plain(program, inputs, axis)
+    used.append(n)
+    m = n // 32
+    lines = [t.movedim(axis, -1) for t in inputs]
+    outs = []
+    for out in program:
+        acc = None
+        for idx, specs in out:
+            d = lines[idx].reshape(*lines[idx].shape[:-1], 32, m)
+            for spec in specs:
+                d = _mirror_op(d, spec, m)
+            acc = d if acc is None else acc + d
+        outs.append(acc.reshape(lines[0].shape).movedim(-1, axis).contiguous())
+    return outs
+
+
+@pytest.mark.parametrize("n", [4, 6, 20, 24, 33, 40, 48, 63, 64, 96, 128, 160, 256,
+                               384, 512, 640, 672, 1024])
+def test_register_route_by_extent(n):
+    """n = 32 m with m in REG_M takes the register kernel, every other
+    extent the tile kernel (whose width rule still holds)."""
+    reg = n in (64, 96, 128, 256, 384, 512, 640)
+    assert compact_pcr.route(n) == ("registers" if reg else "tile")
+    if not reg and n <= 1024:
+        assert compact_pcr.tile_width(n, torch.float64, 3) in compact_pcr.WIDTHS
+
+
+@pytest.mark.parametrize("m", compact_pcr.REG_M)
+def test_reg_source_is_the_periodic_shift(m):
+    """Every shift the kernel takes (taps, PCR strides, the n/2 pairing,
+    negative and past n) lands on point (l*m + j + s) mod n."""
+    n = 32 * m
+    for s in (-2, -1, 0, 1, 2, 4, 8, 16, -16, 64, 2048, n // 2, n, n + 3, -n - 1):
+        for j in range(m):
+            q, r = compact_pcr.reg_source(j, s, m)
+            assert 0 <= q < 32 and 0 <= r < m
+            for lane in (0, 1, 17, 31):
+                assert ((lane + q) % 32) * m + r == (lane * m + j + s) % n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", REG_EXTENTS)
+@pytest.mark.parametrize("prog", ["lapl", "grad", "div", "interp-", "interp+", "op_1d"])
+def test_register_mirror_matches_plain(monkeypatch, prog, n, dtype):
+    """Each public program with its register-kernel lines run by the
+    mirror, bit-equal to the plain version, the line of n points along each
+    axis in turn (the other extents take the tile kernel's path)."""
+    used = []
+    monkeypatch.setattr(compact_pcr, "sweep",
+                        lambda program, inputs, axis, **kw: _mirror_sweep(
+                            program, inputs, axis, used))
+    for axis in range(3):
+        shape = [8, 12, 6]
+        shape[axis] = n
+        shape = tuple(shape)
+        d = tuple(1.0 / s for s in shape)
+        f = torch.as_tensor(field(shape, n + axis), dtype=dtype)
+        if prog == "div":
+            F = torch.as_tensor(field(shape + (3,), n + axis + 1), dtype=dtype)
+            got, ref = compact_pcr.div(F, d), compact_pcr.div(F, d, plain=True)
+        elif prog == "op_1d":
+            spec = compact_pcr.grad_spec(d[axis], +1, n, compact_pcr._dtype_rtol(dtype))
+            got = compact_pcr.op_1d(f, spec, axis)
+            ref = compact_pcr.op_1d(f, spec, axis, plain=True)
+        elif prog.startswith("interp"):
+            st = -1 if prog.endswith("-") else +1
+            got, ref = compact_pcr.interp(f, st), compact_pcr.interp(f, st, plain=True)
+        else:
+            fn = getattr(compact_pcr, prog)
+            got, ref = fn(f, d), fn(f, d, plain=True)
+        assert got.dtype == ref.dtype and torch.equal(got, ref), (prog, n, axis)
+    assert used and set(used) == {n}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n,exact", [(64, True), (128, True), (96, False)])
+def test_register_mirror_k14_solve(n, exact, dtype):
+    """K14's circulant solve on the register kernel: the exact schedule with
+    its (i, i+n/2) pairing at power-of-two n, the truncated one at n = 96,
+    on (n, Q) lines as tridiag_cuda passes them."""
+    rt = 0.0 if exact else compact_pcr._dtype_rtol(dtype)
+    sched = compact_pcr.pcr_schedule(9.0 / 62.0, n, rt)
+    assert (sched[2] != 0.0) == exact
+    program = (((0, (compact_pcr.solve_spec(0.8, sched),)),),)
+    d2 = torch.as_tensor(field((n, 40), n), dtype=dtype)
+    used = []
+    (got,) = _mirror_sweep(program, [d2], 0, used)
+    (ref,) = compact_pcr.sweep_plain(program, [d2], 0)
+    assert used == [n] and torch.equal(got, ref)
+
+
+def test_register_route_refuses_a_width():
+    """The lane width is the tile kernel's: a register line refuses one
+    (before anything is launched)."""
+    f = torch.zeros((2, 64, 4), dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="register kernel"):
+        compact_pcr.sweep((((0, (compact_pcr.interp_spec(-1, 64, 1e-8),)),),), [f], 1,
+                          width=16)
+
+
 def test_compact_operator_and_unknown_method():
     g = Grid3D((8, 8, 8), device="cpu")
     f = torch.as_tensor(field((8, 8, 8), 9))

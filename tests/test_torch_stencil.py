@@ -256,6 +256,72 @@ def test_stream_matvec_is_ka():
     assert abs(float(dot) - float(rdot)) <= 1e-5 * abs(float(rdot))
 
 
+def _ka_stream_mirror(u, deltas):
+    """KA's apply_dot as the streamed kernel computes it: each block of
+    ka_blocks' grid owns a 32 x 16 (z, y) tile and walks its chunk of x
+    planes, the plane at hand as a window with a 1-cell periodic halo, u[x-1]
+    carried from the step before, u[x+1] read from the next plane's window;
+    the dot summed over the block's points, one partial a block. Returns
+    (y, partials)."""
+    nx, ny, nz = u.shape
+    ivx, ivy, ivz = (1.0 / float(d) ** 2 for d in deltas)
+    center = 2.0 * (ivx + ivy + ivz)
+    gz, gy, gx, chunk = stencil_cuda.ka_blocks(u.shape)
+    y = torch.full_like(u, float("nan"))
+    parts = []
+    for bx in range(gx):
+        for by in range(gy):
+            for bz in range(gz):
+                i0, j0, k0 = bx * chunk, by * stencil_cuda.TILE_Y, bz * stencil_cuda.TILE_Z
+                jw = torch.arange(j0 - 1, j0 + stencil_cuda.TILE_Y + 1) % ny
+                kw = torch.arange(k0 - 1, k0 + stencil_cuda.TILE_Z + 1) % nz
+                oy = min(stencil_cuda.TILE_Y, ny - j0)
+                oz = min(stencil_cuda.TILE_Z, nz - k0)
+                window = lambda i: u[i % nx][jw][:, kw]
+                win = window(i0)
+                um = window(i0 - 1)[1:-1, 1:-1]
+                dot = torch.zeros((), dtype=u.dtype)
+                for t in range(min(chunk, nx - i0)):
+                    nxt = window(i0 + t + 1)
+                    c = win[1:-1, 1:-1]
+                    acc = (um + nxt[1:-1, 1:-1]) * ivx
+                    acc = acc + (win[:-2, 1:-1] + win[2:, 1:-1]) * ivy
+                    acc = acc + (win[1:-1, :-2] + win[1:-1, 2:]) * ivz
+                    out = (acc - center * c)[:oy, :oz]
+                    y[i0 + t, j0:j0 + oy, k0:k0 + oz] = out
+                    dot = dot + torch.sum(c[:oy, :oz] * out)
+                    um, win = c, nxt
+                parts.append(dot)
+    return y, torch.stack(parts)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("shape", [(64, 32, 48), (40, 36, 52), (5, 6, 7), (4, 4, 4)],
+                         ids=["aniso", "ragged", "odd", "4^3"])
+def test_streamed_apply_dot_matches_plain(shape, dtype):
+    """KA's x walk, mirrored: y bit-equal to K2's plain version, one
+    partial per block of the launch (as many as _partials allocates), their
+    sum within chip_smoke.py's reduction tolerance of the plain dot."""
+    (u,) = fields(shape, 17)
+    u = t(u).to(dtype)
+    d = Grid3D(shape, (1.0, 0.75, 1.5), device="cpu").deltas
+    y, parts = _ka_stream_mirror(u, d)
+    y0, dot0 = stencil_cuda.apply_laplacian_dot_plain(u, d)
+    assert torch.equal(y, y0)
+    assert parts.numel() == stencil_cuda._partials(u).numel()
+    red_tol = {torch.float32: 1e-4, torch.float64: 1e-10}[dtype]
+    assert abs(float(parts.sum()) - float(dot0)) <= red_tol * abs(float(dot0))
+
+
+@pytest.mark.parametrize("shape,chunk,blocks", [((256,) * 3, 8, 4096), ((512,) * 3, 64, 4096),
+                                                ((64,) * 3, 4, 128), ((4, 4, 4), 4, 1)])
+def test_ka_grid_sizes(shape, chunk, blocks):
+    """KA's grid: about KA_MIN_BLOCKS blocks at 256^3 and 512^3 (one dot
+    partial each, not one per 256 points), the chunk not below 4."""
+    gz, gy, gx, c = stencil_cuda.ka_blocks(shape)
+    assert (c, gz * gy * gx) == (chunk, blocks)
+
+
 def test_sweep_goes_through_the_colour_update():
     """A red-black sweep is two K11 colour updates, on the CPU (plain) and
     in the wrappers' call graph; the new wrappers take their plain
