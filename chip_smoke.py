@@ -30,9 +30,18 @@ and fails loudly if any phase fails:
      (tridiag.compact/dual/chain/sum) against their plain versions at 64^3
      f64, (48, 40, 96) f32 and f64 (both K15 kernels in one Laplacian),
      (33, 20, 24) f64 (an odd split for K16), 96^3 f32, 256^3 f32 and
-     512^3 f32 and f64; sweep, Laplacian, K17 mode and solve times with
-     their bounds and each K15 sweep's share of its floor (512^3 f64: the
-     sweeps and the Laplacian), K13/K14/K16 beside torch.linalg.lu_solve;
+     512^3 f32 and f64, K14-K17 bit for bit; sweep, Laplacian and solve
+     times with their bounds and each K15 sweep's share of its floor
+     (512^3 f64: the sweeps and the Laplacian), K13/K14/K16 beside
+     torch.linalg.lu_solve; K16's and K17's strip kernels timed at every
+     size the paths give them (64^3 f64, 96^3, 256^3 and 512^3 f32, 512^3
+     f64) with the lanes they take and their share of the floor;
+  5b. K16's and K17's strip kernels: every variant (32 or 16 lanes,
+     staggered workers or not) and the streaming kernel at the same five
+     sizes, each held bit-equal to its plain version once, then timed in
+     turns; then lines too long for a strip ((2048, 16, 16)
+     f32, (1024, 16, 16) f64) through the streaming kernels (the .long
+     counters), bit-equal to the plain versions;
   6. paths, each with the launch counters reset before and read after
      (failing if a red-black sweep took two launches), each checked against
      the plain PyTorch path on the card (impl="roll", transfers="roll"; for
@@ -80,9 +89,9 @@ and fails loudly if any phase fails:
        (l)   order 6 through K17: the compact operator with
              method="pallas" (the JAX package's layout-cycled Thomas
              pipeline) solved by CG + GMG at 64^3 f64 rtol 1e-8, 256^3 and
-             96^3 f32 rtol 1e-3, with the K15 path's iterations on the same
-             b; then K17's Laplacian against K15's at 512^3 f32 and f64,
-             seven pairs in turns.
+             96^3 f32 rtol 1e-3 (K17's launches printed by size), with the
+             K15 path's iterations on the same b; then K17's Laplacian
+             against K15's at 512^3 f32 and f64, seven pairs in turns.
 
 The last two lines of standard output are a JSON object with one entry
 per kernel mode, then {"ok": true, "device": {...}}.
@@ -140,8 +149,10 @@ RED_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # banded-matrix transfers against the roll form, float32
 MM_TOL = 1e-6
 # the kernels whose fields must equal their plain versions bit for bit
-# (KA's epilogues, K15 on both of its kernels, K14)
-BIT_EQUAL = ("stencil7.", "compact.", "tridiag.pcr")
+# (KA's epilogues, K15 on both of its kernels, K14, K16 and K17 on their
+# strip and streaming kernels)
+BIT_EQUAL = ("stencil7.", "compact.", "tridiag.pcr", "tridiag.babe", "tridiag.compact",
+             "tridiag.dual", "tridiag.chain", "tridiag.sum")
 
 PALLAS = "poissbox_tpu/ops/stencil_pallas.py"
 INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
@@ -178,11 +189,23 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "tridiag.dual": ("tridiag.cu", f"{TRI}:459"),
     "tridiag.chain": ("tridiag.cu", f"{TRI}:467"),
     "tridiag.sum": ("tridiag.cu", f"{TRI}:475"),
+    "tridiag.babe.long": ("tridiag.cu", f"{TRI}:330"),
+    "tridiag.compact.long": ("tridiag.cu", f"{TRI}:381"),
+    "tridiag.dual.long": ("tridiag.cu", f"{TRI}:459"),
+    "tridiag.chain.long": ("tridiag.cu", f"{TRI}:467"),
+    "tridiag.sum.long": ("tridiag.cu", f"{TRI}:475"),
 }
+# K16's and K17's modes, their streaming kernels' counters beside
+STRIP_KEYS = ("tridiag.babe", "tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum")
 # kernels that no path launches, and why (the idle check skips them; each
 # is still held to its plain version and timed)
 OFF_PATH = {"rbsor.general": "K11: every red-black sweep is one launch of the "
-                             "sweep kernel, so no path runs a single colour"}
+                             "sweep kernel, so no path runs a single colour",
+            **{f"{k}.long": "the streaming kernel takes lines too long for two strip "
+                            "workers a block (LONG_CASES); no counted path has such "
+                            "lines (lapl_pairs' 512^3 f64 Laplacian gives sum's two "
+                            "columns a lane to it)"
+               for k in STRIP_KEYS}}
 # K17's modes: field passes at the floor (inputs read once, outputs
 # written once) and operations a point (7 for the RHS taps, 2 forward, 3
 # back, 2 correction per operator; the sum's tap sum and final add)
@@ -524,6 +547,15 @@ COMPACT_CASES = [((64, 64, 64), torch.float64), ((48, 40, 96), torch.float32),
                  ((96, 96, 96), torch.float32), ((256, 256, 256), torch.float32),
                  ((512, 512, 512), torch.float32), ((512, 512, 512), torch.float64)]
 LAPL_KEYS = ("compact.z", "compact.y", "compact.x")   # lapl_sweeps' order
+# the sizes at which the paths launch K16 and K17 (path (f): 512^3 f32,
+# 64^3 f64; path (l): 64^3 f64, 256^3 and 96^3 f32; lapl_pairs: 512^3 f32
+# and f64), each timed with its share of the floor
+STRIP_TIMED = (((64, 64, 64), torch.float64), ((96, 96, 96), torch.float32),
+               ((256, 256, 256), torch.float32), ((512, 512, 512), torch.float32),
+               ((512, 512, 512), torch.float64))
+# lines too long for two strip workers a block: K16's and K17's streaming
+# kernels (the .long counters)
+LONG_CASES = [((2048, 16, 16), torch.float32), ((1024, 16, 16), torch.float64)]
 
 
 def program_ops(program) -> int:
@@ -644,6 +676,8 @@ def check_compact(stats: dict) -> None:
         del F
         if shape[0] in (256, 512):
             time_compact(stats, f, d)
+        if (shape, dtype) in STRIP_TIMED:
+            time_strips(stats, f, d)
         del f
         torch.cuda.empty_cache()
 
@@ -716,14 +750,132 @@ def time_compact(stats: dict, f, d) -> None:
                                            **bd)
         del x
     del lu, piv, B
-    for mode, call in k17_calls(f, d).items():
-        passes, ops = K17_MODES[mode]
-        ms, plain_ms = median_ms(call), median_ms(lambda: call(plain=True), reps=3, warm=1)
-        bd = bound(passes * f.nbytes, ops * f.numel())
-        print(f"  tridiag.{mode} (K17) {n}^3 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}, {passes} passes)", flush=True)
+
+
+def strip_calls(f, d) -> dict:
+    """K17's modes (k17_calls) and K16's periodic solve along axis 0 of f:
+    counter -> call(plain=False)."""
+    fac = CudaTridiagFactor(*tridiag_system(f.shape[0], f.dtype), periodic=True,
+                            algorithm="babe")
+    calls = {f"tridiag.{mode}": call for mode, call in k17_calls(f, d).items()}
+    calls["tridiag.babe"] = lambda plain=False: fac.solve(f, 0, plain=plain)
+    return calls
+
+
+def strip_floor(key, f) -> dict:
+    """K16's or K17's bound on f: its field passes and operations a point."""
+    passes, ops = K17_MODES.get(key.split(".")[1], (2, 7))
+    return bound(passes * f.nbytes, ops * f.numel())
+
+
+def time_strips(stats: dict, f, d) -> None:
+    """K17's modes and K16 at one of their path sizes: kernel time, the
+    strip lanes the route takes, bound and share of it; at 512^3 f32 also
+    the plain versions' times, and the JSON entries."""
+    n, Q = f.shape[0], f.numel() // f.shape[0]
+    tag = f"{n}^3 {str(f.dtype).replace('torch.', '')}"
+    record = n == 512 and f.dtype == torch.float32
+    for key, call in strip_calls(f, d).items():
+        ms = median_ms(call)
+        bd = strip_floor(key, f)
+        mode = key.split(".")[1]
+        lanes = tridiag_cuda.strip_lanes(mode, n, Q, f.dtype, f.device)
+        route = f"{lanes}-lane strips" if lanes else "streaming kernel"
+        line = (f"  {key} {tag}: kernel {ms:.4f} ms ({route}), bound "
+                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {share(bd, ms)}")
         if record:
-            stats[f"tridiag.{mode}"].update(ms=ms, plain_ms=plain_ms, **bd)
+            plain_ms = median_ms(lambda: call(plain=True), reps=3, warm=1)
+            stats[key].update(ms=ms, plain_ms=plain_ms, **bd)
+            line += f"; plain {plain_ms:.4f} ms"
+        print(line, flush=True)
+
+
+# the strip kernels' variants: (lanes, stagger), and lanes 0 for the
+# streaming kernel (the design before the strips)
+VARIANTS = ((32, 0), (32, 1), (16, 0), (16, 1), (0, -1))
+
+
+def variant_name(lanes: int, stagger: int) -> str:
+    return f"{lanes} lanes, stagger {stagger}" if lanes else "streaming"
+
+
+def strip_variants(stats: dict, smi) -> None:
+    """What chose the strip kernels' lanes and stagger, and what they
+    replaced: at every size of STRIP_TIMED, K17's modes and K16 on each
+    variant (VARIANTS, forced through tridiag_cuda._forced_strip), each
+    first held bit-equal to its plain version, then timed as the median of
+    10 calls, in turns (the list, then the list reversed). A variant
+    whose strip does not fit one worker a block (the rule the route uses)
+    is said so before any launch; every launch error raises. The streaming
+    kernels' JSON entries take their 512^3 f32 times."""
+    for shape, dtype in STRIP_TIMED:
+        g = torch.Generator(device=DEVICE).manual_seed(29)
+        f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        d = tuple(1.0 / n for n in shape)
+        n, tag = shape[0], f"{shape[0]}^3 {str(dtype).replace('torch.', '')}"
+        record = n == 512 and dtype == torch.float32
+        forced = lambda key, la, st: tridiag_cuda._forced_strip(
+            key.split(".")[1], n, dtype, f.device, la, st)
+        calls, ts = strip_calls(f, d), {}
+        for key, call in calls.items():
+            ref = call(plain=True)
+            for la, st in VARIANTS:
+                name = f"{key} {variant_name(la, st)}"
+                counter = key if la else f"{key}.long"
+                with forced(key, la, st) as fits:
+                    if not fits:
+                        print(f"  {tag} {name}: the strip does not fit one worker a block",
+                              flush=True)
+                        continue
+                    before = sc.LAUNCHES[counter]
+                    err = compare(f"{name} {tag}", call(), ref)
+                torch.cuda.synchronize()
+                if sc.LAUNCHES[counter] != before + 1:
+                    raise AssertionError(f"{name} {tag} did not launch {counter}")
+                if err != 0.0:
+                    raise AssertionError(f"{name} {tag}: field max|diff| {err:.3e}, "
+                                         "not bit-equal")
+                stats[counter]["max_abs_err"] = max(stats[counter]["max_abs_err"], err)
+                ts[name] = (key, la, st, [])
+            del ref
+        for order in (list(ts), list(ts)[::-1]):
+            for name in order:
+                key, la, st, v = ts[name]
+                with forced(key, la, st):
+                    v.append(median_ms(calls[key], reps=10, warm=2))
+        for name, (key, la, st, v) in ts.items():
+            ms = statistics.median(v)
+            print(f"  {tag} {name}: {ms:.4f} ms ({' / '.join(f'{t:.4f}' for t in v)}), "
+                  f"{share(strip_floor(key, f), ms)}", flush=True)
+            if record and la == 0:
+                stats[f"{key}.long"].update(ms=ms, plain_ms=stats[key]["plain_ms"],
+                                            **strip_floor(key, f))
+        print(f"  ({smi})", flush=True)
+        del f, calls
+        torch.cuda.empty_cache()
+
+
+def check_long(stats: dict) -> None:
+    """K16 and K17 on lines too long for two strip workers a block
+    (LONG_CASES): the route must take the streaming kernels (.long
+    counters), each field bit-equal to its plain version."""
+    for shape, dtype in LONG_CASES:
+        g = torch.Generator(device=DEVICE).manual_seed(sum(shape))
+        f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        d = tuple(1.0 / n for n in shape)
+        for key, call in strip_calls(f, d).items():
+            before = sc.LAUNCHES[f"{key}.long"]
+            err = compare(f"{key} {shape} {dtype}", call(), call(plain=True))
+            torch.cuda.synchronize()
+            if sc.LAUNCHES[f"{key}.long"] != before + 1:
+                raise AssertionError(f"{key} at {shape} {dtype} did not take the streaming kernel")
+            if err != 0.0:
+                raise AssertionError(f"{key}.long {shape} {dtype}: field max|diff| {err:.3e}, "
+                                     "not bit-equal")
+            stats[f"{key}.long"]["max_abs_err"] = max(stats[f"{key}.long"]["max_abs_err"], err)
+        print(f"  K16 and K17 at {shape} {dtype} (lines of {shape[0]}): the streaming kernels, "
+              "bit-equal to the plain versions", flush=True)
+        del f
 
 
 def rhs(solver, n, dtype):
@@ -934,17 +1086,21 @@ def solve6_thomas_case(n, dtype, rtol, argv):
     solver = ksp.make_solver(A, SolverOptions.from_options(opts), dtype=dtype, grid=grid)
     b = make_compact_laplacian_operator(grid)(smooth_u(grid, dtype))
     torch.cuda.synchronize()
+    before = dict(sc.LAUNCHES)
     t0 = time.perf_counter()
     res = solver(b)
     t_solve = time.perf_counter() - t0
     its = int(res.iterations)
+    k17 = {k: v - before[k] for k, v in sc.LAUNCHES.items()
+           if k.startswith("tridiag.") and v != before[k]}
     rel = float(torch.linalg.vector_norm(A(res.x) - b) / torch.linalg.vector_norm(b))
     if (tuple(res.x.shape) != (n,) * 3 or not bool(torch.isfinite(res.x).all())
             or not res.reason_enum() > 0 or not rel <= rtol * 1.01):
         raise AssertionError(f"order 6 K17 {n}^3 {dtype}: {its} iterations, "
                              f"{res.reason_enum().name}, relative residual {rel:.3e}")
     print(f"  order 6 through K17 {n}^3 {dtype} rtol {rtol:g}: {its} iterations, relative "
-          f"residual {rel:.3e}, first solve {t_solve * 1e3:.2f} ms", flush=True)
+          f"residual {rel:.3e}, first solve {t_solve * 1e3:.2f} ms; K17 launches at this "
+          f"size {k17}", flush=True)
     return solver, b, its
 
 
@@ -1475,6 +1631,10 @@ def main() -> int:
 
     phase("compact and tridiagonal kernels against plain versions")
     check_compact(stats)
+
+    phase("K16's and K17's strip kernels: variants and long lines")
+    strip_variants(stats, smi)
+    check_long(stats)
 
     phase("paths")
     totals = {k: 0 for k in sc.LAUNCHES}

@@ -145,7 +145,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_compact_thomas.argtypes = ([i, i, i, p] + [p] * 6 + [p] * 8
                                             + [d, d, i, i] * 2 + [i, ll])
     lib.poissbox_compact_thomas.restype = i
-
+    lib.poissbox_strip_lanes.argtypes = [i, i, i, ll, i]
+    lib.poissbox_strip_lanes.restype = i
+    lib.poissbox_strip_force.argtypes = [i] * 6
+    lib.poissbox_strip_force.restype = i
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""

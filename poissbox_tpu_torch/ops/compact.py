@@ -25,8 +25,9 @@ x, y, z sweeps (vertex -> cell); `lapl` is div(grad).
     ``_fused_ok``) have no counterpart: a thread-per-line kernel has no
     minimum batch. This path exists only so that the option means what it
     means in the JAX package: no workload prefers it (on an H100 its
-    Laplacian takes 3.2x K15's at 512^3 f32 and 2.1x in f64, PERF.md), and
-    once option parity is no longer required it should go, or route to K15;
+    Laplacian takes about 8.9x K15's at 512^3 f32 and 6.6x in f64, most of
+    it in the 13 layout transposes, PERF.md), and once option parity is no
+    longer required it should go, or route to K15;
   * ``"pscan"``, ``"seq"``: the RHS built with rolls, then the
     :class:`~poissbox_tpu_torch.ops.tridiag.TridiagFactor` solve (the
     plain, kernel-free path; the reference against which the kernel paths

@@ -18,7 +18,7 @@ result is moved back.
     and the back substitution runs outward from m; each step advances both
     recurrences, halving the dependent depth. Its operands come from a
     numpy float64 setup (the JAX package's ``_babe_setup``), cast to the
-    factor's dtype.
+    factor's dtype. Lines run on the strip kernel (below).
   * ``algorithm="pcr"`` (K14): the circulant PCR solve d <- d*scale, then
     the truncated schedule, on K15's line kernel (``csrc/compact.cu``)
     with its RHS taps off. Only periodic, constant, symmetric, diagonally
@@ -29,12 +29,21 @@ result is moved back.
 
 K17 fuses the staggered compact-scheme RHS, a*(f[i+sh] + s*f[i+sh-1]) +
 b*(f[i+sh+1] + s*f[i+sh-2]) (indices mod n), into the Thomas sweeps along
-axis 0 of a 3-D field, one thread per line: ``solve_compact`` (one
-operator), :func:`compact_dual` (two operators of one input),
-:func:`compact_chain` (op2(op1(f)) along one axis) and
-:func:`compact_sum` (op1(fa + fb) + op2(f3)). A spec is (a, b, opsign,
-shift); each operator brings its own factor, whose Thomas vectors a PCR or
-babe factor builds when a fused entry first needs them.
+axis 0 of a 3-D field: ``solve_compact`` (one operator),
+:func:`compact_dual` (two operators of one input), :func:`compact_chain`
+(op2(op1(f)) along one axis) and :func:`compact_sum` (op1(fa + fb) +
+op2(f3)). A spec is (a, b, opsign, shift); each operator brings its own
+factor, whose Thomas vectors a PCR or babe factor builds when a fused
+entry first needs them.
+
+K16 and K17 run on strip kernels: a worker of 32 or 16 lanes holds whole
+lines in shared memory from load to store, one lane per line, so HBM sees
+each input and output once. :func:`strip_lanes` says what a shape takes;
+lines too long for a strip take the streaming kernels (one thread per line
+through HBM). :func:`compact_strip_mirror` and
+:func:`babe_strip_mirror` run the strip kernels' algorithm on the CPU: the
+same chunked loads, in-place overwrites and held taps, bit-equal to the
+plain versions.
 
 A CPU tensor runs the plain versions (:func:`thomas_plain`,
 :func:`babe_plain`, :func:`compact_thomas_plain`, ``compact_pcr._vop``):
@@ -42,10 +51,14 @@ the Pallas kernels' row loops on (n, B) tensors. A CUDA tensor launches the
 kernel or raises; any other device raises. Launches count in
 :data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES` as ``tridiag.thomas``,
 ``tridiag.pcr``, ``tridiag.babe``, ``tridiag.compact``, ``tridiag.dual``,
-``tridiag.chain`` and ``tridiag.sum``.
+``tridiag.chain`` and ``tridiag.sum``, with ``.long`` for the streaming
+kernels of K16 and K17.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -62,8 +75,8 @@ from poissbox_tpu_torch.ops.tridiag import TridiagFactor
 
 Tensor = torch.Tensor
 
-# K17's modes and their codes in the C entry
-_MODES = {"compact": 0, "dual": 1, "chain": 2, "sum": 3}
+# K17's modes and their codes in the C entry; K16's code in strip_lanes
+_MODES = {"compact": 0, "dual": 1, "chain": 2, "sum": 3, "babe": 4}
 
 
 # ---------------------------------------------------------------------------
@@ -154,6 +167,269 @@ def compact_thomas_plain(mode: str, inputs, facs, specs):
         return torch.stack(solve(rows(f3), 1)) + torch.stack(acc)
     raise ValueError(f"unknown compact mode {mode!r}")
 
+
+# ---------------------------------------------------------------------------
+# the strip kernels (csrc/tridiag.cu), mirrored on the CPU
+# ---------------------------------------------------------------------------
+
+STRIP_CHUNK = 16   # kChunk: rows of one cp.async group
+STRIP_DEPTH = 32   # kDepth: groups issued up front; a chunk's sweep waits for two
+STRIP_BLOCK = 8    # kU: rows read into registers before any of them is written
+
+
+class _Feed:
+    """A lane set's cp.async groups: group c copies, for each (global,
+    strip column, rows) part, the (source row, strip row) pairs rows(c);
+    ``wait(k)`` lands every group but the k most recent. A row read before
+    it lands reads the strip's NaN, and a group that lands over a row the
+    sweep already wrote undoes it, so either fault shows in the result."""
+
+    def __init__(self, parts):
+        self.parts, self.pending = parts, []
+
+    def issue(self, c: int) -> None:
+        self.pending.append([(src, dst, rows(c)) for src, dst, rows in self.parts])
+
+    def start(self) -> None:
+        for c in range(STRIP_DEPTH):
+            self.issue(c)
+
+    def wait(self, k: int) -> None:
+        while len(self.pending) > k:
+            for src, dst, rows in self.pending.pop(0):
+                for r_src, r_dst in rows:
+                    dst[r_dst] = src[r_src]
+
+
+def _chunk_rows(n: int):
+    return lambda c: [(r, r) for r in range(c * STRIP_CHUNK, min(n, (c + 1) * STRIP_CHUNK))]
+
+
+def _forward_strip(spec, w, x, y, tap, feed, n: int):
+    """`forward_strip`: op's forward sweep over a lane set's columns x
+    (plus y: the sum's fb), dmod_i written over x[i]; the taps start from
+    `tap` and the wrapped ones come from the held rows h0, h1. Returns
+    dmod_{n-1}."""
+    a, b, opsign, sh = spec
+    s = float(opsign)
+    rhs = lambda t0, t1, t2, t3: a * (t2 + s * t1) + b * (t3 + s * t0)
+    t0, t1, t2, t3 = (tap(j % n) for j in (sh - 2, sh - 1, sh, sh + 1))
+    h0, h1 = tap(0), tap(1 % n)
+    wrap = n - 1 - sh
+    prev = None
+    for c in range(-(-n // STRIP_CHUNK)):
+        if feed is not None:
+            feed.wait(STRIP_DEPTH - 2)
+        hi = min(n, (c + 1) * STRIP_CHUNK)
+        i = c * STRIP_CHUNK
+        if i == 0:
+            prev = rhs(t0, t1, t2, t3)
+            x[0] = prev
+            i = 1
+        main_end = min(hi, wrap)
+        tap_at = lambda j: x[j].clone() if y is None else x[j] + y[j]
+        while i < main_end:   # kU rows' taps, then their steps; then row by row
+            rows = range(i, i + STRIP_BLOCK) if i + STRIP_BLOCK <= main_end else [i]
+            for r, t in list(zip(rows, [tap_at(r + sh + 1) for r in rows])):
+                t0, t1, t2, t3 = t1, t2, t3, t
+                v = rhs(t0, t1, t2, t3) - w[r] * prev
+                x[r] = v
+                prev = v
+            i += len(rows)
+        for i in range(i, hi):   # the new tap past the line's end
+            t0, t1, t2, t3 = t1, t2, t3, h0 if i + sh + 1 == n else h1
+            v = rhs(t0, t1, t2, t3) - w[i] * prev
+            x[i] = v
+            prev = v
+        if feed is not None:
+            feed.issue(c + STRIP_DEPTH)
+    if feed is not None:
+        feed.wait(0)
+    return prev
+
+
+def _backward_strip(fac, x, last, n: int):
+    """`backward_strip`: the back substitution on the strip; returns the
+    uncorrected (x_0, x_{n-1})."""
+    _, binv, cb, _ = fac
+    vn = last * binv[n - 1]
+    x[n - 1] = vn
+    prev = vn
+    i = n - 2
+    while i >= 0:   # kU rows, then row by row
+        rows = range(i, i - STRIP_BLOCK, -1) if i >= STRIP_BLOCK - 1 else [i]
+        for r, xr in list(zip(rows, [x[r].clone() for r in rows])):
+            v = xr * binv[r] - cb[r] * prev
+            x[r] = v
+            prev = v
+        i -= len(rows)
+    return prev, vn
+
+
+def _correction(corr, x0, xn):
+    """`Correction`: row i of the corrected solution on the strip."""
+    if float(corr[1]) == 0.0:
+        return lambda x, i: x[i].clone()
+    factor = (x0 + corr[0] * xn) * corr[1]
+    return lambda x, i: x[i] - corr[2 + i] * factor
+
+
+def _each_row(n: int, get, put) -> None:
+    """`each_row`: put(i, get(i)) in blocks of kU rows whose gets come
+    first, then row by row."""
+    i = 0
+    while i < n:
+        rows = range(i, i + STRIP_BLOCK) if i + STRIP_BLOCK <= n else [i]
+        for r, v in list(zip(rows, [get(r) for r in rows])):
+            put(r, v)
+        i += len(rows)
+
+
+def _rows(n: int, get) -> list:
+    out = [None] * n
+    _each_row(n, get, out.__setitem__)
+    return out
+
+
+class _Strip:
+    """The blocks of a strip kernel side by side: a NaN strip of (n,
+    blocks, pitch) values, and the (n, blocks, lines) view of a global
+    (n, Q) field that a lane set reads (a lane past the last line reads
+    line Q-1, as the kernel does)."""
+
+    def __init__(self, n: int, Q: int, lines: int, pitch: int, like: Tensor):
+        self.n, self.Q, self.lines = n, Q, lines
+        self.blocks = -(-Q // lines)
+        self.s = torch.full((n, self.blocks, pitch), float("nan"), dtype=like.dtype)
+        self.q = torch.arange(self.blocks * lines).clamp(max=Q - 1)
+
+    def col(self, lo: int):
+        return self.s[:, :, lo:lo + self.lines]
+
+    def gather(self, f: Tensor) -> Tensor:
+        return f[:, self.q].reshape(self.n, self.blocks, self.lines)
+
+    def scatter(self, rows: list) -> Tensor:
+        return torch.stack(rows).reshape(self.n, -1)[:, :self.Q]
+
+
+def _solve_fed(st: _Strip, spec, fac, x, g0, g1=None, y=None):
+    """Load g0 (and g1 into y) by chunks and sweep op over them: x then
+    holds the back substitution; returns (x_0, x_{n-1})."""
+    n = st.n
+    rows = _chunk_rows(n)
+    feed = _Feed([(g0, x, rows)] + ([(g1, y, rows)] if g1 is not None else []))
+    feed.start()
+    tap = (lambda j: g0[j].clone()) if g1 is None else (lambda j: g0[j] + g1[j])
+    last = _forward_strip(spec, fac[0], x, y, tap, feed, n)
+    return _backward_strip(fac, x, last, n)
+
+
+def compact_strip_mirror(mode: str, inputs, facs, specs, lanes: int = 32):
+    """K17's strip kernel (`compact_strip_kernel`) on (n, Q) inputs, on the
+    CPU: workers of `lanes` lanes, the same chunked loads, tap window, held
+    rows, in-place overwrites and stores. Returns what
+    :func:`compact_thomas_plain` returns, bit for bit."""
+    f = inputs[0]
+    n, Q = f.shape
+    st = _Strip(n, Q, lanes, 2 * lanes if mode == "sum" else lanes, f)
+    g = [st.gather(t) for t in inputs]
+
+    def store(fac, x, ends):
+        corr = _correction(fac[3], *ends)
+        return st.scatter(_rows(n, lambda i: corr(x, i)))
+
+    def correct(fac, x, ends):
+        corr = _correction(fac[3], *ends)
+        _each_row(n, lambda i: corr(x, i), x.__setitem__)
+
+    if mode in ("compact", "dual"):
+        x = st.col(0)
+        out0 = store(facs[0], x, _solve_fed(st, specs[0], facs[0], x, g[0]))
+        if mode == "compact":
+            return out0
+        # f once more, for op2
+        return out0, store(facs[1], x, _solve_fed(st, specs[1], facs[1], x, g[0]))
+    if mode == "chain":
+        x = st.col(0)
+        correct(facs[0], x, _solve_fed(st, specs[0], facs[0], x, g[0]))
+        # op2's window and held rows are op1's solution, read from the strip
+        last = _forward_strip(specs[1], facs[1][0], x, None, lambda j: x[j].clone(), None, n)
+        return store(facs[1], x, _backward_strip(facs[1], x, last, n))
+    if mode == "sum":   # op1 on fa + fb in x (fb in y), then op2 on f3 in y
+        x, y = st.col(0), st.col(lanes)
+        correct(facs[0], x, _solve_fed(st, specs[0], facs[0], x, g[0], g[1], y))
+        corr2 = _correction(facs[1][3], *_solve_fed(st, specs[1], facs[1], y, g[2]))
+        return st.scatter(_rows(n, lambda i: corr2(y, i) + x[i]))
+    raise ValueError(f"unknown compact mode {mode!r}")
+
+
+def babe_strip_mirror(wv, binv, ca, corr, d: Tensor, m: int, lanes: int = 32) -> Tensor:
+    """K16's strip kernel (`babe_strip_kernel`) on a (n, Q) RHS, on the
+    CPU: loads from both ends by chunks, both eliminations in place, the
+    middle row, the outward back substitution and the corrected store;
+    bit-equal to :func:`babe_plain`."""
+    n, Q = d.shape
+    st = _Strip(n, Q, lanes, lanes, d)
+    x, g = st.col(0), st.gather(d)
+    C = STRIP_CHUNK
+    rows = lambda c: [(r, r) for r in (list(range(c * C, min(m + 1, (c + 1) * C)))
+                                       + list(range(n - 1 - c * C,
+                                                    max(m + 1, n - (c + 1) * C) - 1, -1)))]
+    feed = _Feed([(g, x, rows)])
+    feed.start()
+    feed.wait(STRIP_DEPTH - 1)
+    lo, hi = x[0].clone(), x[n - 1].clone()
+    kd, ku = m, n - 2 - m
+    ke = max(kd, ku)
+    U = STRIP_BLOCK
+    for c in range(-(-ke // C)):
+        feed.wait(STRIP_DEPTH - 2)
+        k, k1 = c * C, min(ke, (c + 1) * C)
+        while k + U <= min(k1, kd, ku):   # both chains: the block's rows, then its steps
+            xd = [x[1 + k + u].clone() for u in range(U)]
+            xu = [x[n - 2 - k - u].clone() for u in range(U)]
+            for u in range(U):
+                lo = xd[u] - wv[1 + k + u] * lo
+                x[1 + k + u] = lo
+                hi = xu[u] - wv[n - 2 - k - u] * hi
+                x[n - 2 - k - u] = hi
+            k += U
+        for k in range(k, k1):
+            if k < kd:
+                i = 1 + k
+                lo = x[i] - wv[i] * lo
+                x[i] = lo
+            if k < ku:
+                j = n - 2 - k
+                hi = x[j] - wv[j] * hi
+                x[j] = hi
+        feed.issue(c + STRIP_DEPTH)
+    feed.wait(0)
+    xm = (lo - corr[n + 2] * hi) * binv[m]
+    x[m] = xm
+    lo = hi = xm
+    k = 0
+    while k + U <= m:   # both directions: the block's rows, then its steps
+        xd = [x[m - 1 - k - u].clone() for u in range(U)]
+        xu = [x[m + 1 + k + u].clone() for u in range(U)]
+        for u in range(U):
+            lo = (xd[u] - ca[m - 1 - k - u] * lo) * binv[m - 1 - k - u]
+            x[m - 1 - k - u] = lo
+            hi = (xu[u] - ca[m + 1 + k + u] * hi) * binv[m + 1 + k + u]
+            x[m + 1 + k + u] = hi
+        k += U
+    for k in range(k, n - 1 - m):
+        if k < m:
+            i = m - 1 - k
+            lo = (x[i] - ca[i] * lo) * binv[i]
+            x[i] = lo
+        if k < n - 1 - m:
+            j = m + 1 + k
+            hi = (x[j] - ca[j] * hi) * binv[j]
+            x[j] = hi
+    out = _correction(corr, lo, hi)
+    return st.scatter(_rows(n, lambda i: out(x, i)))
 
 # ---------------------------------------------------------------------------
 # the twisted factorization's setup (numpy, float64, once)
@@ -280,20 +556,65 @@ def _fused(mode: str, inputs, facs, specs, plain: bool):
     return tuple(o.reshape(shape) for o in out) if mode == "dual" else out.reshape(shape)
 
 
+@functools.lru_cache(maxsize=None)
+def _strip_lanes(code: int, mode: int, n: int, Q: int, index: int) -> int:
+    lanes = _build.load().poissbox_strip_lanes(code, mode, n, Q, index)
+    if lanes < 0:
+        raise RuntimeError(f"poissbox_strip_lanes: error {-lanes}")
+    return lanes
+
+
+def _index(device) -> int:
+    device = torch.device(device)
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
+def strip_lanes(mode: str, n: int, Q: int, dtype: torch.dtype, device) -> int:
+    """The lanes of a strip worker that K17's `mode` (or K16, "babe")
+    takes on Q lines of n rows of `dtype` on CUDA `device`: 32 when a block
+    holds three 32-lane workers beside its factor tables and the lines make
+    two strips an SM, else 16 when it holds two 16-lane workers, else 0
+    (the streaming kernel)."""
+    return _strip_lanes(DTYPE_CODE[dtype], _MODES[mode], n, Q, _index(device))
+
+
+@contextlib.contextmanager
+def _forced_strip(mode: str, n: int, dtype: torch.dtype, device, lanes: int, stagger: int):
+    """For chip_smoke.py's comparison of the variants: inside, every K16
+    and K17 launch takes `lanes` (32 or 16 the strip kernel, 0 the
+    streaming one) and `stagger` (1 a block's workers in turn, 0 at once).
+    Yields False, and forces nothing, when a strip of `lanes` lanes of
+    lines of n rows does not fit one worker a block of `mode`."""
+    lib = _build.load()
+    code = DTYPE_CODE[dtype]
+    fits = lib.poissbox_strip_force(code, _MODES[mode], n, lanes, stagger, _index(device))
+    if fits < 0:
+        raise RuntimeError(f"poissbox_strip_force: error {-fits}")
+    _strip_lanes.cache_clear()
+    try:
+        yield bool(fits)
+    finally:
+        lib.poissbox_strip_force(code, _MODES[mode], n, -1, -1, _index(device))
+        _strip_lanes.cache_clear()
+
+
 def _launch_compact(mode: str, ins, fvs, specs):
+    """One K17 launch on the kernel strip_lanes picks."""
     f0 = ins[0]
     n, Q = f0.shape
+    lanes = strip_lanes(mode, n, Q, f0.dtype, f0.device)
     outs = [torch.empty_like(f0) for _ in range(2 if mode == "dual" else 1)]
-    mid = torch.empty_like(f0) if mode in ("chain", "sum") else None
+    # the streaming kernel solves chain's and sum's op1 in a scratch field
+    mid = torch.empty_like(f0) if lanes == 0 and mode in ("chain", "sum") else None
     pad = lambda seq, k: list(seq) + [None] * (k - len(seq))
     fv2 = fvs[1] if len(fvs) > 1 else (None,) * 4
     sp2 = specs[1] if len(specs) > 1 else (0.0, 0.0, 1, 0)
     lib = _build.load()
     err = lib.poissbox_compact_thomas(
         DTYPE_CODE[f0.dtype], _MODES[mode], f0.device.index or 0, _stream(f0),
-        *map(_ptr, pad(ins, 3)), *map(_ptr, pad(outs, 2)), _ptr(mid),
-        *map(_ptr, fvs[0]), *map(_ptr, fv2), *specs[0], *sp2, n, Q)
-    key = f"tridiag.{mode}"
+        *map(_ptr, pad(ins, 3)), *map(_ptr, pad(outs, 2)), _ptr(mid), *map(_ptr, fvs[0]),
+        *map(_ptr, fv2), *specs[0], *sp2, n, Q)
+    key = f"tridiag.{mode}" + ("" if lanes else ".long")
     _raise_on(lib, err, key)
     LAUNCHES[key] += 1
     return tuple(outs) if mode == "dual" else outs[0]
@@ -309,7 +630,7 @@ def compact_dual(f: Tensor, fac1, spec1, fac2, spec2, *, plain: bool = False):
 
 def compact_chain(f: Tensor, fac1, spec1, fac2, spec2, *, plain: bool = False) -> Tensor:
     """op2(op1(f)) along axis 0 in one K17 launch (chain mode; op1's
-    solution waits in a scratch field)."""
+    solution stays on chip for op2: 2 field passes at the floor)."""
     return _fused("chain", [f], [fac1, fac2], [spec1, spec2], plain)
 
 
@@ -406,15 +727,26 @@ class CudaTridiagFactor:
         v = self._on(d2.device, self.algorithm)
         if use_plain:
             return babe_plain(*v, d2, self.babe_m) if babe else thomas_plain(*v, d2)
+        if babe:
+            return self._launch_babe(d2)
         x = torch.empty_like(d2)
         lib = _build.load()
-        head = (DTYPE_CODE[d2.dtype], d2.device.index or 0, _stream(d2), _ptr(d2),
-                _ptr(x), *map(_ptr, v))
-        if babe:
-            err = lib.poissbox_babe(*head, self.n, self.babe_m, d2.shape[1])
-        else:
-            err = lib.poissbox_thomas(*head, self.n, d2.shape[1])
-        key = f"tridiag.{self.algorithm}"
+        err = lib.poissbox_thomas(DTYPE_CODE[d2.dtype], d2.device.index or 0, _stream(d2),
+                                  _ptr(d2), _ptr(x), *map(_ptr, v), self.n, d2.shape[1])
+        _raise_on(lib, err, "tridiag.thomas")
+        LAUNCHES["tridiag.thomas"] += 1
+        return x
+
+    def _launch_babe(self, d2: Tensor) -> Tensor:
+        """One K16 launch on the contiguous (n, B) CUDA RHS, on the kernel
+        strip_lanes picks."""
+        lanes = strip_lanes("babe", self.n, d2.shape[1], d2.dtype, d2.device)
+        x = torch.empty_like(d2)
+        lib = _build.load()
+        err = lib.poissbox_babe(DTYPE_CODE[d2.dtype], d2.device.index or 0, _stream(d2),
+                                _ptr(d2), _ptr(x), *map(_ptr, self._on(d2.device, "babe")),
+                                self.n, self.babe_m, d2.shape[1])
+        key = "tridiag.babe" + ("" if lanes else ".long")
         _raise_on(lib, err, key)
         LAUNCHES[key] += 1
         return x

@@ -205,3 +205,65 @@ def test_pallas_cg_gmg_matches_jax_order6():
     assert rel <= rtol * 1.01
     np.testing.assert_allclose(res.x.numpy(), np.asarray(ref.x), rtol=0,
                                atol=1e-8 * np.abs(np.asarray(ref.x)).max())
+
+
+# K17's strip kernel, mirrored on the CPU: (opsign, shift) of op1 and op2,
+# every opsign and shift, the two shifts of a pair equal and not
+STRIP_PAIRS = [((1, 0), (-1, 0)), ((-1, 1), (1, 1)), ((1, 1), (-1, 0)), ((-1, 0), (1, 1))]
+STRIP_Q = 37   # ragged for every block width (32 and 16 lines)
+
+
+def _strip_case(n, dtype, seed):
+    """Fields (n, STRIP_Q) and two operators' factors on them: a periodic
+    (alpha, 1, alpha) system and a non-periodic general one (no correction)."""
+    g = np.random.default_rng(seed)
+    fs = [torch.as_tensor(g.uniform(-1.0, 1.0, (n, STRIP_Q)), dtype=dtype) for _ in range(3)]
+    per = compact._pfac(n, 0.3, dtype)
+    a, c = g.uniform(-0.3, 0.3, n), g.uniform(-0.3, 0.3, n)
+    gen = tridiag_cuda.CudaTridiagFactor(
+        *(torch.as_tensor(v, dtype=dtype) for v in (a, g.uniform(1.0, 2.0, n), c)),
+        periodic=False, algorithm="thomas")
+    return fs, [fac._on("cpu", "thomas") for fac in (per, gen)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [8, 33, 64, 96])
+@pytest.mark.parametrize("mode", ["compact", "dual", "chain", "sum"])
+def test_strip_mirror_matches_plain(mode, n, dtype):
+    """The strip kernel's algorithm (compact_strip_mirror: chunked loads,
+    the tap window, rows 0 and 1 held for the wrapped taps, dmod written
+    over its input row, chain's op2 reading op1's line from the strip,
+    dual's second load of f, sum's fb and op2 in a second column) at 32
+    and 16 lanes, bit for bit equal to the plain version, for every opsign
+    and shift and a ragged last block; n = 33 and 96 end in a partial
+    chunk."""
+    fs, (per, gen) = _strip_case(n, dtype, n)
+    a, b = 0.7, 0.15
+    for (s1, sh1), (s2, sh2) in STRIP_PAIRS:
+        specs = [(a, b, s1, sh1), (-b, 1.3 * a, s2, sh2)]
+        for facs in ([per, per], [per, gen], [gen, per]):
+            if mode == "compact":
+                facs, specs_m = facs[:1], specs[:1]
+            else:
+                specs_m = specs
+            ins = fs if mode == "sum" else fs[:1]
+            ref = tridiag_cuda.compact_thomas_plain(mode, ins, facs, specs_m)
+            for lanes in (32, 16):
+                got = tridiag_cuda.compact_strip_mirror(mode, ins, facs, specs_m, lanes=lanes)
+                for g_, r_ in zip(got if mode == "dual" else (got,),
+                                  ref if mode == "dual" else (ref,)):
+                    assert g_.dtype == r_.dtype and torch.equal(g_, r_), (lanes, specs_m)
+
+
+def test_strip_mirror_catches_a_short_wait(monkeypatch):
+    """The mirror shows the fault it is there for: a sweep that waits for
+    one group fewer (group c, not c and c+1) reads rows that have not
+    landed, and the result differs from the plain version."""
+    fs, (per, _) = _strip_case(64, torch.float64, 3)
+    spec = (0.7, 0.15, -1, 1)
+    ref = tridiag_cuda.compact_thomas_plain("compact", fs[:1], [per], [spec])
+    assert torch.equal(tridiag_cuda.compact_strip_mirror("compact", fs[:1], [per], [spec]), ref)
+    wait = tridiag_cuda._Feed.wait
+    monkeypatch.setattr(tridiag_cuda._Feed, "wait", lambda self, k: wait(self, k and k + 1))
+    got = tridiag_cuda.compact_strip_mirror("compact", fs[:1], [per], [spec])
+    assert not torch.equal(got, ref)

@@ -13,7 +13,7 @@ import torch
 
 from poissbox_tpu.ops import tridiag as jtri
 from poissbox_tpu.ops.tridiag_pallas import PallasTridiagFactor
-from poissbox_tpu_torch.ops import stencil_cuda, tridiag
+from poissbox_tpu_torch.ops import stencil_cuda, tridiag, tridiag_cuda
 from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
 
 TOL = 1e-12
@@ -163,3 +163,35 @@ def test_tdma_and_sweeps_match_jax(method):
 def test_linrec_rejects_unknown_method():
     with pytest.raises(ValueError):
         tridiag.tdma(*t(*general_system(8)), torch.ones(8), method="cr")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [8, 33, 64, 96])
+def test_babe_strip_mirror_matches_plain(n, dtype):
+    """K16's strip kernel mirrored on the CPU (babe_strip_mirror: loads
+    from both ends by chunks, both eliminations in place, the middle row,
+    the outward back substitution, the corrected store) at 32 and 16
+    lanes, periodic and not, bit for bit equal to the plain version; n =
+    33 is the odd split, and 37 lines leave a ragged last block."""
+    d = torch.as_tensor(rhs((n, 37), n), dtype=dtype)
+    for periodic in (True, False):
+        sysm = general_system(n, seed=n + 1)
+        fac = CudaTridiagFactor(*(torch.as_tensor(v, dtype=dtype) for v in sysm),
+                                periodic=periodic, algorithm="babe")
+        ops = fac._on("cpu", "babe")
+        ref = tridiag_cuda.babe_plain(*ops, d, fac.babe_m)
+        for lanes in (32, 16):
+            got = tridiag_cuda.babe_strip_mirror(*ops, d, fac.babe_m, lanes=lanes)
+            assert got.dtype == ref.dtype and torch.equal(got, ref), (periodic, lanes)
+
+
+@pytest.mark.parametrize("n", [2, 3, 4, 5])
+def test_babe_strip_mirror_smallest_splits(n):
+    """The strip mirror where the two halves are one or two rows long."""
+    d = torch.as_tensor(rhs((n, 5), n))
+    for periodic in (True, False):
+        fac = CudaTridiagFactor(*t(*general_system(n, seed=n)), periodic=periodic,
+                                algorithm="babe")
+        ops = fac._on("cpu", "babe")
+        assert torch.equal(tridiag_cuda.babe_strip_mirror(*ops, d, fac.babe_m),
+                           tridiag_cuda.babe_plain(*ops, d, fac.babe_m))
