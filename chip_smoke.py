@@ -26,20 +26,21 @@ and fails loudly if any phase fails:
      compact.z/y/x; the register kernel for lines of 32 m points, the tile
      kernel for the rest, each case printing the kernels it took and the
      tile kernel's lane widths held bit-equal), K13/K14/K16
-     (tridiag.thomas/pcr/babe) and K17's four modes
+     (tridiag.thomas/pcr/babe; K13 also on a non-periodic and on a
+     variable-coefficient system, periodic and not) and K17's four modes
      (tridiag.compact/dual/chain/sum) against their plain versions at 64^3
      f64, (48, 40, 96) f32 and f64 (both K15 kernels in one Laplacian),
      (33, 20, 24) f64 (an odd split for K16), 96^3 f32, 256^3 f32 and
-     512^3 f32 and f64, K14-K17 bit for bit; sweep, Laplacian and solve
+     512^3 f32 and f64, K13-K17 bit for bit; sweep, Laplacian and solve
      times with their bounds and each K15 sweep's share of its floor
      (512^3 f64: the sweeps and the Laplacian), K13/K14/K16 beside
-     torch.linalg.lu_solve; K16's and K17's strip kernels timed at every
-     size the paths give them (64^3 f64, 96^3, 256^3 and 512^3 f32, 512^3
-     f64) with the lanes they take and their share of the floor;
-  5b. K16's and K17's strip kernels: every variant (32 or 16 lanes,
-     staggered workers or not) and the streaming kernel at the same five
-     sizes, each held bit-equal to its plain version once, then timed in
-     turns; then lines too long for a strip ((2048, 16, 16)
+     torch.linalg.lu_solve; K13's, K16's and K17's strip kernels timed at
+     every size the paths give them (64^3 f64, 96^3, 256^3 and 512^3 f32,
+     512^3 f64) with the lanes they take and their share of the floor;
+  5b. K13's, K16's and K17's strip kernels: every variant (32 or 16
+     lanes, staggered workers or not) and the streaming kernel at the same
+     five sizes, each held bit-equal to its plain version once, then timed
+     in turns; then lines too long for a strip ((2048, 16, 16)
      f32, (1024, 16, 16) f64) through the streaming kernels (the .long
      counters), bit-equal to the plain versions;
   6. paths, each with the launch counters reset before and read after
@@ -49,7 +50,10 @@ and fails loudly if any phase fails:
        (a)   MG-CG through the fused transfer legs (K6/K7): 64^3 f64 rtol
              1e-8 (6 iterations), 256^3 f32 rtol 1e-6 (5), the demo at 64^3;
              after the counted run, a torch.profiler breakdown of one warm
-             256^3 solve and the demo with -log_view;
+             256^3 solve, the demo with -log_view, and the utils on the
+             card: check_field on the 64^3 solution, and the NaN checks
+             raising FloatingPointError on a 64^3 b that holds a NaN (and,
+             once turned off, the solve stopping with DIVERGED_NAN);
        (a/r) the same solves with -mg_transfers roll through the kernels;
        (b)   512^3 f32 rtol 1e-6, the default MGConfig: V(1,1), bf16
              pre-smooth, K5 storing x1 in bf16, K6/K7 reading it (7); a
@@ -69,8 +73,9 @@ and fails loudly if any phase fails:
              -pc_type fft on order 6 at 256^3 f32 and f64;
        (f)   the batched periodic tridiagonal solve of the JAX package's
              bench at 512^3 f32 and at 64^3 f64: CudaTridiagFactor, PCR
-             (auto), Thomas and the twisted factorization (K16); after the
-             path's counters are read, K16 timed against K13;
+             (auto), Thomas (K13) and the twisted factorization (K16), K13
+             and K16 on their strip kernels; after the path's counters are
+             read, K16 timed against K13;
        (g)   GMRES(30), the default KSP: with -pc_type mg at 64^3 f64 rtol
              1e-8 and 512^3 f32 rtol 1e-6 (a 31-field basis, 16.6 GB),
              with -pc_type none at 64^3 f64 for 60 iterations (K2 through
@@ -135,7 +140,8 @@ from poissbox_tpu_torch.solvers import mg
 from poissbox_tpu_torch.solvers.cg import cg
 from poissbox_tpu_torch.solvers.gmres import clamp_restart
 from poissbox_tpu_torch.solvers.refine import refine
-from poissbox_tpu_torch.utils import profiling
+from poissbox_tpu_torch.solvers.result import ConvergedReason
+from poissbox_tpu_torch.utils import check_field, debugging, enable_nan_checks, profiling
 
 BF16 = torch.bfloat16
 DEVICE = "cuda"   # every field and solver of the script lives on the card
@@ -149,10 +155,9 @@ RED_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # banded-matrix transfers against the roll form, float32
 MM_TOL = 1e-6
 # the kernels whose fields must equal their plain versions bit for bit
-# (KA's epilogues, K15 on both of its kernels, K14, K16 and K17 on their
-# strip and streaming kernels)
-BIT_EQUAL = ("stencil7.", "compact.", "tridiag.pcr", "tridiag.babe", "tridiag.compact",
-             "tridiag.dual", "tridiag.chain", "tridiag.sum")
+# (KA's epilogues, K15 on both of its kernels, K14, and K13, K16 and K17
+# on their strip and streaming kernels)
+BIT_EQUAL = ("stencil7.", "compact.", "tridiag.")
 
 PALLAS = "poissbox_tpu/ops/stencil_pallas.py"
 INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
@@ -189,14 +194,16 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "tridiag.dual": ("tridiag.cu", f"{TRI}:459"),
     "tridiag.chain": ("tridiag.cu", f"{TRI}:467"),
     "tridiag.sum": ("tridiag.cu", f"{TRI}:475"),
+    "tridiag.thomas.long": ("tridiag.cu", f"{TRI}:293"),
     "tridiag.babe.long": ("tridiag.cu", f"{TRI}:330"),
     "tridiag.compact.long": ("tridiag.cu", f"{TRI}:381"),
     "tridiag.dual.long": ("tridiag.cu", f"{TRI}:459"),
     "tridiag.chain.long": ("tridiag.cu", f"{TRI}:467"),
     "tridiag.sum.long": ("tridiag.cu", f"{TRI}:475"),
 }
-# K16's and K17's modes, their streaming kernels' counters beside
-STRIP_KEYS = ("tridiag.babe", "tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum")
+# K13's, K16's and K17's modes, their streaming kernels' counters beside
+STRIP_KEYS = ("tridiag.thomas", "tridiag.babe", "tridiag.compact", "tridiag.dual",
+              "tridiag.chain", "tridiag.sum")
 # kernels that no path launches, and why (the idle check skips them; each
 # is still held to its plain version and timed)
 OFF_PATH = {"rbsor.general": "K11: every red-black sweep is one launch of the "
@@ -577,6 +584,14 @@ def tridiag_system(n: int, dtype):
     return a, torch.ones(n, dtype=dtype), a.clone()
 
 
+def general_system(n: int, dtype, seed: int):
+    """A diagonally dominant system with variable coefficients (numpy
+    seed `seed`): a, c uniform(-0.4, 0.4), b uniform(1, 2)."""
+    g = np.random.default_rng(seed)
+    a, c = g.uniform(-0.4, 0.4, n), g.uniform(-0.4, 0.4, n)
+    return tuple(torch.as_tensor(v, dtype=dtype) for v in (a, g.uniform(1.0, 2.0, n), c))
+
+
 def dense_circulant(n: int, dtype) -> torch.Tensor:
     """The same system as a dense n x n matrix on the card."""
     idx = torch.arange(n)
@@ -604,11 +619,18 @@ def compact_calls(f, F, d):
         calls.append((f"op_1d/axis={axis}", (key,),
                       lambda s=spec, a=axis: cp.op_1d(f, s, a),
                       lambda s=spec, a=axis: cp.op_1d(f, s, a, plain=True)))
-    for alg, axis, per in (("thomas", 0, True), ("pcr", 0, True), ("pcr", 2, True),
-                           ("babe", 0, True), ("babe", 2, False)):
-        fac = CudaTridiagFactor(*tridiag_system(f.shape[axis], f.dtype),
-                                periodic=per, algorithm=alg)
-        calls.append((f"tridiag.{alg}/axis={axis}/periodic={per}", (f"tridiag.{alg}",),
+    # K13 also on a non-periodic system and on variable coefficients,
+    # periodic and not: the strip kernel's store skips the correction
+    # where corr[1] == 0
+    for alg, axis, per, var in (("thomas", 0, True, False), ("thomas", 0, False, False),
+                                ("thomas", 0, True, True), ("thomas", 0, False, True),
+                                ("pcr", 0, True, False), ("pcr", 2, True, False),
+                                ("babe", 0, True, False), ("babe", 2, False, False)):
+        n = f.shape[axis]
+        sysm = general_system(n, f.dtype, n + 7) if var else tridiag_system(n, f.dtype)
+        fac = CudaTridiagFactor(*sysm, periodic=per, algorithm=alg)
+        calls.append((f"tridiag.{alg}/axis={axis}/periodic={per}"
+                      + ("/variable" if var else ""), (f"tridiag.{alg}",),
                       lambda fac=fac, a=axis: fac.solve(f, a),
                       lambda fac=fac, a=axis: fac.solve(f, a, plain=True)))
     for mode, call in k17_calls(f, d).items():
@@ -753,25 +775,28 @@ def time_compact(stats: dict, f, d) -> None:
 
 
 def strip_calls(f, d) -> dict:
-    """K17's modes (k17_calls) and K16's periodic solve along axis 0 of f:
-    counter -> call(plain=False)."""
-    fac = CudaTridiagFactor(*tridiag_system(f.shape[0], f.dtype), periodic=True,
-                            algorithm="babe")
-    calls = {f"tridiag.{mode}": call for mode, call in k17_calls(f, d).items()}
-    calls["tridiag.babe"] = lambda plain=False: fac.solve(f, 0, plain=plain)
+    """K13's and K16's periodic solves and K17's modes (k17_calls) along
+    axis 0 of f: counter -> call(plain=False)."""
+    calls = {}
+    for alg in ("thomas", "babe"):
+        fac = CudaTridiagFactor(*tridiag_system(f.shape[0], f.dtype), periodic=True,
+                                algorithm=alg)
+        calls[f"tridiag.{alg}"] = lambda plain=False, fac=fac: fac.solve(f, 0, plain=plain)
+    calls.update({f"tridiag.{mode}": call for mode, call in k17_calls(f, d).items()})
     return calls
 
 
 def strip_floor(key, f) -> dict:
-    """K16's or K17's bound on f: its field passes and operations a point."""
+    """K13's, K16's or K17's bound on f: its field passes and operations a
+    point."""
     passes, ops = K17_MODES.get(key.split(".")[1], (2, 7))
     return bound(passes * f.nbytes, ops * f.numel())
 
 
 def time_strips(stats: dict, f, d) -> None:
-    """K17's modes and K16 at one of their path sizes: kernel time, the
-    strip lanes the route takes, bound and share of it; at 512^3 f32 also
-    the plain versions' times, and the JSON entries."""
+    """K13, K16 and K17's modes at one of their path sizes: kernel time,
+    the strip lanes the route takes, bound and share of it; at 512^3 f32
+    also the plain versions' times, and the JSON entries."""
     n, Q = f.shape[0], f.numel() // f.shape[0]
     tag = f"{n}^3 {str(f.dtype).replace('torch.', '')}"
     record = n == 512 and f.dtype == torch.float32
@@ -801,7 +826,7 @@ def variant_name(lanes: int, stagger: int) -> str:
 
 def strip_variants(stats: dict, smi) -> None:
     """What chose the strip kernels' lanes and stagger, and what they
-    replaced: at every size of STRIP_TIMED, K17's modes and K16 on each
+    replaced: at every size of STRIP_TIMED, K13, K16 and K17's modes on each
     variant (VARIANTS, forced through tridiag_cuda._forced_strip), each
     first held bit-equal to its plain version, then timed as the median of
     10 calls, in turns (the list, then the list reversed). A variant
@@ -849,6 +874,7 @@ def strip_variants(stats: dict, smi) -> None:
                   f"{share(strip_floor(key, f), ms)}", flush=True)
             if record and la == 0:
                 stats[f"{key}.long"].update(ms=ms, plain_ms=stats[key]["plain_ms"],
+                                            library_ms=stats[key]["library_ms"],
                                             **strip_floor(key, f))
         print(f"  ({smi})", flush=True)
         del f, calls
@@ -856,7 +882,7 @@ def strip_variants(stats: dict, smi) -> None:
 
 
 def check_long(stats: dict) -> None:
-    """K16 and K17 on lines too long for two strip workers a block
+    """K13, K16 and K17 on lines too long for two strip workers a block
     (LONG_CASES): the route must take the streaming kernels (.long
     counters), each field bit-equal to its plain version."""
     for shape, dtype in LONG_CASES:
@@ -873,8 +899,8 @@ def check_long(stats: dict) -> None:
                 raise AssertionError(f"{key}.long {shape} {dtype}: field max|diff| {err:.3e}, "
                                      "not bit-equal")
             stats[f"{key}.long"]["max_abs_err"] = max(stats[f"{key}.long"]["max_abs_err"], err)
-        print(f"  K16 and K17 at {shape} {dtype} (lines of {shape[0]}): the streaming kernels, "
-              "bit-equal to the plain versions", flush=True)
+        print(f"  K13, K16 and K17 at {shape} {dtype} (lines of {shape[0]}): the streaming "
+              "kernels, bit-equal to the plain versions", flush=True)
         del f
 
 
@@ -1210,6 +1236,41 @@ def log_view_demo(smi) -> None:
     print(f"  demo -n 64 -log_view: relative residual {rel:.3e} ({smi})", flush=True)
 
 
+def utils_on_card(run, smi) -> None:
+    """The utils on the card, outside any counted path: check_field on
+    path (a)'s 64^3 f64 solution; then one NaN in its b: check_field
+    refuses it, the solve with the NaN checks on raises FloatingPointError
+    naming CG and iteration 0, and with them off stops with DIVERGED_NAN."""
+    solver, b, _ = run
+    n = b.shape[0]
+    x = solver.solve(b).x
+    check_field(x, shape=(n,) * 3, dtype=torch.float64, name="path (a) x")
+    bn = b.clone()
+    bn.view(-1)[bn.numel() // 3] = float("nan")
+    try:
+        check_field(bn, name="b")
+        raise AssertionError("check_field passed a b that holds a NaN")
+    except FloatingPointError:
+        pass
+    enable_nan_checks()
+    try:
+        solver.solve(bn)
+        raise AssertionError("the NaN checks did not raise on a NaN b")
+    except FloatingPointError as e:
+        msg = str(e)
+    finally:
+        enable_nan_checks(False)
+    res = solver.solve(bn)
+    if not msg.startswith("cg: ") or "iteration 0 " not in msg or debugging.nan_checks_enabled():
+        raise AssertionError(f"NaN checks: {msg!r}")
+    if res.reason_enum() != ConvergedReason.DIVERGED_NAN or int(res.iterations) != 0:
+        raise AssertionError(f"NaN b with the checks off: {res.reason_enum().name}, "
+                             f"{int(res.iterations)} iterations")
+    print(f"  utils {n}^3 f64: check_field passed the solution and refused a NaN b; NaN "
+          f"checks on: {msg!r}; off: {res.reason_enum().name} after "
+          f"{int(res.iterations)} iterations ({smi})", flush=True)
+
+
 # kernel name -> group of the device-time breakdown (first match wins)
 GROUPS = (("KB", ("sweep_kernel", "colour_kernel")), ("K6", ("restrict_kernel",)),
           ("K7", ("prolong_add_kernel",)), ("KA", ("stencil7_kernel",)),
@@ -1321,7 +1382,9 @@ def tridiag_path(smi, n: int = 512, dtype=torch.float32):
     for alg in ("auto", "thomas", "babe"):
         fac = CudaTridiagFactor(a, bb, c, periodic=True, algorithm=alg)
         x = fac.solve(d, 0)
-        compare(f"tridiag {fac.algorithm} path", x, fac.solve(d, 0, plain=True))
+        err = compare(f"tridiag {fac.algorithm} path", x, fac.solve(d, 0, plain=True))
+        if err != 0.0:
+            raise AssertionError(f"tridiag {fac.algorithm} path {tag}: not bit-equal")
         r = ALPHA_TRI * (torch.roll(x, 1, 0) + torch.roll(x, -1, 0)) + x - d
         rel = float(r.abs().max()) / float(d.abs().max())
         if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
@@ -1333,9 +1396,10 @@ def tridiag_path(smi, n: int = 512, dtype=torch.float32):
 
 
 def tridiag_pairs(runs, smi) -> None:
-    """K16 against K13 on path (f)'s systems, outside the path's counted
-    run: the median of 25 calls between CUDA events and back-to-back
-    launches, in turns (K13, K16, K16, K13)."""
+    """K16 against K13, both on their strip kernels, on path (f)'s
+    systems, outside the path's counted run: the median of 25 calls
+    between CUDA events and back-to-back launches, in turns (K13, K16,
+    K16, K13)."""
     show = lambda v: " / ".join(f"{t:.4f}" for t in v)
     for facs, d, tag in runs:
         d2 = d.reshape(d.shape[0], -1)
@@ -1345,7 +1409,7 @@ def tridiag_pairs(runs, smi) -> None:
             fac = facs[alg]
             ev[alg].append(median_ms(lambda: fac.solve(d, 0)))
             loop[alg].append(loop_ms(lambda: fac._solve_lines(d2, False)))
-        print(f"  K16 vs K13 {tag}, in turns: median of 25 calls thomas "
+        print(f"  K16 vs K13 {tag} (strip kernels), in turns: median of 25 calls thomas "
               f"{show(ev['thomas'])} ms, babe {show(ev['babe'])} ms; back-to-back "
               f"launches thomas {show(loop['thomas'])} ms, babe {show(loop['babe'])} "
               f"ms ({smi})", flush=True)
@@ -1654,6 +1718,7 @@ def main() -> int:
                        base + ["stencil7.residual", "rbsor.zero_update"], totals)
     compare_paths(runs_a, cases_a, smi, runs_ar)
     profile_solve("(a) 256^3 f32", *runs_a[1][:2], smi)
+    utils_on_card(runs_a[0], smi)
     del runs_a, runs_ar
     log_view_demo(smi)
     torch.cuda.empty_cache()

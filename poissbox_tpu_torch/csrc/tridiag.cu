@@ -56,7 +56,7 @@
 // HBM, sets the time (PERF.md: compact and K16 near half their floor,
 // the two-operator modes lower).
 //
-// K16 and K17 run on STRIP kernels. A worker (one warp, its first 32 or 16
+// K13, K16 and K17 run on STRIP kernels. A worker (one warp, its first 32 or 16
 // lanes) owns a strip of whole lines in dynamic shared memory, row r of
 // lane t at r * pitch + t: a row of the strip is one coalesced
 // transaction, and a warp's accesses hit consecutive banks. Each lane
@@ -82,12 +82,17 @@
 // strip_lanes picks 32 lanes when a block holds three 32-lane workers and
 // the lines make two strips an SM, else 16 when it holds two 16-lane
 // workers. Lines too long for that (on an H100 over 1613 rows in f32 and
-// 806 in f64 for compact and K16, 1452 and 726 for dual and chain, 806 and
-// 403 for sum's two columns a lane) take the STREAMING kernels below, one
-// thread a line with the forward sweep written to the output and read back
-// (3 reads and 3 writes of HBM a solved line; chain and sum solve op1 in
-// the scratch field `mid`, which the wrapper allocates for them alone).
-// K13 is still a streaming kernel.
+// 806 in f64 for K13, compact and K16, 1452 and 726 for dual and chain, 806
+// and 403 for sum's two columns a lane) take the STREAMING kernels below,
+// one thread a line with the forward sweep written to the output and read
+// back (3 reads and 3 writes of HBM a solved line; chain and sum solve op1
+// in the scratch field `mid`, which the wrapper allocates for them alone).
+// K13's strip is K17 compact's worker with the RHS taps replaced by the row
+// itself: the forward sweep overwrites row i with dmod_i as soon as chunk
+// i / kChunk has landed (no tap reads ahead of the row), the back
+// substitution runs on the strip and the correction is fused into the
+// store, so HBM sees d once and x once, against 3 reads and 3 writes a
+// line on the streaming kernel.
 #include "common.cuh"
 
 namespace poissbox {
@@ -435,6 +440,7 @@ constexpr int kDepth = 32;   // groups issued up front (all of a 512-row line)
 // at a time would wait out a shared-memory round trip every row.
 constexpr int kU = 8;
 constexpr int kBabe = 4;     // strip_lanes' mode code for K16
+constexpr int kThomas = 5;   // and for K13
 
 template <int BYTES>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
@@ -611,6 +617,48 @@ __device__ __forceinline__ T forward_uniform(const LineOp<T>& op, Col<T> x, Col<
   return forward_strip<T, FED, MAYBE_Y, -1>(op, x, y, has_y, tap, feed, n);
 }
 
+// K13's forward sweep on one lane's line, in place: dmod_i = d_i -
+// w_i*dmod_{i-1} over x[i]. The rows arrive by `feed`, whose first kDepth
+// groups are in flight; chunk c is swept once group c has landed (a row
+// reads only itself), then group c + kDepth is issued. Returns
+// dmod_{n-1}.
+template <typename T>
+__device__ __forceinline__ T thomas_forward_strip(const T* w, Col<T> x, const Feed<T>& feed,
+                                                  int n) {
+  T prev = T(0);
+  for (int c = 0; c * kChunk < n; ++c) {
+    cp_async_wait<kDepth - 1>();
+    const int hi = min(n, (c + 1) * kChunk);
+    int i = c * kChunk;
+    if (i == 0) {
+      prev = x[0];   // dmod_0 = d_0, already in place
+      i = 1;
+    }
+    for (; i + kU <= hi; i += kU) {   // kU rows and factors, then their steps
+      T dn[kU], wn[kU];
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        dn[u] = x[i + u];
+        wn[u] = w[i + u];
+      }
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const T v = dn[u] - wn[u] * prev;
+        x[i + u] = v;
+        prev = v;
+      }
+    }
+    for (; i < hi; ++i) {
+      const T v = x[i] - w[i] * prev;
+      x[i] = v;
+      prev = v;
+    }
+    feed.issue(c + kDepth);
+  }
+  cp_async_wait<0>();
+  return prev;
+}
+
 // Back substitution on the strip (x holds the forward sweep, `last` its
 // row n-1); x_0 and x_{n-1}, uncorrected, go to *x0 and *xn.
 template <typename T>
@@ -703,10 +751,11 @@ __host__ __device__ inline int strip_pitch(int mode, int lanes) {
   return mode == kSum ? 2 * lanes : lanes;
 }
 
-// K17 on one strip of n * strip_pitch(MODE, lanes) values, lane t of
-// `lanes` owning line first_line + t; op1 and op2 read their factors from
-// the block's tables. `signal` (when not null) is set once op1's forward
-// sweep is done.
+// K17 (or, for MODE kThomas, K13: f0 the RHS d, op1 the factors) on one
+// strip of n * strip_pitch(MODE, lanes) values, lane t of `lanes` owning
+// line first_line + t; op1 and op2 read their factors from the block's
+// tables. `signal` (when not null) is set once op1's forward sweep is
+// done.
 template <typename T, int MODE>
 __device__ __forceinline__ void compact_strip(T* strip, int t, int lanes, long long first_line,
                                               const T* __restrict__ f0, const T* __restrict__ f1,
@@ -721,7 +770,14 @@ __device__ __forceinline__ void compact_strip(T* strip, int t, int lanes, long l
   const Col<T> x{strip + t, pitch};
   const Col<T> none{nullptr, pitch};
   T x0, xn, last;
-  if constexpr (MODE == kCompact || MODE == kDual) {
+  if constexpr (MODE == kThomas) {
+    const Feed<T> feed{f0 + q, nullptr, x, none, Q, n};
+    feed.start();
+    last = thomas_forward_strip(op1.w, x, feed, n);
+    if (signal != nullptr) *signal = 1;
+    backward_strip(op1, x, last, n, &x0, &xn);
+    store_strip(op1, x, x0, xn, out0 + q, Q, n, live);
+  } else if constexpr (MODE == kCompact || MODE == kDual) {
     const Feed<T> feed{f0 + q, nullptr, x, none, Q, n};
     const GlobalTap<T> tap{f0 + q, nullptr, Q, false};
     feed.start();
@@ -801,7 +857,7 @@ __device__ __forceinline__ void wait_turn(const int* started, int worker) {
   while (reinterpret_cast<const volatile int*>(started)[worker - 1] == 0) __nanosleep(256);
 }
 
-// K17 on strips: a persistent block of blockDim.x / 32 workers, one warp
+// K17 (and K13) on strips: a persistent block of blockDim.x / 32 workers, one warp
 // each (its first `lanes` lanes, 16 or 32), each owning one strip of the
 // block's dynamic shared memory after the operators' factor tables; worker
 // w of block b takes strips b*W + w, then every gridDim.x*W-th.
@@ -813,7 +869,7 @@ compact_strip_kernel(const T* __restrict__ f0, const T* __restrict__ f1,
                      int stagger) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int started[kMaxWorkers];
-  constexpr int kOps = MODE == kCompact ? 1 : 2;
+  constexpr int kOps = MODE == kCompact || MODE == kThomas ? 1 : 2;
   T* tables = reinterpret_cast<T*>(smem_raw);
   const LineOp<T> t1 = table_op(op1, tables, n);
   const LineOp<T> t2 = kOps == 2 ? table_op(op2, tables + table_size(n), n) : t1;
@@ -1002,7 +1058,8 @@ inline size_t strip_bytes(int mode, int lanes, int n, size_t tsize) {
 }
 
 inline size_t table_bytes(int mode, int n, size_t tsize) {
-  return (size_t)(mode == kCompact || mode == kBabe ? 1 : 2) * table_size(n) * tsize;
+  return (size_t)(mode == kCompact || mode == kBabe || mode == kThomas ? 1 : 2) *
+         table_size(n) * tsize;
 }
 
 // Workers one block can hold beside its factor tables (the static flags
@@ -1100,6 +1157,8 @@ cudaError_t launch_compact_strip(cudaStream_t stream, const SmemLimits& lim, int
       return POISSBOX_STRIP(kChain);
     case kSum:
       return POISSBOX_STRIP(kSum);
+    case kThomas:
+      return POISSBOX_STRIP(kThomas);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1120,29 +1179,47 @@ cudaError_t launch_babe_strip(cudaStream_t stream, const SmemLimits& lim, int de
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. d and x are (n, Q) contiguous; w, binv
-// and cb hold n values, corr n + 2 (corr[1] = 0: no periodic
-// correction). Returns the cudaError_t of the launch (0 on success).
+// K13. dtype: 0 = float32, 1 = float64. d and x are (n, Q) contiguous; w,
+// binv and cb hold n values, corr n + 2 (corr[1] = 0: no periodic
+// correction). The strip kernel where the lines fit, else the streaming
+// one (poissbox_strip_lanes, mode 5). Returns the cudaError_t of the
+// launch (0 on success).
 int poissbox_thomas(int dtype, int device, void* stream, const void* d, void* x, const void* w,
                     const void* binv, const void* cb, const void* corr, int n, long long Q) {
+  if (n < 1 || Q < 1) return (int)cudaErrorInvalidValue;
+  if (dtype != poissbox::kF32 && dtype != poissbox::kF64) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  poissbox::SmemLimits lim;
+  err = poissbox::smem_limits(device, &lim);
+  if (err != cudaSuccess) return (int)err;
+  const bool f32 = dtype == poissbox::kF32;
+  const int lanes = poissbox::strip_lanes(lim, poissbox::kThomas, n, Q, f32 ? 4 : 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == poissbox::kF32)
-    err = poissbox::launch_thomas<float>(s, d, x, w, binv, cb, corr, n, Q);
-  else if (dtype == poissbox::kF64)
-    err = poissbox::launch_thomas<double>(s, d, x, w, binv, cb, corr, n, Q);
-  else
-    err = cudaErrorInvalidValue;
+  if (lanes == 0)
+    return (int)(f32 ? poissbox::launch_thomas<float>(s, d, x, w, binv, cb, corr, n, Q)
+                     : poissbox::launch_thomas<double>(s, d, x, w, binv, cb, corr, n, Q));
+  const void* in[3] = {d, nullptr, nullptr};
+  void* out[2] = {x, nullptr};
+  const void* fac[4] = {w, binv, cb, corr};
+  if (f32) {
+    const auto op = poissbox::line_op<float>(fac, 0.0, 0.0, 1, 0);
+    err = poissbox::launch_compact_strip<float>(s, lim, device, poissbox::kThomas, lanes, in, out,
+                                                op, op, n, Q);
+  } else {
+    const auto op = poissbox::line_op<double>(fac, 0.0, 0.0, 1, 0);
+    err = poissbox::launch_compact_strip<double>(s, lim, device, poissbox::kThomas, lanes, in,
+                                                 out, op, op, n, Q);
+  }
   return (int)err;
 }
 
 // The strip lanes that K17 mode `mode` (0 compact, 1 dual, 2 chain, 3
-// sum) or K16 (mode 4) takes for Q lines of n rows of dtype on `device`:
-// 32 or 16, or 0 for the streaming kernel; a negative cudaError_t on a bad
-// argument.
+// sum), K16 (mode 4) or K13 (mode 5) takes for Q lines of n rows of dtype
+// on `device`: 32 or 16, or 0 for the streaming kernel; a negative
+// cudaError_t on a bad argument.
 int poissbox_strip_lanes(int dtype, int mode, int n, long long Q, int device) {
-  if ((dtype != poissbox::kF32 && dtype != poissbox::kF64) || mode < 0 || mode > 4 || n < 1 ||
+  if ((dtype != poissbox::kF32 && dtype != poissbox::kF64) || mode < 0 || mode > 5 || n < 1 ||
       Q < 1)
     return -(int)cudaErrorInvalidValue;
   poissbox::SmemLimits lim;
@@ -1152,7 +1229,7 @@ int poissbox_strip_lanes(int dtype, int mode, int n, long long Q, int device) {
 }
 
 // For chip_smoke.py's comparison of the variants only: from now on every
-// K16 and K17 route takes `lanes` (32 or 16 the strip kernel, 0 the
+// K13, K16 and K17 route takes `lanes` (32 or 16 the strip kernel, 0 the
 // streaming one) and every strip launch `stagger` (1 the workers in turn,
 // 0 at once, -1 launch_strip's rule); lanes -1 gives the routes back
 // their own choice. Returns 1 when that is set, 0 when a strip of `lanes`
@@ -1160,7 +1237,7 @@ int poissbox_strip_lanes(int dtype, int mode, int n, long long Q, int device) {
 // mode `mode` (as poissbox_strip_lanes's; nothing is set then), and a
 // negative cudaError_t on a bad argument.
 int poissbox_strip_force(int dtype, int mode, int n, int lanes, int stagger, int device) {
-  if ((dtype != poissbox::kF32 && dtype != poissbox::kF64) || mode < 0 || mode > 4 || n < 1 ||
+  if ((dtype != poissbox::kF32 && dtype != poissbox::kF64) || mode < 0 || mode > 5 || n < 1 ||
       (lanes != -1 && lanes != 0 && lanes != 16 && lanes != 32) || stagger < -1 || stagger > 1)
     return -(int)cudaErrorInvalidValue;
   if (lanes > 0) {

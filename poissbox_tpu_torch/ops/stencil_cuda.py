@@ -59,8 +59,8 @@ transfer legs, ``cgupd`` for K8, ``compact.x|y|z`` for K15's line kernel
 by axis (ops/compact_pcr.py) and ``tridiag.*`` for K13/K14/K16 and K17's
 four modes (ops/tridiag_cuda.py); ``.bf16`` marks a bf16 launch,
 ``.narrow`` K5 storing its swept iterate in bf16, ``.bf16u`` a transfer
-leg reading a bf16 iterate and ``.long`` K16 or K17 on lines too long for
-their strip kernel); a wrapper adds one where it launches, so a
+leg reading a bf16 iterate and ``.long`` K13, K16 or K17 on lines too
+long for their strip kernel); a wrapper adds one where it launches, so a
 run can show which kernels its path went through.
 Reductions come back as per-block partials that the wrapper sums with
 ``torch.sum``, as the JAX wrappers sum theirs. KA streams x planes
@@ -89,7 +89,7 @@ LAUNCHES: dict[str, int] = {k: 0 for k in (
     "cgupd",
     "compact.x", "compact.y", "compact.z", "tridiag.thomas", "tridiag.pcr",
     "tridiag.babe", "tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
-    "tridiag.babe.long", "tridiag.compact.long", "tridiag.dual.long", "tridiag.chain.long",
+    "tridiag.thomas.long", "tridiag.babe.long", "tridiag.compact.long", "tridiag.dual.long", "tridiag.chain.long",
     "tridiag.sum.long",
 )}
 

@@ -8,9 +8,10 @@ on any batch. The line axis moves to the front and the batch flattens to
 (n, B) — no copy for a contiguous 3-D field solved along axis 0 — and the
 result is moved back.
 
-  * ``algorithm="thomas"`` (K13, ``csrc/tridiag.cu``): one thread per
-    line, forward sweep, back substitution and the periodic rank-1
-    correction in one launch; the factor vectors come from the port's
+  * ``algorithm="thomas"`` (K13, ``csrc/tridiag.cu``): forward sweep,
+    back substitution and the periodic rank-1 correction in one launch on
+    the strip kernel (below), the correction fused into the store; the
+    factor vectors come from the port's
     :mod:`~poissbox_tpu_torch.ops.tridiag` in the JAX package's order.
   * ``algorithm="babe"`` (K16, ``csrc/tridiag.cu``): the twisted
     (burn-at-both-ends) factorization. Rows 1..m are eliminated downward
@@ -36,14 +37,14 @@ op2(f3)). A spec is (a, b, opsign, shift); each operator brings its own
 factor, whose Thomas vectors a PCR or babe factor builds when a fused
 entry first needs them.
 
-K16 and K17 run on strip kernels: a worker of 32 or 16 lanes holds whole
-lines in shared memory from load to store, one lane per line, so HBM sees
-each input and output once. :func:`strip_lanes` says what a shape takes;
-lines too long for a strip take the streaming kernels (one thread per line
-through HBM). :func:`compact_strip_mirror` and
-:func:`babe_strip_mirror` run the strip kernels' algorithm on the CPU: the
-same chunked loads, in-place overwrites and held taps, bit-equal to the
-plain versions.
+K13, K16 and K17 run on strip kernels: a worker of 32 or 16 lanes holds
+whole lines in shared memory from load to store, one lane per line, so HBM
+sees each input and output once. :func:`strip_lanes` says what a shape
+takes; lines too long for a strip take the streaming kernels (one thread
+per line through HBM). :func:`thomas_strip_mirror`,
+:func:`compact_strip_mirror` and :func:`babe_strip_mirror` run the strip
+kernels' algorithm on the CPU: the same chunked loads, in-place overwrites
+and held taps, bit-equal to the plain versions.
 
 A CPU tensor runs the plain versions (:func:`thomas_plain`,
 :func:`babe_plain`, :func:`compact_thomas_plain`, ``compact_pcr._vop``):
@@ -52,7 +53,7 @@ kernel or raises; any other device raises. Launches count in
 :data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES` as ``tridiag.thomas``,
 ``tridiag.pcr``, ``tridiag.babe``, ``tridiag.compact``, ``tridiag.dual``,
 ``tridiag.chain`` and ``tridiag.sum``, with ``.long`` for the streaming
-kernels of K16 and K17.
+kernels of K13, K16 and K17.
 """
 
 from __future__ import annotations
@@ -75,8 +76,9 @@ from poissbox_tpu_torch.ops.tridiag import TridiagFactor
 
 Tensor = torch.Tensor
 
-# K17's modes and their codes in the C entry; K16's code in strip_lanes
-_MODES = {"compact": 0, "dual": 1, "chain": 2, "sum": 3, "babe": 4}
+# K17's modes and their codes in the C entry; K16's and K13's codes in
+# strip_lanes
+_MODES = {"compact": 0, "dual": 1, "chain": 2, "sum": 3, "babe": 4, "thomas": 5}
 
 
 # ---------------------------------------------------------------------------
@@ -364,6 +366,36 @@ def compact_strip_mirror(mode: str, inputs, facs, specs, lanes: int = 32):
     raise ValueError(f"unknown compact mode {mode!r}")
 
 
+def thomas_strip_mirror(w, binv, cb, corr, d: Tensor, lanes: int = 32) -> Tensor:
+    """K13's strip kernel (`compact_strip_kernel`, mode kThomas) on a (n,
+    Q) RHS, on the CPU: chunked loads, the forward sweep over each chunk
+    once its own group has landed, in place, the back substitution on the
+    strip and the corrected store; bit-equal to :func:`thomas_plain`."""
+    n, Q = d.shape
+    st = _Strip(n, Q, lanes, lanes, d)
+    x = st.col(0)
+    feed = _Feed([(st.gather(d), x, _chunk_rows(n))])
+    feed.start()
+    prev = None
+    for c in range(-(-n // STRIP_CHUNK)):
+        feed.wait(STRIP_DEPTH - 1)
+        hi = min(n, (c + 1) * STRIP_CHUNK)
+        i = c * STRIP_CHUNK
+        if i == 0:
+            prev = x[0].clone()
+            i = 1
+        while i < hi:   # kU rows read, then their steps; then row by row
+            rows = range(i, i + STRIP_BLOCK) if i + STRIP_BLOCK <= hi else [i]
+            for r, dr in list(zip(rows, [x[r].clone() for r in rows])):
+                prev = dr - w[r] * prev
+                x[r] = prev
+            i += len(rows)
+        feed.issue(c + STRIP_DEPTH)
+    feed.wait(0)
+    out = _correction(corr, *_backward_strip((w, binv, cb, corr), x, prev, n))
+    return st.scatter(_rows(n, lambda i: out(x, i)))
+
+
 def babe_strip_mirror(wv, binv, ca, corr, d: Tensor, m: int, lanes: int = 32) -> Tensor:
     """K16's strip kernel (`babe_strip_kernel`) on a (n, Q) RHS, on the
     CPU: loads from both ends by chunks, both eliminations in place, the
@@ -570,8 +602,8 @@ def _index(device) -> int:
 
 
 def strip_lanes(mode: str, n: int, Q: int, dtype: torch.dtype, device) -> int:
-    """The lanes of a strip worker that K17's `mode` (or K16, "babe")
-    takes on Q lines of n rows of `dtype` on CUDA `device`: 32 when a block
+    """The lanes of a strip worker that K17's `mode` (or K16, "babe", or
+    K13, "thomas") takes on Q lines of n rows of `dtype` on CUDA `device`: 32 when a block
     holds three 32-lane workers beside its factor tables and the lines make
     two strips an SM, else 16 when it holds two 16-lane workers, else 0
     (the streaming kernel)."""
@@ -580,8 +612,8 @@ def strip_lanes(mode: str, n: int, Q: int, dtype: torch.dtype, device) -> int:
 
 @contextlib.contextmanager
 def _forced_strip(mode: str, n: int, dtype: torch.dtype, device, lanes: int, stagger: int):
-    """For chip_smoke.py's comparison of the variants: inside, every K16
-    and K17 launch takes `lanes` (32 or 16 the strip kernel, 0 the
+    """For chip_smoke.py's comparison of the variants: inside, every K13,
+    K16 and K17 launch takes `lanes` (32 or 16 the strip kernel, 0 the
     streaming one) and `stagger` (1 a block's workers in turn, 0 at once).
     Yields False, and forces nothing, when a strip of `lanes` lanes of
     lines of n rows does not fit one worker a block of `mode`."""
@@ -727,26 +759,22 @@ class CudaTridiagFactor:
         v = self._on(d2.device, self.algorithm)
         if use_plain:
             return babe_plain(*v, d2, self.babe_m) if babe else thomas_plain(*v, d2)
-        if babe:
-            return self._launch_babe(d2)
-        x = torch.empty_like(d2)
-        lib = _build.load()
-        err = lib.poissbox_thomas(DTYPE_CODE[d2.dtype], d2.device.index or 0, _stream(d2),
-                                  _ptr(d2), _ptr(x), *map(_ptr, v), self.n, d2.shape[1])
-        _raise_on(lib, err, "tridiag.thomas")
-        LAUNCHES["tridiag.thomas"] += 1
-        return x
+        return self._launch(d2, v, babe)
 
-    def _launch_babe(self, d2: Tensor) -> Tensor:
-        """One K16 launch on the contiguous (n, B) CUDA RHS, on the kernel
-        strip_lanes picks."""
-        lanes = strip_lanes("babe", self.n, d2.shape[1], d2.dtype, d2.device)
+    def _launch(self, d2: Tensor, v, babe: bool) -> Tensor:
+        """One K16 (`babe`) or K13 launch on the contiguous (n, B) CUDA RHS
+        with the factor vectors v, on the kernel strip_lanes picks."""
+        name = "babe" if babe else "thomas"
+        lanes = strip_lanes(name, self.n, d2.shape[1], d2.dtype, d2.device)
         x = torch.empty_like(d2)
         lib = _build.load()
-        err = lib.poissbox_babe(DTYPE_CODE[d2.dtype], d2.device.index or 0, _stream(d2),
-                                _ptr(d2), _ptr(x), *map(_ptr, self._on(d2.device, "babe")),
-                                self.n, self.babe_m, d2.shape[1])
-        key = "tridiag.babe" + ("" if lanes else ".long")
+        head = (DTYPE_CODE[d2.dtype], d2.device.index or 0, _stream(d2), _ptr(d2), _ptr(x),
+                *map(_ptr, v), self.n)
+        if babe:
+            err = lib.poissbox_babe(*head, self.babe_m, d2.shape[1])
+        else:
+            err = lib.poissbox_thomas(*head, d2.shape[1])
+        key = f"tridiag.{name}" + ("" if lanes else ".long")
         _raise_on(lib, err, key)
         LAUNCHES[key] += 1
         return x

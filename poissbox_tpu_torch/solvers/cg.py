@@ -19,6 +19,7 @@ import torch
 
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
+from poissbox_tpu_torch.utils import debugging
 
 Tensor = torch.Tensor
 
@@ -120,7 +121,7 @@ def cg(
     while k < max_it:
         go = ((resnorm > rtol_ * bnorm) & (resnorm > atol_)
               & torch.isfinite(resnorm))
-        if not go.item():
+        if not debugging.proceed(go, resnorm, "fcg" if flexible else "cg", k):
             break
         if defer_p:
             p, Ap, pAp = A.pupdate_apply_dot(v_def, p, beta, zshift)

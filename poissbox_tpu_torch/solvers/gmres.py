@@ -24,6 +24,7 @@ from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
 from poissbox_tpu_torch.solvers.mg import _full_fp32_matmul
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
+from poissbox_tpu_torch.utils import debugging
 
 Tensor = torch.Tensor
 
@@ -91,6 +92,7 @@ def gmres(
     pb = pres(b)
     bnorm_t = torch.sqrt(_dot(pb, pb))
     rnorm0, bnorm = ft(rnorm0_t.item()), ft(bnorm_t.item())
+    debugging.check_norm(rnorm0, "gmres", 0)
     hist = [rnorm0]
     if monitor:
         _monitor_print(0, rnorm0)
@@ -118,6 +120,7 @@ def gmres(
         g = np.zeros(m + 1, dtype=ft)
         g[0] = beta
         resnorm, jdone = beta, 0
+        debugging.check_norm(resnorm, "gmres", k)
         for j in range(m):
             if not resnorm > target:
                 break            # the JAX package's masked steps
@@ -156,6 +159,7 @@ def gmres(
             H[:, j] = hcol
             jdone = j + 1
             k += 1
+            debugging.check_norm(resnorm, "gmres", k)
             if k <= max_it:
                 hist.append(resnorm)
             if monitor:

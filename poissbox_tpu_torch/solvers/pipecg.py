@@ -25,6 +25,7 @@ import torch
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
+from poissbox_tpu_torch.utils import debugging
 
 Tensor = torch.Tensor
 
@@ -93,7 +94,7 @@ def pipecg(
     while k < max_it:
         go = ((resnorm > rtol_ * bnorm) & (resnorm > atol_)
               & torch.isfinite(resnorm))
-        if not go.item():
+        if not debugging.proceed(go, resnorm, "pipecg", k):
             break
         m = Mp(w)
         n = A(m)

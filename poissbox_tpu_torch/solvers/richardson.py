@@ -15,6 +15,7 @@ import torch
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
+from poissbox_tpu_torch.utils import debugging
 
 Tensor = torch.Tensor
 
@@ -56,7 +57,7 @@ def richardson(
     while k < max_it:
         go = ((resnorm > rtol_ * bnorm) & (resnorm > atol_)
               & torch.isfinite(resnorm))
-        if not go.item():
+        if not debugging.proceed(go, resnorm, "richardson", k):
             break
         # r is b - A x of the current x (the JAX package forms it twice)
         x = A.project(x + w * precond(r))

@@ -1,7 +1,11 @@
-"""Auxiliary subsystems (port of :mod:`poissbox_tpu.utils`): so far the
-profiling helpers behind `-log_view` (:mod:`.profiling`); the logging and
-debugging helpers are not ported yet."""
+"""Auxiliary subsystems (port of :mod:`poissbox_tpu.utils`): the profiling
+helpers behind `-log_view` (:mod:`.profiling`), process-0 logging
+(:mod:`.logging`) and NaN, shape and finiteness checking
+(:mod:`.debugging`)."""
 
 from poissbox_tpu_torch.utils.profiling import kernel_time, trace
+from poissbox_tpu_torch.utils.logging import log0, is_process0
+from poissbox_tpu_torch.utils.debugging import enable_nan_checks, check_field
 
-__all__ = ["kernel_time", "trace"]
+__all__ = ["kernel_time", "trace", "log0", "is_process0",
+           "enable_nan_checks", "check_field"]

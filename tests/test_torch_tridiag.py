@@ -195,3 +195,118 @@ def test_babe_strip_mirror_smallest_splits(n):
         ops = fac._on("cpu", "babe")
         assert torch.equal(tridiag_cuda.babe_strip_mirror(*ops, d, fac.babe_m),
                            tridiag_cuda.babe_plain(*ops, d, fac.babe_m))
+
+
+def _thomas_ops(n, dtype, periodic, variable):
+    """K13's factor vectors on the CPU: the bench's constant system or a
+    variable-coefficient one."""
+    sysm = general_system(n, seed=n + 2) if variable else compact_system(n)
+    fac = CudaTridiagFactor(*(torch.as_tensor(v, dtype=dtype) for v in sysm),
+                            periodic=periodic, algorithm="thomas")
+    return fac._on("cpu", "thomas")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("n", [2, 3, 4, 5, 8, 33, 64, 96])
+def test_thomas_strip_mirror_matches_plain(n, dtype):
+    """K13's strip kernel mirrored on the CPU (thomas_strip_mirror: chunked
+    loads, the forward sweep in place once a chunk lands, the back
+    substitution on the strip, the corrected store) at 32 and 16 lanes,
+    periodic and not, constant and variable coefficients, bit for bit
+    equal to the plain version; n = 2..5 are the smallest chunks, 33 and 96
+    leave a ragged chunk, and 37 lines a ragged last block."""
+    d = torch.as_tensor(rhs((n, 37), n), dtype=dtype)
+    for periodic in (True, False):
+        for variable in (False, True):
+            ops = _thomas_ops(n, dtype, periodic, variable)
+            ref = tridiag_cuda.thomas_plain(*ops, d)
+            for lanes in (32, 16):
+                got = tridiag_cuda.thomas_strip_mirror(*ops, d, lanes=lanes)
+                assert got.dtype == ref.dtype and torch.equal(got, ref), (
+                    periodic, variable, lanes)
+
+
+def test_thomas_strip_mirror_catches_a_short_wait(monkeypatch):
+    """The mirror shows the fault it is there for: a sweep that waits for
+    one group fewer (not group c itself) reads rows that have not landed,
+    and the result differs from the plain version."""
+    ops = _thomas_ops(64, torch.float64, True, True)
+    d = torch.as_tensor(rhs((64, 37), 3))
+    ref = tridiag_cuda.thomas_plain(*ops, d)
+    assert torch.equal(tridiag_cuda.thomas_strip_mirror(*ops, d), ref)
+    wait = tridiag_cuda._Feed.wait
+    monkeypatch.setattr(tridiag_cuda._Feed, "wait", lambda self, k: wait(self, k and k + 1))
+    assert not torch.equal(tridiag_cuda.thomas_strip_mirror(*ops, d), ref)
+
+
+class _FakeLib:
+    """The kernel library's entries that K13's route calls, recorded: the
+    strip lanes to answer and the launch's error code."""
+
+    def __init__(self, lanes, err=0):
+        self.lanes, self.err, self.calls = lanes, err, []
+
+    def poissbox_strip_lanes(self, *args):
+        self.calls.append(("strip_lanes",) + args)
+        return self.lanes
+
+    def poissbox_strip_force(self, *args):
+        self.calls.append(("strip_force",) + args)
+        return 1
+
+    def poissbox_thomas(self, *args):
+        self.calls.append(("thomas",) + args)
+        return self.err
+
+    def poissbox_error_string(self, err):
+        return b"fake error"
+
+
+@pytest.fixture
+def fake_lib(monkeypatch):
+    """Installs a _FakeLib as the loaded library (no card, no nvcc) and
+    stands a null stream and device 0 in for the card's."""
+    from poissbox_tpu_torch.ops import _build
+
+    def install(lanes, err=0):
+        lib = _FakeLib(lanes, err)
+        monkeypatch.setattr(_build, "load", lambda: lib)
+        monkeypatch.setattr(tridiag_cuda, "_stream", lambda t: None)
+        monkeypatch.setattr(tridiag_cuda, "_index", lambda device: 0)
+        tridiag_cuda._strip_lanes.cache_clear()
+        return lib
+
+    yield install
+    tridiag_cuda._strip_lanes.cache_clear()
+
+
+@pytest.mark.parametrize("lanes,key", [(32, "tridiag.thomas"), (16, "tridiag.thomas"),
+                                       (0, "tridiag.thomas.long")])
+def test_thomas_route_asks_strip_lanes(fake_lib, lanes, key):
+    """K13's launch asks strip_lanes with its own mode code (5) and counts
+    the strip kernel as tridiag.thomas, the streaming one as .long; the
+    C entry takes (dtype, device, stream, d, x, w, binv, cb, corr, n, Q)."""
+    lib = fake_lib(lanes)
+    assert tridiag_cuda._MODES["thomas"] == 5
+    assert tridiag_cuda.strip_lanes("thomas", 64, 4096, torch.float64, "cuda:0") == lanes
+    assert lib.calls[-1] == ("strip_lanes", 1, 5, 64, 4096, 0)
+    fac = CudaTridiagFactor(*t(*compact_system(64)), periodic=True, algorithm="thomas")
+    d2 = torch.as_tensor(rhs((64, 96), 5))
+    stencil_cuda.reset_launches()
+    fac._launch(d2, fac._on("cpu", "thomas"), babe=False)
+    assert stencil_cuda.LAUNCHES[key] == 1 and sum(stencil_cuda.LAUNCHES.values()) == 1
+    name, *args = lib.calls[-1]
+    assert name == "thomas" and len(args) == 11 and args[0] == 1 and args[-2:] == [64, 96]
+    with tridiag_cuda._forced_strip("thomas", 64, torch.float32, "cuda:0", 16, 0) as fits:
+        assert fits
+    assert ("strip_force", 0, 5, 64, 16, 0, 0) in lib.calls
+
+
+def test_thomas_launch_error_raises(fake_lib):
+    """A launch that fails raises; nothing falls back to the plain version."""
+    fake_lib(32, err=9)
+    fac = CudaTridiagFactor(*t(*compact_system(16)), periodic=True, algorithm="thomas")
+    stencil_cuda.reset_launches()
+    with pytest.raises(RuntimeError, match="tridiag.thomas launch failed"):
+        fac._launch(torch.as_tensor(rhs((16, 8), 2)), fac._on("cpu", "thomas"), babe=False)
+    assert not any(stencil_cuda.LAUNCHES.values())
