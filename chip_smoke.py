@@ -98,10 +98,34 @@ and fails loudly if any phase fails:
              K15 path's iterations on the same b; then K17's Laplacian
              against K15's at 512^3 f32 and f64, seven pairs in turns.
 
+  7. distributed MG-CG, path (m): the parent builds the library, solves
+     each case on one rank (the reference: iterations, x, b = A u by K1,
+     the warm wall), then spawns one process a rank (`--dist-worker`,
+     each within DIST_TIMEOUT) that drives PoissonSolver(shard=pgrid):
+     (2,2,1) 512^3 f32 rtol 1e-6, the default cycle (7 iterations, as one
+     rank); (3,1,1) 64^3 f64 rtol 1e-8, the reference's 90112/86016/86016
+     split, the matvec within 1e-13 of one rank's K1 (6 iterations, the
+     JAX package's count there), and with the Jacobi smoother (K10, 7, the
+     one-rank count);
+     (2,2,2) 64^3 f64, 8 ranks (6). On every rank the counters are reset
+     before rhs_for + solve + residual_norm and read after; rank 0's
+     counts and the sums over ranks are printed with the exchanges, the
+     face bytes (held to exchange_bytes_model) and halo.staged, and K1,
+     K2, K8, K9 and K11 (K10 in its case) must show launches on every
+     rank; x must be within 100 rtol of the one-rank x. With one card
+     the ranks share it over gloo, every face staged through pinned host
+     buffers (walls printed, no speed figure); with two cards or more the
+     same cases also run over NCCL, one rank a card (a group of more ranks
+     than cards is skipped there). The kernels of the path are also held
+     to their plain versions at the ranks' block shapes (DIST_BLOCKS) in
+     phase 3, K11 in bf16 timed at the (2,2,1) block of 512^3.
+
 The last two lines of standard output are a JSON object with one entry
 per kernel mode, then {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --dist-only   # device, build and phase 7 alone:
+                                        # over NCCL on two cards or more
 """
 
 from __future__ import annotations
@@ -135,6 +159,7 @@ from poissbox_tpu_torch.ops.coefficients import compact_grad_coeffs, compact_int
 from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
+from poissbox_tpu_torch.parallel.decomp import dof_distribution, owned_boxes
 from poissbox_tpu_torch.solvers import fft, ksp
 from poissbox_tpu_torch.solvers import mg
 from poissbox_tpu_torch.solvers.cg import cg
@@ -172,6 +197,7 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "stencil7.residual.bf16": ("stencil7.cu", f"{PALLAS}:649"),
     "stencil7.jacobi.bf16": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
     "rbsor.general": ("rbsor.cu", f"{PALLAS}:663"),
+    "rbsor.general.bf16": ("rbsor.cu", f"{PALLAS}:663"),
     "rbsor.zero": ("rbsor.cu", f"{PALLAS}:690"),
     "rbsor.zero.bf16": ("rbsor.cu", f"{PALLAS}:690"),
     "rbsor.sweep": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
@@ -206,13 +232,11 @@ STRIP_KEYS = ("tridiag.thomas", "tridiag.babe", "tridiag.compact", "tridiag.dual
               "tridiag.chain", "tridiag.sum")
 # kernels that no path launches, and why (the idle check skips them; each
 # is still held to its plain version and timed)
-OFF_PATH = {"rbsor.general": "K11: every red-black sweep is one launch of the "
-                             "sweep kernel, so no path runs a single colour",
-            **{f"{k}.long": "the streaming kernel takes lines too long for two strip "
-                            "workers a block (LONG_CASES); no counted path has such "
-                            "lines (lapl_pairs' 512^3 f64 Laplacian gives sum's two "
-                            "columns a lane to it)"
-               for k in STRIP_KEYS}}
+OFF_PATH = {f"{k}.long": "the streaming kernel takes lines too long for two strip "
+                         "workers a block (LONG_CASES); no counted path has such "
+                         "lines (lapl_pairs' 512^3 f64 Laplacian gives sum's two "
+                         "columns a lane to it)"
+            for k in STRIP_KEYS}
 # K17's modes: field passes at the floor (inputs read once, outputs
 # written once) and operations a point (7 for the RHS taps, 2 forward, 3
 # back, 2 correction per operator; the sum's tap sum and final add)
@@ -1658,8 +1682,375 @@ def checkpoint_case(n, smi, every: int = 2) -> None:
           + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
           flush=True)
 
+# ---------------------------------------------------------------------------
+# phase 7: distributed MG-CG, one process a rank
+# ---------------------------------------------------------------------------
+
+# (label, process grid, cases); a case: the global size, dtype, rtol, extra
+# options, the iteration count it must take and the kernels every rank must
+# launch. The counts: 7 is the port's one-rank count at 512^3 (path (b),
+# and the parent's reference solve below); 6 the JAX package's on (3, 1, 1)
+# at 64^3 (tests/test_torch_dist_311.py runs it there) and on (2, 2, 2), the
+# same as its one-device count; 7 with the Jacobi smoother, the one-rank
+# count (tests/test_torch_dist_311.py holds the ranks to it).
+DIST_K = ["stencil7.apply", "stencil7.apply_dot", "cgupd", "stencil7.residual"]
+DIST_GROUPS = [
+    ("(2,2,1) 512^3 f32, the default cycle (bf16 pre-smooth)", (2, 2, 1),
+     [(512, "float32", 1e-6, [], 7, DIST_K + ["rbsor.general", "rbsor.general.bf16"])]),
+    ("(3,1,1) 64^3 f64, the reference's split", (3, 1, 1),
+     [(64, "float64", 1e-8, [], 6, DIST_K + ["rbsor.general"]),
+      (64, "float64", 1e-8, ["-mg_levels_pc_type", "jacobi"], 7,
+       DIST_K + ["stencil7.jacobi"])]),
+    ("(2,2,2) 64^3 f64, 8 ranks", (2, 2, 2),
+     [(64, "float64", 1e-8, [], 6, DIST_K + ["rbsor.general"])]),
+]
+# the local blocks of those cases, and the smallest distributed level's,
+# for the kernels of the path against their plain versions
+DIST_BLOCKS = [((256, 256, 512), 512, torch.float32), ((22, 64, 64), 64, torch.float64),
+               ((21, 64, 64), 64, torch.float64), ((32, 32, 32), 64, torch.float64),
+               ((4, 4, 8), 16, torch.float32)]
+DIST_MODES = ("stencil7.apply", "stencil7.apply_dot", "cgupd", "stencil7.residual",
+              "stencil7.jacobi", "rbsor.general")
+DIST_TIMEOUT = 240.0   # s: a rank's collectives, and the wait for a group
+
+
+def check_dist_blocks(stats: dict) -> None:
+    """K1, K2, K8, K9, K10 and K11 (bf16 K11 on the float32 blocks) at the
+    local block shapes of the distributed phase against their plain
+    versions; K11 in bf16 timed at the (2, 2, 1) block of 512^3."""
+    for shape, n, dtype in DIST_BLOCKS:
+        d = (1.0 / n,) * 3
+        f = fields(shape, dtype, seed=sum(shape) + 3)
+        for name, ins, ops, kern, plain in mode_calls(d, False):
+            if name.split("/")[0] in DIST_MODES:
+                err = compare(f"{name} block {shape} {dtype}", kern(f), plain(f))
+                key = name.split("/")[0]
+                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+        if dtype == torch.float32:
+            for colour in (0, 1):
+                kern = lambda c=colour: sc.sor_sweep_cuda(f["u16"], f["b16"], d, W, c)
+                plain = lambda c=colour: sc.sor_sweep_plain(f["u16"], f["b16"], d, W, c)
+                got = kern()
+                err = compare(f"rbsor.general.bf16 block {shape}", got, plain())
+                st = stats["rbsor.general.bf16"]
+                st["max_abs_err"] = max(st["max_abs_err"], err)
+                if shape == (256, 256, 512) and colour == 0:
+                    ms, plain_ms = median_ms(kern), median_ms(plain)
+                    bd = bound(f["u16"].nbytes + f["b16"].nbytes + out_bytes(got),
+                               7 * f["u"].numel())
+                    st.update(ms=ms, plain_ms=plain_ms, **bd)
+                    print(f"  rbsor.general.bf16 {shape}: kernel {ms:.4f} ms, plain "
+                          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms, "
+                          f"{share(bd, ms)}, max|diff| {err:.3e}")
+        del f
+        print(f"  the distributed path's kernels agree on the block {shape} {dtype}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+
+def _dist_reference(case, tmp: str, idx: int) -> dict:
+    """The one-rank solve of `case` on the card (the parent's): u, b = A u
+    (K1) and x saved for the ranks, its iterations and warm wall."""
+    n, dtype_name, rtol, extra, _, _ = case
+    dtype = getattr(torch, dtype_name)
+    argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
+            "-ksp_max_it", "50", *extra]
+    solver = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype, device=DEVICE)
+    u = np.random.default_rng(1).uniform(-1.0, 1.0, (n,) * 3)
+    u -= u.mean()
+    ut = torch.as_tensor(u, dtype=dtype, device=DEVICE)
+    b = solver.rhs_for(ut)
+    res = solver.solve(b)
+    files = {k: os.path.join(tmp, f"{k}{idx}.npy") for k in ("u", "b", "x")}
+    for k, t in (("u", ut), ("b", b), ("x", res.x)):
+        np.save(files[k], t.cpu().numpy())
+    wall = warm_ms({"one rank": lambda: solver.solve(b)})["one rank"]
+    out = {"its": int(res.iterations), "wall_ms": wall, "files": files,
+           "rel": solver.residual_norm(res.x, b)}
+    del solver, b, res, ut
+    torch.cuda.empty_cache()
+    return out
+
+
+def dist_worker(spec_path: str, rank: int) -> int:
+    """One rank of a distributed group (run by the parent as
+    `chip_smoke.py --dist-worker SPEC RANK`): the group's cases through
+    PoissonSolver(shard=pgrid), the counters reset before and read after
+    rhs_for, solve and residual_norm; rank 0 writes the results."""
+    import torch.distributed as dist
+    from poissbox_tpu_torch import mesh
+    from poissbox_tpu_torch.parallel import halo
+    spec = json.loads(open(spec_path).read())
+    world, pgrid = spec["world"], tuple(spec["pgrid"])
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(world)
+    torch.set_num_threads(1)
+    mesh.init_process_group(f"tcp://127.0.0.1:{spec['port']}", world, rank,
+                            backend=spec["backend"], device=DEVICE,
+                            timeout=DIST_TIMEOUT)
+    results = []
+    for case, ref in zip(spec["cases"], spec["refs"]):
+        n, dtype_name, rtol, extra, _, _ = case
+        dtype = getattr(torch, dtype_name)
+        argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
+                "-ksp_max_it", "50", *extra]
+        solver = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype,
+                               device=DEVICE, shard=pgrid)
+        g, A = solver.grid, solver.A
+        u = g.shard(np.load(ref["files"]["u"], mmap_mode="r"))
+        b1 = g.shard(np.load(ref["files"]["b"], mmap_mode="r"))
+        x1 = g.shard(np.load(ref["files"]["x"], mmap_mode="r"))
+        dist.barrier()
+        sc.reset_launches()
+        halo.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = solver.rhs_for(u)
+        res = solver.solve(b)
+        rel = solver.residual_norm(res.x, b)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        counts = dict(sc.LAUNCHES)
+        hcounts = dict(halo.COUNTS)
+        keys = sorted(k for k in counts)
+        vec = torch.tensor([counts[k] for k in keys], dtype=torch.float64,
+                           device=g.device)
+        csum = halo.allreduce_sum(vec, g.mesh)
+        cmin = -halo.allreduce_max(-vec, g.mesh)
+        hvec = torch.tensor([hcounts[k] for k in sorted(hcounts)], dtype=torch.float64,
+                            device=g.device)
+        hsum = halo.allreduce_sum(hvec, g.mesh)
+        # the K1 matvec against the one-rank K1, and x against the one-rank x
+        mv = halo.allreduce_max(((b - b1).abs().max() / b1.abs().max()).double()
+                                .reshape(1), g.mesh)
+        dx = res.x.double() - x1.double()
+        ex = res.x.double() - u.double()
+        sq = A.allreduce(torch.stack([torch.sum(dx * dx), torch.sum(x1.double() ** 2),
+                                      torch.sum(ex * ex), torch.sum(u.double() ** 2)]))
+        # the bytes of one matvec (K2) and of one V-cycle, alone
+        halo.reset_counts()
+        A.apply_dot(b)
+        mv_bytes = halo.COUNTS["bytes"]
+        halo.reset_counts()
+        solver._solver.M(b)
+        v_bytes = halo.COUNTS["bytes"]
+        walls = []
+        # three warm solves over NCCL; one where the ranks share a card
+        for _ in range(3 if halo.transport(b) == "nccl" else 1):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver.solve(b)
+            torch.cuda.synchronize()
+            walls.append(halo.allreduce_max(torch.tensor(
+                [(time.perf_counter() - t0) * 1e3], dtype=torch.float64,
+                device=g.device), g.mesh))
+        results.append({
+            "its": int(res.iterations), "rel": rel, "reason": int(res.reason),
+            "shape": list(res.x.shape), "finite": bool(torch.isfinite(res.x).all()),
+            "dofs": g.dof_counts(), "local_shape": list(g.local_shape),
+            "backend": dist.get_backend(), "route": halo.transport(b),
+            "matvec_rel": float(mv),
+            "x_rel_diff": float(sq[0].sqrt() / sq[1].sqrt()),
+            "x_err_exact": float(sq[2].sqrt() / sq[3].sqrt()),
+            "launches_rank0": {k: v for k, v in counts.items() if v},
+            "launches_sum": {k: int(v) for k, v in zip(keys, csum.tolist()) if v},
+            "launches_min": {k: int(v) for k, v in zip(keys, cmin.tolist())},
+            "halo_rank0": hcounts,
+            "halo_sum": {k: int(v) for k, v in zip(sorted(hcounts), hsum.tolist())},
+            "mv_bytes": mv_bytes, "v_bytes": v_bytes,
+            "first_ms": first_ms,
+            "warm_ms": statistics.median(float(w) for w in walls),
+            "warm_reps": len(walls)})
+        del solver, u, b1, x1, b, res
+        torch.cuda.empty_cache()
+    if rank == 0:
+        with open(spec["out"], "w") as fh:
+            json.dump(results, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_group(label, pgrid, cases, refs, backend, tmp) -> list:
+    """Run one group of ranks to its end (each with a time limit); any rank
+    that fails or hangs fails the phase, and every rank is stopped."""
+    world = int(np.prod(pgrid))
+    spec = os.path.join(tmp, f"spec_{world}_{backend}.json")
+    out = os.path.join(tmp, f"out_{world}_{backend}.json")
+    with open(spec, "w") as fh:
+        json.dump({"world": world, "pgrid": list(pgrid), "port": _free_port(),
+                   "backend": backend, "cases": cases, "refs": refs, "out": out}, fh)
+    here = os.path.dirname(os.path.abspath(__file__))
+    logs = [open(os.path.join(tmp, f"rank{r}_{world}_{backend}.log"), "w+")
+            for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               "--dist-worker", spec, str(r)], cwd=here,
+                              stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.perf_counter() + DIST_TIMEOUT + 120.0
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        for r in bad[:2]:
+            logs[r].seek(0)
+            print(f"  rank {r} of {label}:\n" + logs[r].read()[-4000:], flush=True)
+        raise AssertionError(f"distributed {label} over {backend}: ranks {bad} failed")
+    with open(out) as fh:
+        return json.load(fh)
+
+
+def dist_phase(smi: str, totals: dict, backends) -> None:
+    """Phase 7: each group of DIST_GROUPS over each backend of `backends`
+    (gloo: every rank on card 0, faces staged through pinned host buffers;
+    nccl: one rank a card, groups of more ranks than cards skipped), each
+    case against the one-rank solve of the parent."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, pgrid, cases in DIST_GROUPS:
+            world = int(np.prod(pgrid))
+            refs = None
+            for backend in backends:
+                if backend == "nccl" and world > torch.cuda.device_count():
+                    print(f"-- path (m) {label} over nccl: skipped, {world} ranks "
+                          f"and {torch.cuda.device_count()} cards", flush=True)
+                    continue
+                if refs is None:
+                    refs = [_dist_reference(c, tmp, i) for i, c in enumerate(cases)]
+                print(f"-- path (m) distributed MG-CG {label}, {world} ranks over "
+                      f"{backend}", flush=True)
+                t0 = time.perf_counter()
+                results = _spawn_group(label, pgrid, cases, refs, backend, tmp)
+                print(f"  group wall {time.perf_counter() - t0:.1f} s (spawn, imports "
+                      "and all cases)", flush=True)
+                cards = smi.replace("\n", "; ")     # one line a card
+                for case, ref, r in zip(cases, refs, results):
+                    _check_dist_case(label, pgrid, case, ref, r, backend, cards, totals)
+
+
+def _check_dist_case(label, pgrid, case, ref, r, backend, smi, totals) -> None:
+    n, dtype_name, rtol, extra, expect_its, required = case
+    # the face bytes the shapes give (V(1,1) at 512^3 with its bf16
+    # pre-smooth, V(3,3) at 64^3), against the counters
+    sweeps = 1 if n >= 512 else (2 if n >= 256 else 3)
+    esize = 4 if dtype_name == "float32" else 8
+    mv, v = exchange_bytes_model(n, pgrid, esize, 2 if n >= 512 and esize == 4 else esize,
+                                 sweeps, sweeps, "jacobi" if "jacobi" in extra else "sor")
+    window = (r["its"] + 2) * mv + (r["its"] + 1) * v
+    idle = [k for k in required if r["launches_min"].get(k, 0) == 0]
+    problems = []
+    if idle:
+        problems.append(f"kernels not launched on every rank: {idle}")
+    if r["its"] != expect_its or r["its"] != ref["its"]:
+        problems.append(f"{r['its']} iterations, expected {expect_its} "
+                        f"(one rank: {ref['its']})")
+    if not r["rel"] <= 1.01 * rtol or r["reason"] <= 0:
+        problems.append(f"relative residual {r['rel']:.3e}, reason {r['reason']}")
+    if r["shape"] != r["local_shape"] or not r["finite"]:
+        problems.append(f"bad solution block {r['shape']} (finite {r['finite']})")
+    if not r["x_rel_diff"] <= 100 * rtol:
+        problems.append(f"x differs from the one-rank x by {r['x_rel_diff']:.3e}")
+    if dtype_name == "float64" and not r["matvec_rel"] <= 1e-13:
+        problems.append(f"matvec {r['matvec_rel']:.3e} from the one-rank K1")
+    if r["dofs"] != dof_distribution((n,) * 3, pgrid):
+        problems.append(f"dof counts {r['dofs']}")
+    if (r["mv_bytes"], r["v_bytes"], r["halo_rank0"]["bytes"]) != (mv, v, window):
+        problems.append(f"face bytes: matvec {r['mv_bytes']}, V-cycle {r['v_bytes']}, "
+                        f"window {r['halo_rank0']['bytes']}; the shapes give {mv}, {v}, "
+                        f"{window}")
+    if problems:
+        raise AssertionError(f"distributed {label} {extra} over {backend}: "
+                             + "; ".join(problems))
+    print(f"  {n}^3 {dtype_name} {' '.join(extra)} over {r['backend']} ({r['route']}): "
+          f"{r['its']} iterations (one rank {ref['its']}), relative residual "
+          f"{r['rel']:.3e}; DoF {r['dofs']}; matvec vs one-rank K1 {r['matvec_rel']:.3e}; "
+          f"x vs one-rank x {r['x_rel_diff']:.3e} (errors vs u: {r['x_err_exact']:.3e})",
+          flush=True)
+    print(f"  launches, rank 0: {r['launches_rank0']}", flush=True)
+    print(f"  launches, sum over ranks: {r['launches_sum']}", flush=True)
+    print(f"  exchanges, rank 0: {r['halo_rank0']}; sum over ranks: {r['halo_sum']}",
+          flush=True)
+    print(f"  face bytes, rank 0: a matvec {mv}, a V-cycle {v}, a CG iteration {mv + v} "
+          f"(as the shapes give them); rhs_for + solve + residual_norm {window}",
+          flush=True)
+    print(f"  walls: rhs_for + first solve + residual_norm {r['first_ms']:.1f} ms, warm "
+          f"solve {r['warm_ms']:.2f} ms (the slowest rank, median of {r['warm_reps']}); "
+          f"one-rank warm "
+          f"solve {ref['wall_ms']:.2f} ms ({smi})"
+          + ("; ranks share one card and stage every face through the host: no "
+             "speed figure" if r["route"] == "gloo-staged" else ""), flush=True)
+    for k, v in r["launches_sum"].items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def exchange_bytes_model(n: int, pgrid, esize: int, pre_esize: int, pre: int,
+                         post: int, smoother: str = "sor") -> tuple[int, int]:
+    """Rank 0's face bytes sent, from the shapes alone: (one matvec, one
+    V-cycle). A face exchange sends two planes a split axis; a halo pad
+    (the transfers) pads the axes in turn, each on the block the earlier
+    axes grew. On a distributed level the pre-smooth sends 2 pre - 1 faces
+    sets (SOR: the first colour is closed form) or pre - 1 (Jacobi), the
+    residual one, the post-smooth 2 post (SOR) or post; the restriction
+    pads the fine block, the prolongation the coarse one where the coarse
+    level is distributed too. The coarsest level and replicated levels
+    send no faces (they gather)."""
+    split = [d for d in range(3) if pgrid[d] > 1]
+
+    def block(m):
+        return owned_boxes((m,) * 3, pgrid)[(0, 0, 0)][1]
+
+    def faces(shape, e):
+        return sum(2 * e * math.prod(shape[k] for k in range(3) if k != d) for d in split)
+
+    def pad(shape, e):
+        return sum(2 * e * math.prod((shape[k] + 2) if k < d else shape[k]
+                                     for k in range(3) if k != d) for d in split)
+
+    def dist(m):   # mg._level_shardable
+        return all(m % p == 0 and (m // p) % 2 == 0 for p in pgrid if p > 1)
+
+    uneven = any(n % p for p in pgrid)
+    sizes = [n]
+    while sizes[-1] > 4 and sizes[-1] % 2 == 0:
+        sizes.append(sizes[-1] // 2)
+    v = 0
+    for i, m in enumerate(sizes[:-1]):
+        if not (dist(m) or (uneven and i == 0)):
+            break
+        sh = block(m)
+        npre = 2 * pre - 1 if smoother == "sor" else pre - 1
+        npost = 2 * post if smoother == "sor" else post
+        v += npre * faces(sh, pre_esize) + (1 + npost) * faces(sh, esize)
+        if not uneven:
+            v += pad(sh, esize)
+            if dist(sizes[i + 1]):
+                v += pad(block(sizes[i + 1]), esize)
+    return faces(block(n), esize), v
+
 
 def main() -> int:
+    args = sys.argv[1:]
+    if args[:1] == ["--dist-worker"]:
+        return dist_worker(args[1], int(args[2]))
+    dist_only = args == ["--dist-only"]
+    if args and not dist_only:
+        raise SystemExit(f"chip_smoke: unknown arguments {args} "
+                         "(none, or --dist-only)")
     phase("device")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
@@ -1684,8 +2075,20 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
 
+    if dist_only:
+        # phase 7 alone: over NCCL, one rank a card, where there are cards
+        # for it, against the one-card solve
+        phase("distributed MG-CG (alone)")
+        dist_phase(smi, {}, ["nccl"] if torch.cuda.device_count() >= 2 else ["gloo"])
+        print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        return 0
+
     phase("kernels against plain versions")
     stats = check_kernels()
+    check_dist_blocks(stats)
 
     phase("the one-pass sweep against two K11 launches")
     sweep_pairs(smi)
@@ -1834,6 +2237,9 @@ def main() -> int:
     del runs_l
     torch.cuda.empty_cache()
     lapl_pairs(smi)
+
+    phase("distributed MG-CG")
+    dist_phase(smi, totals, ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else []))
     idle = [k for k in KERNELS if totals[k] == 0 and k not in OFF_PATH]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")

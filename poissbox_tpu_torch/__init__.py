@@ -9,7 +9,8 @@ reference: the tests hold every ported function against it.
 This package imports ``torch`` and numpy, never ``jax``. Its modules
 mirror the JAX package's paths:
 
-  - grid ................. poissbox_tpu_torch.mesh          (single device)
+  - grid, process grid ... poissbox_tpu_torch.mesh
+  - across ranks ......... poissbox_tpu_torch.parallel.{decomp,halo,dist_stencil,uneven}
   - stencil operators .... poissbox_tpu_torch.ops.stencil
   - CUDA kernels ......... poissbox_tpu_torch.ops.stencil_cuda
   - assembled operator ... poissbox_tpu_torch.ops.assemble

@@ -8,18 +8,28 @@ preconditioner + options bound once, then solves.
     result = solver.solve(b)                      # SolveResult
     refined = solver.solve_refined(b)             # f64-accurate (RefineResult)
     result, its = solver.solve_checkpointed(b, "ckpt/solve", every=25)
+
+Across ranks (``torchrun --nproc-per-node N``, after
+``mesh.init_process_group()``), ``PoissonSolver(n, shard=True)``
+decomposes the grid over the world group and every field is this rank's
+owned box: ``random_solution``, ``rhs_for``, ``solve`` and
+``residual_norm`` take and return blocks (``solver.grid.unshard`` gathers
+one). Owned boxes need no padding, so the JAX package's ``_prep`` (which
+scatters a logical field into its padded uneven layout) has no
+counterpart.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
 
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.constants import default_real
-from poissbox_tpu_torch.linops import LinearOperator
-from poissbox_tpu_torch.mesh import Grid3D
+from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
+from poissbox_tpu_torch.mesh import Grid3D, make_process_grid
 from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.solvers.cg import cg
@@ -32,7 +42,7 @@ Tensor = torch.Tensor
 
 
 class PoissonSolver:
-    """Periodic 3-D Poisson solver on one device.
+    """Periodic 3-D Poisson solver on one device or across ranks.
 
     Args:
       n: grid shape (nx, ny, nz).
@@ -62,15 +72,25 @@ class PoissonSolver:
                  options: Options | SolverOptions | None = None,
                  dtype=None,
                  device="cuda",
-                 order: int = 2):
+                 order: int = 2,
+                 shard: bool | Sequence[int] = False):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("PoissonSolver(device='cuda') needs a CUDA "
                                "device; torch.cuda.is_available() is False")
-        self.grid = Grid3D(tuple(n), tuple(length), device)
+        grid = Grid3D(tuple(n), tuple(length), device)
+        if shard is True:
+            grid = grid.with_mesh()
+        elif shard:
+            grid = grid.with_mesh(make_process_grid(shard))
+        self.grid = grid
         if order == 2:
             self.A: LinearOperator = make_laplacian_operator(self.grid)
         elif order == 6:
+            if self.grid.distributed:
+                raise NotImplementedError(
+                    "order 6 across ranks (compact_dist) comes with the port's "
+                    "next multi-process slice (ROADMAP.md queue 1)")
             self.A = make_compact_laplacian_operator(self.grid)
         else:
             raise ValueError(f"order must be 2 or 6, got {order}")
@@ -81,7 +101,8 @@ class PoissonSolver:
         self.options = options
         self.dtype = dtype or default_real()
         self._solver = make_solver(self.A, options, self.grid.n,
-                                   self.grid.deltas, self.dtype, device)
+                                   self.grid.deltas, self.dtype, self.grid.device,
+                                   grid=self.grid)
 
     # -- fields ------------------------------------------------------------
     def random_solution(self, seed: int = 0) -> Tensor:
@@ -103,6 +124,7 @@ class PoissonSolver:
         """float64-accurate solve by mixed-precision iterative refinement:
         float32 MG-CG corrections (rtol 1e-6, at most 50 iterations each;
         the MG is built at each call), float64 true residuals."""
+        require_one_rank(self.A, "solve_refined")
         M = make_mg_preconditioner(self.grid.n, self.grid.deltas, MGConfig(),
                                    dtype=torch.float32, device=self.grid.device)
         inner = lambda r: cg(self.A, r, M=M, rtol=1e-6, max_it=50)
@@ -115,6 +137,7 @@ class PoissonSolver:
         iterations; a killed run resumes from `path` with at most `every`
         iterations lost (checkpoint.solve_with_checkpoints). Returns
         (SolveResult, total_iterations)."""
+        require_one_rank(self.A, "solve_checkpointed")
         from poissbox_tpu_torch.checkpoint import solve_with_checkpoints
         M = make_mg_preconditioner(self.grid.n, self.grid.deltas, MGConfig(),
                                    dtype=self.dtype, device=self.grid.device)
@@ -122,6 +145,11 @@ class PoissonSolver:
                                       max_it=max_it, every=every)
 
     def residual_norm(self, x: Tensor, b: Tensor) -> float:
-        """True relative residual ||A x - b|| / ||b||."""
-        r = float(torch.linalg.vector_norm(self.A(x) - b))
-        return r / float(torch.linalg.vector_norm(b))
+        """True relative residual ||A x - b|| / ||b|| (over every rank's
+        block)."""
+        if self.A.allreduce is None:
+            r = float(torch.linalg.vector_norm(self.A(x) - b))
+            return r / float(torch.linalg.vector_norm(b))
+        d = self.A(x) - b
+        rr, bb = self.A.allreduce(torch.stack([torch.sum(d * d), torch.sum(b * b)]))
+        return math.sqrt(float(rr)) / math.sqrt(float(bb))

@@ -6,6 +6,13 @@ tests hand the same seeded inputs to both). A :class:`SolveResult`, a
 field. The solver has no trained weights: its only
 setup state, the coarse-grid pseudo-inverse, is computed by the same
 numpy code in both packages (solvers.mg._coarse_pinv).
+
+Across ranks a field is each rank's owned box: :func:`shard_numpy` cuts a
+rank's box out of a global numpy field, :func:`unshard_numpy` gathers the
+global field back, and :func:`rank_blocks` / :func:`assemble_blocks` split
+a global field (a JAX package's sharded array included: it converts with
+``np.asarray``) into the per-rank blocks, in rank order, and put them
+back together, without a process group.
 """
 
 from __future__ import annotations
@@ -15,6 +22,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from poissbox_tpu_torch.parallel.decomp import owned_boxes
 from poissbox_tpu_torch.solvers.refine import RefineResult
 from poissbox_tpu_torch.solvers.result import SolveResult
 
@@ -85,3 +93,38 @@ def checkpoint_from_numpy(state: Mapping[str, Any], device="cpu") -> dict:
     """A checkpoint state dict of arrays (the JAX package's included) as
     tensors on `device`."""
     return {k: to_torch(v, device) for k, v in state.items()}
+
+
+def shard_numpy(a, grid, dtype=None) -> torch.Tensor:
+    """This rank's owned box of the global field `a` (anything np.asarray
+    takes), on the grid's device."""
+    t = grid.shard(np.asarray(a))
+    return t if dtype is None else t.to(dtype)
+
+
+def unshard_numpy(t: torch.Tensor, grid) -> np.ndarray:
+    """The global field gathered from every rank's block, as numpy (a
+    collective: every rank calls it)."""
+    return to_numpy(grid.unshard(t))
+
+
+def rank_blocks(a, shape, pgrid) -> list[np.ndarray]:
+    """The owned boxes of the global field `a` on process grid `pgrid`,
+    in rank order (C order over the process coordinates)."""
+    a = np.asarray(a)
+    if tuple(a.shape) != tuple(shape):
+        raise ValueError(f"expected a field of shape {tuple(shape)}, got {a.shape}")
+    return [a[xs:xs + xn, ys:ys + yn, zs:zs + zn].copy()
+            for _, ((xs, ys, zs), (xn, yn, zn))
+            in sorted(owned_boxes(shape, pgrid).items())]
+
+
+def assemble_blocks(blocks, shape, pgrid) -> np.ndarray:
+    """The global field from its per-rank blocks (rank order)."""
+    boxes = [box for _, box in sorted(owned_boxes(shape, pgrid).items())]
+    if len(blocks) != len(boxes):
+        raise ValueError(f"{len(blocks)} blocks for {len(boxes)} ranks")
+    out = np.empty(tuple(shape), dtype=np.asarray(blocks[0]).dtype)
+    for blk, ((xs, ys, zs), (xn, yn, zn)) in zip(blocks, boxes):
+        out[xs:xs + xn, ys:ys + yn, zs:zs + zn] = np.asarray(blk)
+    return out

@@ -57,10 +57,14 @@ def apply_laplacian_pointwise(u: torch.Tensor,
     return out
 
 
-def default_impl(device) -> str:
-    """The stencil implementation for fields on `device`: the CUDA kernels
-    on a CUDA device (every grid size: the JAX package's min(shape) >= 16
-    gate is a TPU tiling rule), the roll formulation on the CPU."""
+def default_impl(device, mesh=None) -> str:
+    """The stencil implementation for fields on `device`: "dist" (the
+    correction-form operators of parallel.dist_stencil) over a process
+    grid of more than one rank; otherwise the CUDA kernels on a CUDA
+    device (every grid size: the JAX package's min(shape) >= 16 gate is a
+    TPU tiling rule), the roll formulation on the CPU."""
+    if mesh is not None and mesh.size > 1:
+        return "dist"
     kind = torch.device(device).type
     if kind == "cuda":
         return "cuda"
@@ -72,15 +76,40 @@ def default_impl(device) -> str:
 def make_laplacian_operator(grid, impl: str = "auto"):
     """The matrix-free Laplacian LinearOperator for a Grid3D.
 
-    `impl`: 'roll', 'pointwise', or 'cuda' (the hand-written kernels;
+    `impl`: 'roll', 'pointwise', 'cuda' (the hand-written kernels;
     `apply` and `apply_dot` bind KA `stencil7`, `fused_update` K8
-    `cgupd`). 'auto' follows the grid's device (:func:`default_impl`).
+    `cgupd`), or, over a process grid of more than one rank, 'dist' (the
+    correction-form operators on this rank's block: K1, K2 and K8 on the
+    block on a card, the roll form on the CPU) and 'uneven' (the same operators, with the mean-removal
+    projector applied explicitly, as the JAX package does on a grid the
+    process grid does not divide; 'dist' becomes 'uneven' there). 'auto'
+    follows the grid (:func:`default_impl`). Over several ranks
+    `direct_solve` is None, the operator carries `allreduce` and `ndof`,
+    and its fused hooks return this rank's partial sums.
     """
     deltas = grid.deltas
+    mesh = grid.mesh if grid.distributed else None
     if impl == "auto":
-        impl = default_impl(grid.device)
-    apply_dot = fused_update = None
-    if impl == "roll":
+        impl = default_impl(grid.device, mesh)
+    if impl == "dist" and grid.uneven:
+        impl = "uneven"
+    apply_dot = fused_update = allreduce = None
+    nullspace = make_nullspace_projector()
+    if impl in ("dist", "uneven"):
+        if mesh is None:
+            raise ValueError(f"impl={impl!r} needs a grid over a process grid "
+                             "of more than one rank")
+        from poissbox_tpu_torch.parallel import dist_stencil as ds
+        from poissbox_tpu_torch.parallel.halo import allreduce_sum
+        from poissbox_tpu_torch.parallel.uneven import make_masked_projector
+        apply = lambda u: ds.apply_laplacian_sharded(u, grid)
+        apply_dot = lambda u: ds.apply_laplacian_dot_sharded(u, grid, reduce=False)
+        fused_update = lambda a, x, p, r, ap: ds.cg_fused_update_sharded(
+            a, x, p, r, ap, grid, reduce=False)
+        allreduce = lambda t: allreduce_sum(t, mesh)
+        nullspace = (make_masked_projector(grid) if impl == "uneven"
+                     else make_nullspace_projector(mesh, grid.ndof))
+    elif impl == "roll":
         apply = lambda u: apply_laplacian(u, deltas)
     elif impl == "pointwise":
         apply = lambda u: apply_laplacian_pointwise(u, deltas)
@@ -90,7 +119,7 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         fused_update = cg_fused_update_cuda
     else:
         raise ValueError(f"unknown stencil impl {impl!r} (expected "
-                         "auto|roll|pointwise|cuda)")
+                         "auto|roll|pointwise|cuda|dist|uneven)")
 
     diag_val = -2.0 * sum(1.0 / float(d) ** 2 for d in deltas)
 
@@ -101,11 +130,13 @@ def make_laplacian_operator(grid, impl: str = "auto"):
     return LinearOperator(
         apply=apply,
         diagonal=lambda: diag_val,
-        nullspace=make_nullspace_projector(),
+        nullspace=nullspace,
         symmetric=True,
         apply_dot=apply_dot,
         fused_update=fused_update,
-        direct_solve=direct_solve,
+        direct_solve=None if mesh is not None else direct_solve,
+        allreduce=allreduce,
+        ndof=grid.ndof if mesh is not None else None,
     )
 
 

@@ -1,0 +1,9 @@
+"""Multi-process execution (port of :mod:`poissbox_tpu.parallel`): the
+process-grid planner, the periodic face exchange over ``torch.distributed``,
+the correction-form operators on each rank's owned box, and the uneven
+decompositions' helpers.
+
+Each rank is one process holding one plain tensor, its owned box of every
+field (the DMDA layout of the reference); halos move by point-to-point
+messages to the periodic neighbour ranks and global sums by one all-reduce.
+"""

@@ -9,6 +9,13 @@ or operator binds — ``A.apply_dot``, ``A.fused_update``,
 ``A.pupdate_apply_dot``, ``M.apply_dots``, ``M.apply_update_dots`` — fold
 reductions and the vector updates into the kernels' own passes, as in the
 JAX package.
+
+Over a process grid (an operator with ``A.allreduce``; JAX's psum is
+implicit in GSPMD) the fields are rank blocks and every sum is a partial:
+CG stacks the partials it needs at one point and all-reduces them once,
+twice an iteration (pAp; then ||r||^2, sum(r), <r, M r>, sum(M r)
+together), and every value the loop's stopping test reads is an
+all-reduced one, so every rank takes the same decision.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
+from poissbox_tpu_torch.utils.logging import is_process0
 
 Tensor = torch.Tensor
 
@@ -28,9 +36,22 @@ def _dot(a: Tensor, b: Tensor) -> Tensor:
     return torch.sum(a * b)
 
 
+def _sums(reduce, *vals):
+    """The partial sums `vals` summed over every rank in ONE all-reduce of
+    their stack (`reduce`, the operator's), Nones passed through; as they
+    are on one device (reduce None)."""
+    if reduce is None:
+        return vals
+    live = [v for v in vals if v is not None]
+    it = iter(reduce(torch.stack(live)).unbind())
+    return tuple(None if v is None else next(it) for v in vals)
+
+
 def _monitor_print(k: int, rnorm: Tensor) -> None:
-    """`-ksp_monitor` line in PETSc's format (synchronises)."""
-    print(f"  {int(k)} KSP Residual norm {float(rnorm):.12e}", flush=True)
+    """`-ksp_monitor` line in PETSc's format (synchronises), from process
+    0 only (every rank holds the same all-reduced norm)."""
+    if is_process0():
+        print(f"  {int(k)} KSP Residual norm {float(rnorm):.12e}", flush=True)
 
 
 def cg(
@@ -69,11 +90,15 @@ def cg(
         r = b - A(x)
     z = A.project(precond(r))
     p = z
-    rz = _dot(r, z)
+    reduce = getattr(A, "allreduce", None)
     # |<r, z>|: the Laplacian here is negative definite; abs covers both
     # orientations and keeps rounding negatives from poisoning sqrt
-    rnorm0 = torch.sqrt(torch.abs(rz)) if natural else torch.sqrt(_dot(r, r))
-    bnorm = rnorm0 if natural else torch.sqrt(_dot(b, b))
+    if natural:
+        rz, = _sums(reduce, _dot(r, z))
+        rnorm0 = bnorm = torch.sqrt(torch.abs(rz))
+    else:
+        rz, rr0, bb = _sums(reduce, _dot(r, z), _dot(r, r), _dot(b, b))
+        rnorm0, bnorm = torch.sqrt(rr0), torch.sqrt(bb)
 
     hist = torch.full((max_it + 1,), float("nan"), dtype=b.dtype,
                       device=b.device)
@@ -93,7 +118,7 @@ def cg(
     project_z = A.nullspace is not None and getattr(
         A.nullspace, "is_constant_projector", False)
     explicit_proj = A.nullspace is not None and not project_z
-    inv_n = 1.0 / b.numel()
+    inv_n = 1.0 / (A.ndof or b.numel())
     # fused x/r update with the ||r||^2, sum(r) partials in its pass (K8)
     fuse_upd = getattr(A, "fused_update", None) is not None and b.dim() == 3
     # fused coupling reductions (<r, M r>, sum(M r)) from the V-cycle's
@@ -105,12 +130,15 @@ def cg(
     # and apply_dots
     apply_upd_dots = (getattr(M, "apply_update_dots", None)
                       if not explicit_proj and not flexible
-                      and b.dim() == 3 else None)
+                      and b.dim() == 3 and reduce is None else None)
     # deferred search-direction update: p' = (v - zshift) + beta*p forms
     # inside the next iteration's matvec kernel (K12), so the loop carries
     # (v, beta, zshift) instead of p'; beta and zshift stay on the device
     defer_p = (getattr(A, "pupdate_apply_dot", None) is not None
                and b.dim() == 3)
+    if defer_p and reduce is not None:
+        raise NotImplementedError("the deferred p-update (K12) has no form "
+                                  "across ranks (nor has it in the JAX package)")
     if defer_p:
         # the first direction, (z - 0) + 0 * 0 = z, formed in the kernel
         v_def, beta, zshift = z, zero, zero
@@ -130,6 +158,7 @@ def cg(
         else:
             Ap = A(p)
             pAp = _dot(p, Ap)
+        pAp, = _sums(reduce, pAp)
         # breakdown guard: pAp (or rz) vanishes once the residual is
         # rounding noise of the projected null space — stop with the
         # current iterate instead of dividing 0/0
@@ -162,6 +191,11 @@ def cg(
                     sv = torch.sum(v)
                     sr = torch.sum(r) if sr_k is None else sr_k
                     rr = None if natural else (_dot(r, r) if rr_k is None else rr_k)
+        # beta_PR = <r_{k+1} - r_k, z_{k+1}> / rz_k = -alpha <Ap, z> / rz_k
+        apz = _dot(Ap, v) if flexible else None
+        sap = torch.sum(Ap) if flexible and project_z else None
+        # the second reduction point: every partial of the step at once
+        rr, sr, rv, sv, apz, sap = _sums(reduce, rr, sr, rv, sv, apz, sap)
         if project_z:
             rz_new = rv - sv * ((sv if sr is None else sr) * inv_n)
             zshift = sv * inv_n
@@ -169,10 +203,8 @@ def cg(
             rz_new = rv
             zshift = zero
         if flexible:
-            # beta_PR = <r_{k+1} - r_k, z_{k+1}> / rz_k = -alpha <Ap, z> / rz_k
-            apz = _dot(Ap, v)
             if project_z:
-                apz = apz - zshift * torch.sum(Ap)
+                apz = apz - zshift * sap
             numer = -alpha * apz
         else:
             numer = rz_new

@@ -20,7 +20,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from poissbox_tpu_torch.linops import LinearOperator
+from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
 from poissbox_tpu_torch.solvers.mg import _full_fp32_matmul
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
@@ -77,6 +77,7 @@ def gmres(
     to its end (or convergence) even past `max_it`; its later entries
     fall off the end of the history.
     """
+    require_one_rank(A, "GMRES")
     m = clamp_restart(int(restart), b)
     x = torch.zeros_like(b) if x0 is None else x0
     b = A.project(b)

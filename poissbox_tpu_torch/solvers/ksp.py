@@ -20,7 +20,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from poissbox_tpu_torch.config import Options, SolverOptions
-from poissbox_tpu_torch.linops import LinearOperator
+from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
 from poissbox_tpu_torch.solvers.cg import cg
 from poissbox_tpu_torch.solvers.fft import fft_solver_result, make_fft_preconditioner
 from poissbox_tpu_torch.solvers.gmres import gmres
@@ -46,8 +46,11 @@ def make_preconditioner(
     deltas: Optional[Sequence[float]] = None,
     dtype=torch.float64,
     device="cuda",
+    grid=None,
 ) -> Optional[Callable[[Tensor], Tensor]]:
-    """Build the preconditioner closure selected by `pc_type`."""
+    """Build the preconditioner closure selected by `pc_type` (over a
+    process grid: none, jacobi or mg, the V-cycle's fine levels
+    distributed over `grid`)."""
     if opts.pc_type in ("none", ""):
         return None
     if opts.pc_type == "jacobi":
@@ -58,6 +61,7 @@ def make_preconditioner(
     if opts.pc_type == "fft":
         # the exact periodic 7-point inverse as a spectrally equivalent
         # preconditioner (for the compact 6th-order system)
+        require_one_rank(A, "-pc_type fft")
         if deltas is None:
             raise ValueError("fft preconditioning needs the grid deltas")
         return make_fft_preconditioner(deltas)
@@ -117,7 +121,8 @@ def make_preconditioner(
             dtype=opts.mg_cycle_dtype,
             pre_dtype=pre_dtype,
         )
-        return make_mg_preconditioner(shape, deltas, cfg, dtype, device)
+        return make_mg_preconditioner(shape, deltas, cfg, dtype, device,
+                                      grid=grid)
     raise ValueError(
         f"unknown pc_type {opts.pc_type!r} (expected none|jacobi|fft|mg)")
 
@@ -146,6 +151,8 @@ def make_solver(
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"make_solver(device={str(device)!r}) needs a CUDA "
                            "device; torch.cuda.is_available() is False")
+    if opts.ksp_type not in ("cg", "fcg"):
+        require_one_rank(A, f"-ksp_type {opts.ksp_type}")
     common = dict(rtol=opts.ksp_rtol, atol=opts.ksp_atol,
                   max_it=opts.ksp_max_it, monitor=opts.ksp_monitor)
     if opts.ksp_type == "fft":
@@ -157,7 +164,7 @@ def make_solver(
         def solver(b, x0=None):
             return fft_solver_result(A, b, deltas)
     else:
-        M = make_preconditioner(A, opts, shape, deltas, dtype, device)
+        M = make_preconditioner(A, opts, shape, deltas, dtype, device, grid)
 
         if opts.ksp_type in ("cg", "fcg"):
             def solver(b, x0=None):
@@ -294,6 +301,8 @@ def solve(
         opts = SolverOptions.from_options(opts)
     opts = opts or SolverOptions()
     log_view = db is not None and db.get_bool("log_view")
+    if log_view:
+        require_one_rank(A, "-log_view")
     t0 = time.perf_counter()
     solver = make_solver(A, opts, shape, deltas, b.dtype, b.device, grid=grid)
     t_setup = time.perf_counter() - t0

@@ -23,6 +23,21 @@ transfers as contractions; on the CPU it resolves to "roll".
 ``impl="cuda"`` on CPU tensors runs the kernels' plain versions on every
 level, so ``impl="cuda", transfers="matmul"`` walks the card's call graph
 on the CPU. ``impl="roll"`` is the plain formulation on any device.
+
+Over a process grid (``make_mg_preconditioner(..., grid=g)`` with `g`
+spanning more than one rank) the JAX package's policy holds exactly, so
+the level stacks and the iteration counts of the two packages match: a
+level stays distributed (each rank its owned box) while every split local
+extent is even; an uneven fine level runs distributed and the levels below
+it replicated; coarser levels that no longer split evenly run replicated,
+every rank computing the same field (the GAMG-style reduction of the
+process count). Distributed levels run the correction-form operators of
+:mod:`poissbox_tpu_torch.parallel.dist_stencil`: the first SOR colour from
+zero in closed form, then one K11 launch a colour (never the one-launch
+sweep: its second colour reads first-colour values across the faces), and
+the roll-form transfers on halo-padded blocks. A replicated level is
+reached by a gather and left by a cut; the coarse pseudo-inverse is
+applied on every rank.
 """
 
 from __future__ import annotations
@@ -52,6 +67,9 @@ from poissbox_tpu_torch.ops.transfer_cuda import (
     restrict_axis,
     xprolong_add_cuda,
 )
+from poissbox_tpu_torch.parallel import dist_stencil as ds
+from poissbox_tpu_torch.parallel.halo import halo_pad_local, pad_from_global
+from poissbox_tpu_torch.parallel.uneven import color_mask
 
 Tensor = torch.Tensor
 
@@ -119,6 +137,9 @@ class _Level:
     shape: tuple[int, int, int]
     deltas: tuple[float, float, float]
     diag: float                   # constant stencil diagonal -2*sum(1/d^2)
+    # the level's Grid3D when it runs distributed (each rank its owned
+    # box); None when it runs replicated or on one device
+    grid: Optional[object] = None
 
 
 def _kernels(cfg: MGConfig, device) -> bool:
@@ -148,30 +169,62 @@ def _fused_leg(levels: Sequence[_Level], cfg: MGConfig, idx: int,
                device) -> bool:
     """True when level `idx` goes down through K6 and up through K7 (the
     path that takes a narrow pre-smooth iterate as it is): every
-    non-coarsest kernel level with matmul transfers."""
+    non-coarsest kernel level with matmul transfers whose own and next
+    level run on one device or replicated (never across a distributed
+    level, as in the JAX package)."""
     return (idx < len(levels) - 1 and _transfers(cfg, device) == "matmul"
-            and _kernels(cfg, device))
+            and _kernels(cfg, device) and levels[idx].grid is None
+            and levels[idx + 1].grid is None)
+
+
+def _local_impl(cfg: MGConfig) -> str:
+    """The block kernels' choice on distributed levels (dist_stencil's
+    local_impl): roll, cuda (pallas) or auto."""
+    return {"roll": "roll", "cuda": "cuda", "pallas": "cuda"}.get(cfg.impl, "auto")
 
 
 def _lapl(x: Tensor, lvl: _Level, cfg: MGConfig) -> Tensor:
+    if lvl.grid is not None:
+        return ds.apply_laplacian_sharded(x, lvl.grid, local_impl=_local_impl(cfg))
     if _kernels(cfg, x.device):
         return apply_laplacian_cuda(x, lvl.deltas)
     return apply_laplacian(x, lvl.deltas)
 
 
 def _residual(x: Tensor, b: Tensor, lvl: _Level, cfg: MGConfig) -> Tensor:
+    if lvl.grid is not None:
+        return ds.residual_sharded(x, b, lvl.grid, local_impl=_local_impl(cfg))
     if _kernels(cfg, b.device):
         return residual_cuda(x, b, lvl.deltas)
     return b - apply_laplacian(x, lvl.deltas)
 
 
-def _build_levels(shape, deltas, cfg: MGConfig) -> list[_Level]:
+def _level_shardable(n, grid) -> bool:
+    """A level stays distributed while every split dim keeps an even local
+    extent (the JAX package's rule, kept so the level stacks match)."""
+    if grid is None or not grid.distributed:
+        return False
+    for nd, p in zip(n, grid.pgrid):
+        if p > 1 and (nd % p != 0 or (nd // p) % 2 != 0):
+            return False
+    return True
+
+
+def _build_levels(shape, deltas, cfg: MGConfig, grid=None) -> list[_Level]:
     levels = []
     n = tuple(int(v) for v in shape)
     d = tuple(float(x) for x in deltas)
+    uneven_fine = grid is not None and grid.distributed and grid.uneven
     while True:
         diag = -2.0 * sum(1.0 / dd**2 for dd in d)
-        levels.append(_Level(n, d, diag))
+        lgrid = None
+        if uneven_fine and not levels:
+            # an uneven fine level runs distributed, the levels below it
+            # replicated
+            lgrid = grid
+        elif _level_shardable(n, grid):
+            lgrid = dataclasses.replace(grid, n=n)
+        levels.append(_Level(n, d, diag, grid=lgrid))
         stop_size = min(n) <= cfg.coarse_size
         stop_div = any(x % 2 for x in n)
         stop_count = cfg.levels > 0 and len(levels) >= cfg.levels
@@ -199,6 +252,58 @@ def prolong(c: Tensor, axes=(0, 1, 2)) -> Tensor:
     for ax in axes:
         c = prolong_axis(c, ax)
     return c
+
+
+def restrict_padded(fp: Tensor) -> Tensor:
+    """restrict() of a block padded with one halo plane on every side (the
+    planes f_{2I-1} and f_{2I+2} at its ends): the coarse block, the same
+    sums in the same order as the global roll form."""
+    for ax in range(3):
+        n = fp.shape[ax] - 2
+        every2 = (slice(None),) * ax + (slice(None, None, 2),)
+        even = fp.narrow(ax, 1, n)[every2]          # f_{2I}
+        odd = fp.narrow(ax, 2, n)[every2]           # f_{2I+1}
+        up = fp.narrow(ax, 3, n - 1)[every2]        # f_{2I+2}
+        dn = fp.narrow(ax, 0, n - 1)[every2]        # f_{2I-1}
+        fp = (3.0 * (even + odd) + up + dn) * 0.125
+    return fp
+
+
+def prolong_padded(cp: Tensor) -> Tensor:
+    """prolong() of a coarse block padded with one halo plane on every side
+    (c_{I-1} and c_{I+1} at its ends): the fine block."""
+    for ax in range(3):
+        n = cp.shape[ax] - 2
+        c = cp.narrow(ax, 1, n)
+        even = 0.75 * c + 0.25 * cp.narrow(ax, 0, n)     # fine i = 2I
+        odd = 0.75 * c + 0.25 * cp.narrow(ax, 2, n)      # fine i = 2I + 1
+        c = torch.stack([even, odd], dim=ax + 1)
+        cp = c.reshape(c.shape[:ax] + (2 * n,) + c.shape[ax + 2:])
+    return cp
+
+
+def _down(r: Tensor, lvl: _Level, nxt: _Level) -> Tensor:
+    """The restricted residual on the coarse level `nxt`, from a
+    distributed level: a halo-padded local restriction (distributed
+    below), gathered where the coarse level runs replicated; an uneven
+    fine level gathers its residual and restricts it replicated."""
+    if lvl.grid.uneven:
+        return restrict(lvl.grid.unshard(r))
+    rc = restrict_padded(halo_pad_local(r, lvl.grid.mesh, 1))
+    if nxt.grid is not None:
+        return rc
+    return dataclasses.replace(lvl.grid, n=nxt.shape).unshard(rc)
+
+
+def _up(ec: Tensor, lvl: _Level, nxt: _Level) -> Tensor:
+    """The prolonged correction on the distributed level `lvl`, from the
+    coarse level `nxt`'s (block or replicated field)."""
+    if lvl.grid.uneven:
+        return lvl.grid.shard(prolong(ec))
+    if nxt.grid is not None:
+        return prolong_padded(halo_pad_local(ec, lvl.grid.mesh, 1))
+    cgrid = dataclasses.replace(lvl.grid, n=nxt.shape)
+    return prolong_padded(pad_from_global(ec, cgrid, 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -289,11 +394,17 @@ def _smooth_impl(x: Optional[Tensor], b: Tensor, lvl: _Level, cfg: MGConfig,
         return torch.zeros_like(b) if x is None else x
     inv_diag = 1.0 / lvl.diag
     kernels = _kernels(cfg, b.device)
+    dist = lvl.grid is not None
     if cfg.smoother == "jacobi":
         w = 8.0 / 9.0 if cfg.damping is None else cfg.damping
         if x is None:
             x = (w * inv_diag) * b      # first sweep from zero, closed form
             sweeps -= 1
+        if dist:
+            for _ in range(sweeps):
+                x = ds.jacobi_sweep_sharded(x, b, lvl.grid, w,
+                                            local_impl=_local_impl(cfg))
+            return x
         for _ in range(sweeps):
             if kernels:
                 x = jacobi_sweep_cuda(x, b, lvl.deltas, w)
@@ -326,6 +437,21 @@ def _smooth_impl(x: Optional[Tensor], b: Tensor, lvl: _Level, cfg: MGConfig,
         return x
     if cfg.smoother == "sor":
         w = 1.0 if cfg.damping is None else cfg.damping
+        if dist:
+            # the first colour from zero in closed form (its mask from global
+            # indices), then one K11 launch a colour
+            order = [1, 0] if reverse else [0, 1]
+            if x is None:
+                m0 = color_mask(lvl.grid, order[0], b.dtype)
+                x = (w * inv_diag) * m0 * b
+                x = ds.sor_sweep_sharded(x, b, lvl.grid, w, order[1],
+                                         local_impl=_local_impl(cfg))
+                sweeps -= 1
+            for _ in range(sweeps):
+                for color in order:
+                    x = ds.sor_sweep_sharded(x, b, lvl.grid, w, color,
+                                             local_impl=_local_impl(cfg))
+            return x
         if kernels:
             if x is None:
                 x = sor_rb_zero_sweep_cuda(b, lvl.deltas, w, reverse=reverse)
@@ -411,9 +537,12 @@ def v_cycle(levels: Sequence[_Level], coarse_pinv: Tensor, cfg: MGConfig,
     post-smooth kernel."""
     lvl = levels[idx]
     if idx == len(levels) - 1:
-        # coarse solve in the pinv's (setup) precision, cast back
-        flat = b.reshape(-1).to(coarse_pinv.dtype)
-        return (coarse_pinv @ flat).reshape(lvl.shape).to(b.dtype)
+        # coarse solve in the pinv's (setup) precision, cast back; a
+        # distributed coarse level is gathered, solved on every rank and cut
+        full = b if lvl.grid is None else lvl.grid.unshard(b)
+        flat = full.reshape(-1).to(coarse_pinv.dtype)
+        x = (coarse_pinv @ flat).reshape(lvl.shape).to(b.dtype)
+        return x if lvl.grid is None else lvl.grid.shard(x)
     pd = _dtype(cfg.pre_dtype)
     if pd is not None and pd != b.dtype:
         # low-precision pre-smooth; the full-precision residual below
@@ -441,6 +570,13 @@ def _v_cycle_rest(levels: Sequence[_Level], coarse_pinv: Tensor,
         rc = restrict_mm(residual_xrestrict_cuda(x, b, lvl.deltas), axes=(1, 2))
         ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
         x = xprolong_add_cuda(x, prolong_mm(ec, axes=(1, 2)))
+    elif lvl.grid is not None:
+        # a distributed level: the roll-form transfers on halo-padded
+        # blocks, with a gather or a cut where the next level is replicated
+        r = _residual(x, b, lvl, cfg)
+        nxt = levels[idx + 1]
+        ec = _coarse_correct(levels, coarse_pinv, cfg, _down(r, lvl, nxt), idx + 1)
+        x = x + _up(ec, lvl, nxt)
     else:
         down, up = ((restrict_mm, prolong_mm)
                     if _transfers(cfg, b.device) == "matmul"
@@ -480,6 +616,7 @@ def make_mg_preconditioner(
     cfg: MGConfig = MGConfig(),
     dtype=torch.float64,
     device="cuda",
+    grid=None,
 ) -> Callable[[Tensor], Tensor]:
     """Build M(r) ~= A^{-1} r, a cycle closure on `device` (the card
     unless the caller asks for "cpu").
@@ -487,33 +624,59 @@ def make_mg_preconditioner(
     Setup (hierarchy + dense coarse pseudo-inverse) runs once here. The
     closure is linear and symmetric. Like the JAX package's, it exposes
     `config` (the resolved MGConfig), `apply_dots` (single cycle, field
-    dtype) and, for SOR on kernel levels, `apply_update_dots`; `resolved`
-    names the transfer form and pre-smooth dtype `device` resolves to.
+    dtype) and, for SOR on kernel levels of one device, `apply_update_dots`;
+    `resolved` names the transfer form and pre-smooth dtype `device`
+    resolves to; `levels` the hierarchy.
+
+    Pass `grid` (a Grid3D over a process grid) to run the fine levels
+    distributed: M then takes and returns this rank's block, its device is
+    the grid's, and `apply_dots` returns this rank's partial sums (CG
+    all-reduces them). A fine level that runs replicated (its split
+    extents odd) is gathered on the way in and cut on the way out.
     """
+    distributed = grid is not None and grid.distributed
+    if distributed:
+        device = grid.device
     device = torch.device(device)
     cfg = _resolve_sweeps(cfg, shape)
     if auto_bf16_presmooth(cfg, shape, dtype):
         cfg = dataclasses.replace(cfg, pre_dtype="bfloat16")
     kernels = _kernels(cfg, device)        # both validate the options
     transfers = _transfers(cfg, device)
-    levels = _build_levels(tuple(shape), tuple(deltas), cfg)
+    levels = _build_levels(tuple(shape), tuple(deltas), cfg,
+                           grid=grid if distributed else None)
     pinv = _coarse_pinv(levels[-1], cfg, dtype, device)
     cdt = _dtype(cfg.dtype)
+    # a replicated fine level under a process grid: gather, cycle, cut
+    gather0 = distributed and levels[0].grid is None
 
-    def M(r: Tensor) -> Tensor:
+    def cycle(r: Tensor) -> Tensor:
         rin = r.to(cdt) if cdt is not None else r
+        if gather0:
+            rin = grid.unshard(rin)
         x = v_cycle(levels, pinv, cfg, rin)
         for _ in range(cfg.cycles - 1):
             x = x + v_cycle(levels, pinv, cfg, rin - _lapl(x, levels[0], cfg))
+        if gather0:
+            x = grid.shard(x)
         return x.to(r.dtype)
 
+    def M(r: Tensor) -> Tensor:
+        return cycle(r)
+
     M.config = cfg
+    M.levels = levels
     M.resolved = {"transfers": transfers,
                   "pre_dtype": str(_dtype(cfg.pre_dtype) or cdt or dtype
                                    ).replace("torch.", "")}
     if cfg.cycles == 1 and cdt is None and len(levels) > 1:
-        def apply_dots(r: Tensor):
-            return v_cycle(levels, pinv, cfg, r, dots=True)
+        if gather0:
+            def apply_dots(r: Tensor):
+                v = cycle(r)
+                return v, torch.sum(v * r), torch.sum(v)
+        else:
+            def apply_dots(r: Tensor):
+                return v_cycle(levels, pinv, cfg, r, dots=True)
         M.apply_dots = apply_dots
 
         pd0 = _dtype(cfg.pre_dtype)
@@ -521,7 +684,8 @@ def make_mg_preconditioner(
         # the fine level's fused leg reads the narrow iterate
         pd_ok = (pd0 is None or pd0 == dtype
                  or (cfg.pre_smooth == 1 and _fused_leg(levels, cfg, 0, device)))
-        if cfg.smoother == "sor" and cfg.pre_smooth >= 1 and pd_ok and kernels:
+        if (cfg.smoother == "sor" and cfg.pre_smooth >= 1 and pd_ok and kernels
+                and not distributed):
             # CG's residual update fused into the cycle's first kernel:
             # (r, Ap, alpha) -> (v, b, ||b||^2, sum(b), <b, v>, sum(v))
             # for b = r - alpha*Ap; with a narrow pre_dtype K5 stores the

@@ -22,7 +22,7 @@ from typing import Callable, Optional
 
 import torch
 
-from poissbox_tpu_torch.linops import LinearOperator
+from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
@@ -52,6 +52,7 @@ def pipecg(
     if norm_type not in ("unpreconditioned", "natural"):
         raise ValueError(f"unknown norm_type {norm_type!r} "
                          "(expected unpreconditioned|natural)")
+    require_one_rank(A, "PIPECG")
     natural = norm_type == "natural"
     b = A.project(b)
     precond = M if M is not None else (lambda v: v)

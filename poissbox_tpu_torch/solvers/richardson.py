@@ -12,7 +12,7 @@ from typing import Callable, Optional
 
 import torch
 
-from poissbox_tpu_torch.linops import LinearOperator
+from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
@@ -34,6 +34,7 @@ def richardson(
 ) -> SolveResult:
     """Solve A x = b by damped preconditioned Richardson iteration; the
     monitored norm is the true ||b - A x||_2."""
+    require_one_rank(A, "Richardson")
     x = torch.zeros_like(b) if x0 is None else x0
     b = A.project(b)
     x = A.project(x)
