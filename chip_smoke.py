@@ -119,6 +119,24 @@ and fails loudly if any phase fails:
      than cards is skipped there). The kernels of the path are also held
      to their plain versions at the ranks' block shapes (DIST_BLOCKS) in
      phase 3, K11 in bf16 timed at the (2,2,1) block of 512^3.
+     Path (n), order 6 and the FFT across ranks, in the same groups after
+     path (m)'s cases (PENCIL_CASES; the four-rank group also takes the
+     process grid (2,1,2)), each beside the parent's one-rank solve: over
+     gloo on one card (2,2,1) 256^3 f32 order 6 by CG + GMG (4
+     iterations), -ksp_type fft (the packed route) and FCG + -pc_type
+     fft, order 2 by -ksp_type fft, (2,1,2) (16,16,18) f64 -ksp_type fft
+     of both orders (the complex route), (3,1,1) 64^3 f64 order 6 by CG +
+     GMG (the gather route); over NCCL, where there are four cards, the
+     512^3 f32 cases instead of the 256^3 ones. Every case: the
+     distributed compact Laplacian gathered against one rank's K15
+     Laplacian of the same u (relative RMS within 50 eps, max|diff|
+     printed), rank 0's all-to-alls and bytes of one Laplacian, one FFT
+     solve and the counted window against pencil_bytes_model, K15
+     launched on every rank (by rank in the kernels line, under
+     dist_launches), iterations equal to one rank's, residuals within
+     1.01 rtol (-ksp_type fft: twice one rank's), warm walls beside one
+     rank's. Phase 3 holds K15's Laplacian sweeps to their plain versions
+     at the pencil block shapes (PENCIL_BLOCKS), bit for bit.
 
 The last two lines of standard output are a JSON object with one entry
 per kernel mode, then {"ok": true, "device": {...}}.
@@ -160,6 +178,7 @@ from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
 from poissbox_tpu_torch.parallel.decomp import dof_distribution, owned_boxes
+from poissbox_tpu_torch.parallel.pencil import block_of, pencil_ok, pencil_spec
 from poissbox_tpu_torch.solvers import fft, ksp
 from poissbox_tpu_torch.solvers import mg
 from poissbox_tpu_torch.solvers.cg import cg
@@ -1713,6 +1732,47 @@ DIST_MODES = ("stencil7.apply", "stencil7.apply_dot", "cgupd", "stencil7.residua
               "stencil7.jacobi", "rbsor.general")
 DIST_TIMEOUT = 240.0   # s: a rank's collectives, and the wait for a group
 
+# path (n), order 6 and the FFT across ranks: cases run inside phase 7's
+# groups (the world of a group may take another process grid of its size:
+# (2,1,2) in the four-rank group), by backend. Each: label, process grid,
+# grid, dtype, order, options, rtol, and the iterations it must take (None:
+# the one-rank count alone). 4 is the one-rank order-6 count at 256^3 f32
+# (path (d)); the (3,1,1) 64^3 case takes the gather route (92 on one rank).
+# Order 6 in f32 certifies no residual below the operator's own rounding:
+# rtol 1e-3 at 256^3, 5e-3 at 512^3 (there a solve to 1e-3 left a true
+# residual of 1.807e-3 on an H100, PERF.md).
+FFT = ["-ksp_type", "fft"]
+MGCG = ["-ksp_type", "cg", "-pc_type", "mg"]
+FCG_FFT = ["-ksp_type", "fcg", "-pc_type", "fft"]
+CPLX = [("(2,1,2) (16,16,18) f64 order 2 -ksp_type fft, the complex route", (2, 1, 2),
+         (16, 16, 18), "float64", 2, FFT, 1e-8, 1),
+        ("(2,1,2) (16,16,18) f64 order 6 -ksp_type fft, the complex route", (2, 1, 2),
+         (16, 16, 18), "float64", 6, FFT, 1e-8, 1)]
+GATHER6 = [("(3,1,1) 64^3 f64 order 6 CG + GMG, the gather route", (3, 1, 1),
+            (64, 64, 64), "float64", 6, MGCG, 1e-8, None)]
+PENCIL_CASES = {
+    ((2, 2, 1), "gloo"): [
+        ("(2,2,1) 256^3 f32 order 6 CG + GMG", (2, 2, 1), (256,) * 3, "float32", 6, MGCG,
+         1e-3, 4),
+        ("(2,2,1) 256^3 f32 order 6 -ksp_type fft, the packed route", (2, 2, 1),
+         (256,) * 3, "float32", 6, FFT, 1e-3, 1),
+        ("(2,2,1) 256^3 f32 order 6 FCG + -pc_type fft", (2, 2, 1), (256,) * 3, "float32",
+         6, FCG_FFT, 1e-3, None),
+        ("(2,2,1) 256^3 f32 order 2 -ksp_type fft", (2, 2, 1), (256,) * 3, "float32", 2,
+         FFT, 1e-6, 1)] + CPLX,
+    ((2, 2, 1), "nccl"): [
+        ("(2,2,1) 512^3 f32 order 6 CG + GMG", (2, 2, 1), (512,) * 3, "float32", 6, MGCG,
+         5e-3, None),
+        ("(2,2,1) 512^3 f32 order 6 -ksp_type fft", (2, 2, 1), (512,) * 3, "float32", 6,
+         FFT, 1e-3, 1),
+        ("(2,2,1) 512^3 f32 order 2 -ksp_type fft", (2, 2, 1), (512,) * 3, "float32", 2,
+         FFT, 1e-6, 1)] + CPLX,
+    ((3, 1, 1), "gloo"): GATHER6,
+    ((3, 1, 1), "nccl"): GATHER6,
+}
+# K15 launches by rank in path (n): case label -> [rank 0, rank 1, ...]
+DIST_K15: dict = {}
+
 
 def check_dist_blocks(stats: dict) -> None:
     """K1, K2, K8, K9, K10 and K11 (bf16 K11 on the float32 blocks) at the
@@ -1745,6 +1805,37 @@ def check_dist_blocks(stats: dict) -> None:
         del f
         print(f"  the distributed path's kernels agree on the block {shape} {dtype}",
               flush=True)
+    torch.cuda.empty_cache()
+
+
+# path (n)'s pencil route: (grid, process grid, dtype) whose blocks K15
+# sweeps (rank 0's; every block of a layout has its shape)
+PENCIL_BLOCKS = [((256,) * 3, (2, 2, 1), torch.float32), ((512,) * 3, (2, 2, 1), torch.float32),
+                 ((16, 16, 18), (2, 1, 2), torch.float64)]
+
+
+def check_pencil_blocks(stats: dict) -> None:
+    """K15's Laplacian sweeps at the pencil block shapes path (n) gives
+    them (each sweep on the pencil of its axis) against their plain
+    versions, bit for bit."""
+    for n, pgrid, dtype in PENCIL_BLOCKS:
+        d = tuple(1.0 / m for m in n)
+        g = torch.Generator(device=DEVICE).manual_seed(sum(n) + 11)
+        for (program, axis), key in zip(cp.lapl_sweeps(n, d, dtype), LAPL_KEYS):
+            shape = block_of(n, pgrid, pencil_spec(pgrid, axis), 0)[1]
+            nin = 1 + max(idx for out in program for idx, _ in out)
+            ins = [torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+                   for _ in range(nin)]
+            err = compare(f"{key} pencil block {shape} of {n} on {pgrid}",
+                          tuple(cp.sweep(program, ins, axis, key=key)),
+                          tuple(cp.sweep_plain(program, ins, axis)))
+            if err != 0.0:
+                raise AssertionError(f"{key} pencil block {shape}: max|diff| {err:.3e}, "
+                                     "not bit-equal")
+            stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            print(f"  {key} on the pencil block {shape} ({cp.route(shape[axis])} kernel) of "
+                  f"{n} on {pgrid} {dtype}: bit-equal to the plain sweep", flush=True)
+            del ins
     torch.cuda.empty_cache()
 
 
@@ -1864,12 +1955,213 @@ def dist_worker(spec_path: str, rank: int) -> int:
             "warm_reps": len(walls)})
         del solver, u, b1, x1, b, res
         torch.cuda.empty_cache()
+    results_n = [pencil_worker_case(case, halo, dist) for case in spec["cases_n"]]
     if rank == 0:
         with open(spec["out"], "w") as fh:
-            json.dump(results, fh)
+            json.dump({"m": results, "n": results_n}, fh)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def pencil_u(case, grid, solver):
+    """The case's u: the smooth field of the JAX package's compact Krylov
+    test for order 6, a seeded uniform one for order 2 (the same on any
+    process grid)."""
+    _, _, n, dtype_name, order, _, _, _ = case
+    if order == 6:
+        return smooth_u(Grid3D(tuple(n), device=DEVICE), getattr(torch, dtype_name))
+    return solver.random_solution(4)
+
+
+def pencil_solver(case, shard=False):
+    _, pgrid, n, dtype_name, order, argv, rtol, _ = case
+    opts = Options(list(argv) + ["-ksp_rtol", str(rtol), "-ksp_max_it", "300"])
+    return PoissonSolver(tuple(n), options=opts, dtype=getattr(torch, dtype_name),
+                         device=DEVICE, order=order, shard=pgrid if shard else False)
+
+
+def _pencil_reference(case) -> dict:
+    """The one-rank solve of a path (n) case on the card: iterations,
+    relative residual and warm wall."""
+    solver = pencil_solver(case)
+    u = pencil_u(case, solver.grid, solver)
+    b = solver.rhs_for(u)
+    res = solver.solve(b)
+    out = {"its": int(res.iterations), "rel": solver.residual_norm(res.x, b),
+           "wall_ms": warm_ms({"one rank": lambda: solver.solve(b)})["one rank"],
+           **warm_ms({"lapl_ms": lambda: solver.A(u),
+                      "fft_ms": lambda: solver.A.direct_solve(u)}, reps=5)}
+    del solver, u, b, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def pencil_worker_case(case, halo, dist) -> dict:
+    """One path (n) case on this rank: the distributed compact Laplacian
+    gathered against the one-rank K15 Laplacian of the same u (order 6),
+    the pencil counters of one operator application and one direct solve
+    alone, then the counted run (counters set to 0 before rhs_for + solve
+    + residual_norm, read after) and the warm walls."""
+    label, pgrid, n, dtype_name, order, argv, rtol, _ = case
+    solver = pencil_solver(case, shard=True)
+    g, A = solver.grid, solver.A
+    full = pencil_u(case, g, solver)
+    u = g.shard(full) if order == 6 else full
+    out = {}
+    if order == 6:
+        one = cp.lapl(full, g.deltas)
+        d = g.unshard(A(u)).double() - one.double()
+        out["lapl_max_diff"] = float(d.abs().max())
+        out["lapl_rel_rms"] = float(d.norm() / one.double().norm())
+        del one, d
+    del full
+    counted = lambda: [halo.COUNTS[k] for k in ("alltoalls", "alltoall_bytes", "gathers")]
+    halo.reset_counts()
+    A(u)
+    out["lapl_counts"] = counted()
+    halo.reset_counts()
+    A.direct_solve(u)
+    out["fft_counts"] = counted()
+    out["route"] = fft.fft_route(g.n, g.pgrid)
+    reps = 5 if halo.transport(u) == "nccl" else 1
+    out["lapl_ms"] = slowest_ms(lambda: A(u), g, halo, dist, reps)
+    out["fft_ms"] = slowest_ms(lambda: A.direct_solve(u), g, halo, dist, reps)
+    out["pencil_ok"] = pencil_ok(g.n, g.pgrid)
+    dist.barrier()
+    sc.reset_launches()
+    halo.reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b = solver.rhs_for(u)
+    res = solver.solve(b)
+    rel = solver.residual_norm(res.x, b)
+    torch.cuda.synchronize()
+    out["first_ms"] = (time.perf_counter() - t0) * 1e3
+    mine = {k: v for k, v in sc.LAUNCHES.items() if v}
+    every = [None] * g.mesh.size
+    dist.all_gather_object(every, mine)
+    out["launches_by_rank"] = every
+    out["halo_rank0"] = dict(halo.COUNTS)
+    walls = []
+    for _ in range(3 if halo.transport(b) == "nccl" else 1):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(b)
+        torch.cuda.synchronize()
+        walls.append(halo.allreduce_max(torch.tensor(
+            [(time.perf_counter() - t0) * 1e3], dtype=torch.float64,
+            device=g.device), g.mesh))
+    out.update({
+        "its": int(res.iterations), "rel": rel, "reason": int(res.reason),
+        "shape": list(res.x.shape), "local_shape": list(g.local_shape),
+        "finite": bool(torch.isfinite(res.x).all()), "transport": halo.transport(b),
+        "warm_ms": statistics.median(float(w) for w in walls), "warm_reps": len(walls)})
+    del solver, u, b, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def slowest_ms(fn, g, halo, dist, reps: int) -> float:
+    """The slowest rank's median wall (ms) of `fn` over `reps` warm calls,
+    each started together (a barrier) and ended by a synchronise."""
+    walls = []
+    for _ in range(reps):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return float(halo.allreduce_max(torch.tensor([statistics.median(walls)],
+                                                 dtype=torch.float64, device=g.device), g.mesh))
+
+
+def pencil_window(case, its: int, esize: int) -> tuple[int, int]:
+    """Rank 0's all-to-alls and bytes over rhs_for + solve + residual_norm:
+    every compact Laplacian (rhs_for, residual_norm, one a Krylov
+    iteration; -ksp_type fft's residual) and every FFT solve (-ksp_type
+    fft's one; -pc_type fft's one at the start and one an iteration)."""
+    label, pgrid, n, dtype_name, order, argv, rtol, _ = case
+    route = fft.fft_route(tuple(n), pgrid)
+    lapl = (pencil_bytes_model(n, pgrid, esize, "lapl" if pencil_ok(tuple(n), pgrid)
+                               else "gather") if order == 6 else (0, 0))
+    solve = pencil_bytes_model(n, pgrid, esize, route)
+    if "fft" in argv and argv[argv.index("-ksp_type") + 1] == "fft":
+        nl, nf = 3, 1
+    else:
+        nl, nf = its + 2, (its + 1 if "-pc_type" in argv and
+                           argv[argv.index("-pc_type") + 1] == "fft" else 0)
+    return (nl * lapl[0] + nf * solve[0], nl * lapl[1] + nf * solve[1])
+
+
+def _check_pencil_case(case, ref, r, backend, smi, totals) -> None:
+    label, pgrid, n, dtype_name, order, argv, rtol, expect = case
+    esize = 4 if dtype_name == "float32" else 8
+    eps = float(torch.finfo(getattr(torch, dtype_name)).eps)
+    route = r["route"]
+    lapl_model = (pencil_bytes_model(n, pgrid, esize, "lapl" if r["pencil_ok"] else "gather")
+                  if order == 6 else (0, 0))
+    fft_model = pencil_bytes_model(n, pgrid, esize, route)
+    window = pencil_window(case, r["its"], esize)
+    fft_only = "fft" in argv and argv[argv.index("-ksp_type") + 1] == "fft"
+    problems = []
+    if order == 6 and not r["lapl_rel_rms"] <= 50 * eps:
+        problems.append(f"the distributed Laplacian is {r['lapl_rel_rms']:.3e} (relative "
+                        f"RMS) from one rank's K15 Laplacian, over 50 eps")
+    if r["its"] != ref["its"] or (expect is not None and r["its"] != expect):
+        problems.append(f"{r['its']} iterations, one rank {ref['its']}, expected {expect}")
+    if fft_only:
+        if not r["rel"] <= 2.0 * ref["rel"]:
+            problems.append(f"relative residual {r['rel']:.3e} over twice one rank's "
+                            f"{ref['rel']:.3e}")
+    elif not r["rel"] <= 1.01 * rtol or r["reason"] <= 0:
+        problems.append(f"relative residual {r['rel']:.3e}, reason {r['reason']}")
+    if r["shape"] != r["local_shape"] or not r["finite"]:
+        problems.append(f"bad solution block {r['shape']} (finite {r['finite']})")
+    if order == 6 and tuple(r["lapl_counts"][:2]) != lapl_model:
+        problems.append(f"Laplacian all-to-alls {r['lapl_counts'][:2]}, model {lapl_model}")
+    if tuple(r["fft_counts"][:2]) != fft_model:
+        problems.append(f"FFT solve all-to-alls {r['fft_counts'][:2]}, model {fft_model}")
+    got_w = (r["halo_rank0"]["alltoalls"], r["halo_rank0"]["alltoall_bytes"])
+    if got_w != window:
+        problems.append(f"window all-to-alls {got_w}, model {window}")
+    if order == 6:
+        idle = [(rank, k) for rank, lc in enumerate(r["launches_by_rank"])
+                for k in LAPL_KEYS if not lc.get(k)]
+        if idle:
+            problems.append(f"K15 not launched: {idle}")
+    if problems:
+        raise AssertionError(f"path (n) {label} over {backend}: " + "; ".join(problems))
+    k15 = {k: [lc.get(k, 0) for lc in r["launches_by_rank"]] for k in LAPL_KEYS}
+    print(f"  {label} over {backend} ({r['transport']}), FFT route {route}: "
+          f"{r['its']} iterations (one rank {ref['its']}), relative residual "
+          f"{r['rel']:.3e} (one rank {ref['rel']:.3e})", flush=True)
+    if order == 6:
+        print(f"  the distributed compact Laplacian against one rank's K15 Laplacian: "
+              f"max|diff| {r['lapl_max_diff']:.3e}, relative RMS {r['lapl_rel_rms']:.3e} "
+              f"(gate 50 eps = {50 * eps:.3e}); all-to-alls, bytes, gathers of one: "
+              f"{r['lapl_counts']} (model {lapl_model})", flush=True)
+    print(f"  one FFT solve: all-to-alls, bytes, gathers {r['fft_counts']} (model "
+          f"{fft_model}); rhs_for + solve + residual_norm: {got_w} (model {window}); "
+          f"rank 0 counters {r['halo_rank0']}", flush=True)
+    print(f"  K15 launches by rank: {k15}", flush=True)
+    print(f"  warm, the slowest rank (median of {5 if r['transport'] == 'nccl' else 1}): "
+          + (f"a Laplacian {r['lapl_ms']:.2f} ms (one rank {ref['lapl_ms']:.2f}), "
+             if order == 6 else "")
+          + f"a direct solve {r['fft_ms']:.2f} ms (one rank {ref['fft_ms']:.2f}; median of "
+          "5 on one rank, host clock around a synchronise)", flush=True)
+    print(f"  walls: rhs_for + first solve + residual_norm {r['first_ms']:.1f} ms, warm "
+          f"solve {r['warm_ms']:.2f} ms (the slowest rank, median of {r['warm_reps']}); "
+          f"one-rank warm solve {ref['wall_ms']:.2f} ms ({smi})"
+          + ("; ranks share one card, staged through the host: no speed figure"
+             if r["transport"] == "gloo-staged" else ""), flush=True)
+    if order == 6:
+        DIST_K15[f"{label} over {backend}"] = k15
+    for lc in r["launches_by_rank"]:
+        for k, v in lc.items():
+            totals[k] = totals.get(k, 0) + v
 
 
 def _free_port() -> int:
@@ -1879,15 +2171,17 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn_group(label, pgrid, cases, refs, backend, tmp) -> list:
+def _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp) -> dict:
     """Run one group of ranks to its end (each with a time limit); any rank
-    that fails or hangs fails the phase, and every rank is stopped."""
+    that fails or hangs fails the phase, and every rank is stopped. Returns
+    rank 0's results: path (m)'s cases under "m", path (n)'s under "n"."""
     world = int(np.prod(pgrid))
     spec = os.path.join(tmp, f"spec_{world}_{backend}.json")
     out = os.path.join(tmp, f"out_{world}_{backend}.json")
     with open(spec, "w") as fh:
         json.dump({"world": world, "pgrid": list(pgrid), "port": _free_port(),
-                   "backend": backend, "cases": cases, "refs": refs, "out": out}, fh)
+                   "backend": backend, "cases": cases, "refs": refs,
+                   "cases_n": cases_n, "out": out}, fh)
     here = os.path.dirname(os.path.abspath(__file__))
     logs = [open(os.path.join(tmp, f"rank{r}_{world}_{backend}.log"), "w+")
             for r in range(world)]
@@ -1918,29 +2212,41 @@ def _spawn_group(label, pgrid, cases, refs, backend, tmp) -> list:
 
 def dist_phase(smi: str, totals: dict, backends) -> None:
     """Phase 7: each group of DIST_GROUPS over each backend of `backends`
-    (gloo: every rank on card 0, faces staged through pinned host buffers;
-    nccl: one rank a card, groups of more ranks than cards skipped), each
-    case against the one-rank solve of the parent."""
+    (gloo: every rank on card 0, faces and transposes staged through
+    pinned host buffers; nccl: one rank a card, groups of more ranks than
+    cards skipped): path (m)'s cases, each against the one-rank solve of
+    the parent, then in the same group path (n)'s (PENCIL_CASES)."""
+    if "nccl" not in backends:
+        print(f"-- path (n) over nccl (the 512^3 cases): skipped, "
+              f"{torch.cuda.device_count()} card(s)", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         for label, pgrid, cases in DIST_GROUPS:
             world = int(np.prod(pgrid))
             refs = None
             for backend in backends:
                 if backend == "nccl" and world > torch.cuda.device_count():
-                    print(f"-- path (m) {label} over nccl: skipped, {world} ranks "
-                          f"and {torch.cuda.device_count()} cards", flush=True)
+                    print(f"-- paths (m) and (n) {label} over nccl: skipped, {world} "
+                          f"ranks and {torch.cuda.device_count()} cards", flush=True)
                     continue
                 if refs is None:
                     refs = [_dist_reference(c, tmp, i) for i, c in enumerate(cases)]
+                cases_n = PENCIL_CASES.get((pgrid, backend), [])
+                refs_n = [_pencil_reference(c) for c in cases_n]
                 print(f"-- path (m) distributed MG-CG {label}, {world} ranks over "
-                      f"{backend}", flush=True)
+                      f"{backend}" + (f"; then path (n), {len(cases_n)} cases of order 6 "
+                                      "and the FFT" if cases_n else ""), flush=True)
                 t0 = time.perf_counter()
-                results = _spawn_group(label, pgrid, cases, refs, backend, tmp)
+                results = _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp)
                 print(f"  group wall {time.perf_counter() - t0:.1f} s (spawn, imports "
                       "and all cases)", flush=True)
                 cards = smi.replace("\n", "; ")     # one line a card
-                for case, ref, r in zip(cases, refs, results):
+                for case, ref, r in zip(cases, refs, results["m"]):
                     _check_dist_case(label, pgrid, case, ref, r, backend, cards, totals)
+                if cases_n:
+                    print(f"-- path (n) order 6 and the FFT across ranks over {backend}",
+                          flush=True)
+                for case, ref, r in zip(cases_n, refs_n, results["n"]):
+                    _check_pencil_case(case, ref, r, backend, cards, totals)
 
 
 def _check_dist_case(label, pgrid, case, ref, r, backend, smi, totals) -> None:
@@ -2043,6 +2349,48 @@ def exchange_bytes_model(n: int, pgrid, esize: int, pre_esize: int, pre: int,
     return faces(block(n), esize), v
 
 
+# the layout changes of each pencil route: (from, to, fields, shape) with
+# the pencil's local dim (None: home); shape "body" is the packed FFT's
+# half spectrum (nx, ny, nz/2) and "cfull" the full complex field
+PENCIL_ROUTES = {
+    "lapl": [(None, 2, 1, "real"), (2, 1, 2, "real"), (1, 0, 2, "real"),
+             (0, None, 1, "real")],
+    "grad": [(None, 2, 1, "real"), (2, 1, 2, "real"), (1, 0, 3, "real"),
+             (0, None, 3, "real")],
+    "div": [(None, 0, 3, "real"), (0, 1, 3, "real"), (1, 2, 2, "real"),
+            (2, None, 1, "real")],
+    "interp": [(None, 2, 1, "real"), (2, 1, 1, "real"), (1, 0, 1, "real"),
+               (0, None, 1, "real")],
+    "packed": [(None, 2, 1, "real"), (2, 1, 1, "body"), (1, 0, 1, "body"),
+               (0, 1, 1, "body"), (1, 2, 1, "body"), (2, None, 1, "real")],
+    "complex": [(None, 2, 1, "real"), (2, 1, 1, "cfull"), (1, 0, 1, "cfull"),
+                (0, 1, 1, "cfull"), (1, 2, 1, "cfull"), (2, None, 1, "real")],
+    "gather": [],
+}
+
+
+def pencil_bytes_model(n, pgrid, esize: int, route: str) -> tuple[int, int]:
+    """Rank 0's all-to-alls and the bytes it sends in them for one pass of
+    a pencil route (PENCIL_ROUTES: an operator, or an FFT solve by its
+    route), from the shapes alone: a change whose layouts differ is one
+    call, and rank 0 sends every field's block but the part of it that
+    its own block in the new layout holds."""
+    n = tuple(n)
+    calls = nbytes = 0
+    for src, dst, nf, kind in PENCIL_ROUTES[route]:
+        a, b = pencil_spec(pgrid, src), pencil_spec(pgrid, dst)
+        if a == b:
+            continue
+        shape = (n[0], n[1], n[2] // 2) if kind == "body" else n
+        e = esize if kind == "real" else 2 * esize
+        (s0, c0), (s1, c1) = block_of(shape, pgrid, a, 0), block_of(shape, pgrid, b, 0)
+        keep = math.prod(max(0, min(p + c, q + d) - max(p, q))
+                         for p, c, q, d in zip(s0, c0, s1, c1))
+        calls += 1
+        nbytes += nf * e * (math.prod(c0) - keep)
+    return calls, nbytes
+
+
 def main() -> int:
     args = sys.argv[1:]
     if args[:1] == ["--dist-worker"]:
@@ -2078,7 +2426,7 @@ def main() -> int:
     if dist_only:
         # phase 7 alone: over NCCL, one rank a card, where there are cards
         # for it, against the one-card solve
-        phase("distributed MG-CG (alone)")
+        phase("distributed MG-CG, order 6 and the FFT (alone)")
         dist_phase(smi, {}, ["nccl"] if torch.cuda.device_count() >= 2 else ["gloo"])
         print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s")
         print(smi)
@@ -2089,6 +2437,7 @@ def main() -> int:
     phase("kernels against plain versions")
     stats = check_kernels()
     check_dist_blocks(stats)
+    check_pencil_blocks(stats)
 
     phase("the one-pass sweep against two K11 launches")
     sweep_pairs(smi)
@@ -2238,7 +2587,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     lapl_pairs(smi)
 
-    phase("distributed MG-CG")
+    phase("distributed MG-CG; order 6 and the FFT across ranks")
     dist_phase(smi, totals, ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else []))
     idle = [k for k in KERNELS if totals[k] == 0 and k not in OFF_PATH]
     if idle:
@@ -2253,7 +2602,9 @@ def main() -> int:
     print(json.dumps({"kernels": [
         {"name": key, "route": "cuda",
          "source": f"poissbox_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": totals[key], **{k: stats[key][k] for k in keys}}
+         "launches": totals[key], **{k: stats[key][k] for k in keys},
+         **({"dist_launches": {label: k15[key] for label, k15 in DIST_K15.items()}}
+            if key in LAPL_KEYS else {})}
         for key, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -10,11 +10,11 @@ This package imports ``torch`` and numpy, never ``jax``. Its modules
 mirror the JAX package's paths:
 
   - grid, process grid ... poissbox_tpu_torch.mesh
-  - across ranks ......... poissbox_tpu_torch.parallel.{decomp,halo,dist_stencil,uneven}
+  - across ranks ......... poissbox_tpu_torch.parallel.{decomp,halo,dist_stencil,uneven,pencil}
   - stencil operators .... poissbox_tpu_torch.ops.stencil
   - CUDA kernels ......... poissbox_tpu_torch.ops.stencil_cuda
   - assembled operator ... poissbox_tpu_torch.ops.assemble
-  - compact 6th order .... poissbox_tpu_torch.ops.compact, ops.compact_pcr
+  - compact 6th order .... poissbox_tpu_torch.ops.compact, ops.compact_pcr, ops.compact_dist
   - tridiagonal solves ... poissbox_tpu_torch.ops.tridiag, ops.tridiag_cuda
   - FFT direct solves .... poissbox_tpu_torch.solvers.fft
   - CG / FCG ............. poissbox_tpu_torch.solvers.cg

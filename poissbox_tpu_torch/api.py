@@ -14,8 +14,12 @@ Across ranks (``torchrun --nproc-per-node N``, after
 decomposes the grid over the world group and every field is this rank's
 owned box: ``random_solution``, ``rhs_for``, ``solve`` and
 ``residual_norm`` take and return blocks (``solver.grid.unshard`` gathers
-one). Owned boxes need no padding, so the JAX package's ``_prep`` (which
-scatters a logical field into its padded uneven layout) has no
+one). Both orders run there: CG/FCG with the V-cycle, `-ksp_type fft`
+and `-pc_type fft` (the pencil FFT), order 6 on K15's pencil sweeps. What
+is left for the next multi-process slice raises NotImplementedError:
+PIPECG, GMRES, Richardson, ``solve_refined``, ``solve_checkpointed`` and
+`-log_view`. Owned boxes need no padding, so the JAX package's ``_prep``
+(which scatters a logical field into its padded uneven layout) has no
 counterpart.
 """
 
@@ -87,10 +91,6 @@ class PoissonSolver:
         if order == 2:
             self.A: LinearOperator = make_laplacian_operator(self.grid)
         elif order == 6:
-            if self.grid.distributed:
-                raise NotImplementedError(
-                    "order 6 across ranks (compact_dist) comes with the port's "
-                    "next multi-process slice (ROADMAP.md queue 1)")
             self.A = make_compact_laplacian_operator(self.grid)
         else:
             raise ValueError(f"order must be 2 or 6, got {order}")

@@ -37,9 +37,9 @@ def make_nullspace_projector(mesh=None, ndof: Optional[int] = None
 
 
 # what a process grid of more than one rank does not run yet
-NEXT_SLICE = ("comes with the port's next multi-process slice (the pencil "
-              "transposes, compact_dist, the distributed FFT and the other "
-              "Krylov loops across ranks; ROADMAP.md queue 1)")
+NEXT_SLICE = ("comes with the port's next multi-process slice (PIPECG, "
+              "GMRES, Richardson, solve_refined, solve_checkpointed and "
+              "-log_view across ranks; ROADMAP.md queue 1)")
 
 
 def require_one_rank(A, what: str) -> None:

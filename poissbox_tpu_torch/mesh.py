@@ -120,10 +120,13 @@ class ProcessGrid:
     counterpart of the JAX package's ``make_device_mesh``): rank r sits at
     the C-order coordinates of r, and its neighbours along an axis are the
     periodic next and previous ranks there (where the JAX package's
-    ``halo._shift_perms`` send a block's planes)."""
+    ``halo._shift_perms`` send a block's planes). `groups` holds the
+    sub-groups of the pencil transposes, made at the first one
+    (``parallel.pencil.groups``)."""
 
     pgrid: tuple[int, int, int]
     rank: int = 0
+    groups: dict = dataclasses.field(default_factory=dict, compare=False, repr=False)
 
     def __post_init__(self):
         object.__setattr__(self, "pgrid", tuple(int(p) for p in self.pgrid))

@@ -1,6 +1,7 @@
 """Numerical operators: the 7-point stencil in plain PyTorch (stencil),
 its assembled view (assemble), the 6th-order compact stack (compact,
-compact_pcr) and its tridiagonal solvers (tridiag, tridiag_cuda), and the
+compact_pcr; across ranks compact_dist) and its tridiagonal solvers
+(tridiag, tridiag_cuda), and the
 Hopper kernels with their plain versions (stencil_cuda, transfer_cuda,
 compact_pcr, tridiag_cuda; sources in ../csrc, built by _build)."""
 
@@ -8,6 +9,7 @@ from poissbox_tpu_torch.ops import (
     assemble,
     coefficients,
     compact,
+    compact_dist,
     compact_pcr,
     stencil,
     stencil_cuda,
@@ -15,5 +17,5 @@ from poissbox_tpu_torch.ops import (
     tridiag_cuda,
 )
 
-__all__ = ["assemble", "coefficients", "compact", "compact_pcr", "stencil",
-           "stencil_cuda", "tridiag", "tridiag_cuda"]
+__all__ = ["assemble", "coefficients", "compact", "compact_dist", "compact_pcr",
+           "stencil", "stencil_cuda", "tridiag", "tridiag_cuda"]

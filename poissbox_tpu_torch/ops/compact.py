@@ -323,6 +323,14 @@ def make_compact_laplacian_operator(grid, method: str = "auto") -> LinearOperato
     symbol (`direct_solve`). `method` selects the line solver of `apply`
     (see the module docstring).
 
+    On a grid over several ranks the fields are rank blocks: `apply` is
+    :func:`~poissbox_tpu_torch.ops.compact_dist.lapl` (K15 on each rank's
+    pencils), `direct_solve` the pencil FFT
+    (:func:`~poissbox_tpu_torch.solvers.fft.compact_poisson_solve_fft_dist`),
+    and the operator carries `allreduce`, `ndof` and the global
+    mean-removal projector, as the distributed 7-point operator does. Only
+    the K15 methods ("auto", "pcr", "cuda") run there.
+
     The staggered interpolation annihilates Nyquist modes, so the kernel
     is larger than span{1}: the direct solve returns the minimal-norm
     pseudo-inverse solution, and Krylov solves expect a RHS in range(A)
@@ -330,6 +338,24 @@ def make_compact_laplacian_operator(grid, method: str = "auto") -> LinearOperato
     """
     _check_method(method)
     deltas = tuple(float(d) for d in grid.deltas)
+    if grid.distributed:
+        if method not in _PCR:
+            raise NotImplementedError(
+                f"compact method {method!r} across ranks: the distributed "
+                "operators run K15's sweeps only (auto|pcr|cuda), as the JAX "
+                "package's compact_dist has no method")
+        from poissbox_tpu_torch.ops import compact_dist
+        from poissbox_tpu_torch.parallel.halo import allreduce_sum
+        from poissbox_tpu_torch.solvers.fft import compact_poisson_solve_fft_dist
+        mesh = grid.mesh
+        return LinearOperator(
+            apply=lambda u: compact_dist.lapl(u, grid),
+            nullspace=make_nullspace_projector(mesh, grid.ndof),
+            symmetric=True,
+            direct_solve=lambda b: compact_poisson_solve_fft_dist(b, grid),
+            allreduce=lambda t: allreduce_sum(t, mesh),
+            ndof=grid.ndof,
+        )
 
     def direct_solve(b: Tensor) -> Tensor:
         from poissbox_tpu_torch.solvers.fft import compact_poisson_solve_fft

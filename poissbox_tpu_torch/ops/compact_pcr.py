@@ -364,37 +364,63 @@ def _sweeper(plain: bool):
     return sweep
 
 
-def grad(f: Tensor, deltas, *, plain: bool = False) -> Tensor:
-    """Gradient tensor (nx, ny, nz, 3), cell->vertex: z, y, x sweeps
-    (1r2w, 2r3w, 3r3w), then the components stacked."""
-    run = _sweeper(plain)
+def grad_sweeps(shape, deltas, dtype):
+    """The gradient's three (program, axis) sweeps, cell->vertex: z
+    (1r2w), y (2r3w), x (3r3w); the outputs are the components."""
     dx, dy, dz = _deltas(deltas)
-    nx, ny, nz = f.shape
-    rt = _dtype_rtol(f.dtype)
+    nx, ny, nz = shape
+    rt = _dtype_rtol(dtype)
     iz, gz = interp_spec(-1, nz, rt), grad_spec(dz, -1, nz, rt)
     iy, gy = interp_spec(-1, ny, rt), grad_spec(dy, -1, ny, rt)
     ix, gx = interp_spec(-1, nx, rt), grad_spec(dx, -1, nx, rt)
-    a, b = run((((0, (iz,)),), ((0, (gz,)),)), [f], 2)
-    c = run((((0, (iy,)),), ((0, (gy,)),), ((1, (iy,)),)), [a, b], 1)
-    g = run((((0, (gx,)),), ((1, (ix,)),), ((2, (ix,)),)), c, 0)
+    return [((((0, (iz,)),), ((0, (gz,)),)), 2),
+            ((((0, (iy,)),), ((0, (gy,)),), ((1, (iy,)),)), 1),
+            ((((0, (gx,)),), ((1, (ix,)),), ((2, (ix,)),)), 0)]
+
+
+def div_sweeps(shape, deltas, dtype):
+    """The divergence's three sweeps, vertex->cell, on the components: x
+    (3r3w), y (interp'/div'/interp', 3r2w), then the summed z sweep
+    interp'(h1 + h2) + div'(h3) (2r1w)."""
+    dx, dy, dz = _deltas(deltas)
+    nx, ny, nz = shape
+    rt = _dtype_rtol(dtype)
+    ixp, gxp = interp_spec(+1, nx, rt), grad_spec(dx, +1, nx, rt)
+    iyp, gyp = interp_spec(+1, ny, rt), grad_spec(dy, +1, ny, rt)
+    izp, gzp = interp_spec(+1, nz, rt), grad_spec(dz, +1, nz, rt)
+    return [((((0, (gxp,)),), ((1, (ixp,)),), ((2, (ixp,)),)), 0),
+            ((((0, (iyp,)), (1, (gyp,))), ((2, (iyp,)),)), 1),
+            ((((0, (izp,)), (1, (gzp,))),), 2)]
+
+
+def interp_sweeps(shape, stagger: int, dtype):
+    """Tri-directional interpolation's sweeps, z then y then x: one
+    operator each (1r1w)."""
+    nx, ny, nz = shape
+    rt = _dtype_rtol(dtype)
+    return [((((0, (interp_spec(stagger, m, rt),)),),), axis)
+            for m, axis in ((nz, 2), (ny, 1), (nx, 0))]
+
+
+def run_sweeps(sweeps, fields: Sequence[Tensor], *, plain: bool = False) -> list[Tensor]:
+    """Run `sweeps` in order, each on the previous one's outputs."""
+    run = _sweeper(plain)
+    for program, axis in sweeps:
+        fields = run(program, fields, axis)
+    return fields
+
+
+def grad(f: Tensor, deltas, *, plain: bool = False) -> Tensor:
+    """Gradient tensor (nx, ny, nz, 3), cell->vertex: the three sweeps of
+    :func:`grad_sweeps`, then the components stacked."""
+    g = run_sweeps(grad_sweeps(f.shape, deltas, f.dtype), [f], plain=plain)
     return torch.stack(g, dim=-1)
 
 
 def div(F: Tensor, deltas, *, plain: bool = False) -> Tensor:
-    """Divergence, vertex->cell: x sweep (3r3w), y sweep
-    (interp'/div'/interp', 3r2w), then the summed z sweep
-    interp'(h1 + h2) + div'(h3) (2r1w)."""
-    run = _sweeper(plain)
-    dx, dy, dz = _deltas(deltas)
-    nx, ny, nz = F.shape[:3]
-    rt = _dtype_rtol(F.dtype)
-    ixp, gxp = interp_spec(+1, nx, rt), grad_spec(dx, +1, nx, rt)
-    iyp, gyp = interp_spec(+1, ny, rt), grad_spec(dy, +1, ny, rt)
-    izp, gzp = interp_spec(+1, nz, rt), grad_spec(dz, +1, nz, rt)
+    """Divergence, vertex->cell: the three sweeps of :func:`div_sweeps`."""
     comps = [F[..., k].contiguous() for k in range(3)]
-    e = run((((0, (gxp,)),), ((1, (ixp,)),), ((2, (ixp,)),)), comps, 0)
-    h = run((((0, (iyp,)), (1, (gyp,))), ((2, (iyp,)),)), e, 1)
-    (out,) = run((((0, (izp,)), (1, (gzp,))),), h, 2)
+    (out,) = run_sweeps(div_sweeps(F.shape[:3], deltas, F.dtype), comps, plain=plain)
     return out
 
 
@@ -424,11 +450,7 @@ def lapl(f: Tensor, deltas, *, plain: bool = False) -> Tensor:
     and a3 = gz'gz f, the y sweep b1 = iy'iy a1 and b23 = gy'gy a1 +
     iy'iy a3, the x sweep gx'gx b1 + ix'ix b23 — 3 launches, 10 HBM
     passes."""
-    run = _sweeper(plain)
-    fields = [f]
-    for program, axis in lapl_sweeps(f.shape, deltas, f.dtype):
-        fields = run(program, fields, axis)
-    return fields[0]
+    return run_sweeps(lapl_sweeps(f.shape, deltas, f.dtype), [f], plain=plain)[0]
 
 
 def op_1d(f: Tensor, spec, axis: int, *, plain: bool = False) -> Tensor:
@@ -440,8 +462,4 @@ def op_1d(f: Tensor, spec, axis: int, *, plain: bool = False) -> Tensor:
 
 def interp(f: Tensor, stagger: int = -1, *, plain: bool = False) -> Tensor:
     """Tri-directional interpolation, z then y then x: 3 launches."""
-    nx, ny, nz = f.shape
-    rt = _dtype_rtol(f.dtype)
-    out = op_1d(f, interp_spec(stagger, nz, rt), 2, plain=plain)
-    out = op_1d(out, interp_spec(stagger, ny, rt), 1, plain=plain)
-    return op_1d(out, interp_spec(stagger, nx, rt), 0, plain=plain)
+    return run_sweeps(interp_sweeps(f.shape, stagger, f.dtype), [f], plain=plain)[0]

@@ -84,8 +84,9 @@ def make_laplacian_operator(grid, impl: str = "auto"):
     projector applied explicitly, as the JAX package does on a grid the
     process grid does not divide; 'dist' becomes 'uneven' there). 'auto'
     follows the grid (:func:`default_impl`). Over several ranks
-    `direct_solve` is None, the operator carries `allreduce` and `ndof`,
-    and its fused hooks return this rank's partial sums.
+    `direct_solve` is the pencil FFT (``fft.poisson_solve_fft_dist``), the
+    operator carries `allreduce` and `ndof`, and its fused hooks return
+    this rank's partial sums.
     """
     deltas = grid.deltas
     mesh = grid.mesh if grid.distributed else None
@@ -124,7 +125,9 @@ def make_laplacian_operator(grid, impl: str = "auto"):
     diag_val = -2.0 * sum(1.0 / float(d) ** 2 for d in deltas)
 
     def direct_solve(b):
-        from poissbox_tpu_torch.solvers.fft import poisson_solve_fft
+        from poissbox_tpu_torch.solvers.fft import poisson_solve_fft, poisson_solve_fft_dist
+        if mesh is not None:
+            return poisson_solve_fft_dist(b, grid)
         return poisson_solve_fft(b, deltas)
 
     return LinearOperator(
@@ -134,7 +137,7 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         symmetric=True,
         apply_dot=apply_dot,
         fused_update=fused_update,
-        direct_solve=None if mesh is not None else direct_solve,
+        direct_solve=direct_solve,
         allreduce=allreduce,
         ndof=grid.ndof if mesh is not None else None,
     )

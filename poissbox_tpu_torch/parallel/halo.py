@@ -20,8 +20,11 @@ Anything else raises. The kernels run on the card in every case.
 :data:`COUNTS` holds plain integers: face exchanges started
 (``exchanges``, one a block and call), face bytes this rank sent
 (``bytes``), faces staged through the host (``staged``), all-reduces
-(``allreduces``) and field gathers (``gathers``, with ``gather_bytes``
-this rank contributed).
+(``allreduces``), field gathers (``gathers``, with ``gather_bytes``
+this rank contributed), and the pencil transposes of
+:mod:`~poissbox_tpu_torch.parallel.pencil` (``alltoalls``, with
+``alltoall_bytes`` this rank sent to other ranks; their chunks staged
+through the host count in ``staged``).
 """
 
 from __future__ import annotations
@@ -34,7 +37,8 @@ import torch.distributed as dist
 Tensor = torch.Tensor
 
 COUNTS: dict[str, int] = {k: 0 for k in (
-    "exchanges", "bytes", "staged", "allreduces", "gathers", "gather_bytes")}
+    "exchanges", "bytes", "staged", "allreduces", "gathers", "gather_bytes",
+    "alltoalls", "alltoall_bytes")}
 
 
 def reset_counts() -> None:

@@ -1,5 +1,5 @@
-"""FFT direct Poisson solves — the fully periodic fast path (port of the
-single-device part of :mod:`poissbox_tpu.solvers.fft`).
+"""FFT direct Poisson solves — the fully periodic fast path (port of
+:mod:`poissbox_tpu.solvers.fft`).
 
 The DFT diagonalizes the periodic 7-point Laplacian: its eigenvalue on
 mode (kx, ky, kz) is sum_d -4 sin^2(pi k_d / n_d) / d_d^2, so A^+ is two
@@ -17,8 +17,31 @@ Not ported, on purpose: ``_rfft_last``, ``_rfftn_packed``,
 They rebuild the real transform from complex ones because XLA's native
 rfft mis-computes large sizes on the TPU (``fft.py:67-69``); cuFFT's real
 transforms have no such fault, so this module follows the JAX package's
-CPU branch (``fft.py:204-207``, ``:510-511``). The distributed (pencil)
-solves come with the multi-device slice.
+CPU branch (``fft.py:204-207``, ``:510-511``).
+
+Across ranks (``fft.py:247-393``) the 3-D transform is the transpose
+method: 1-D ``torch.fft`` transforms along each axis on the pencil that
+holds it whole, the pencil transposes of
+:mod:`~poissbox_tpu_torch.parallel.pencil` between them. Three routes,
+chosen in this order:
+
+  * packed: ``rfft`` along z on Z-pencils, the body of the half spectrum
+    (the first nz/2 modes) through the Y and X pencils, the Nyquist plane
+    (nx, ny, 1) gathered once and transformed whole on every rank, back
+    to Z-pencils and ``irfft`` (half the transpose bytes of the complex
+    route);
+  * complex: full complex transforms through the Z, Y and X pencils;
+  * gather: the one-rank solve on the gathered field, this rank's box
+    kept (``fft.py:352-361``).
+
+The JAX package takes the packed route where the halved spectrum divides
+the z-sharding (``_packed_dist_ok``) and lets GSPMD pad every other
+layout. Owned boxes have no padding, so here a route is taken only where
+every layout it passes through divides (:func:`fft_route`): packed where
+nz is even and the real field's home and Z layouts and the body's Z, Y
+and X layouts divide; complex where the full field's do; gather otherwise
+(every uneven decomposition). Each rank builds the inverse eigenvalues of
+its own pencil block from index ranges.
 """
 
 from __future__ import annotations
@@ -32,6 +55,8 @@ from poissbox_tpu_torch.ops.coefficients import (
     compact_grad_coeffs,
     compact_interp_coeffs,
 )
+from poissbox_tpu_torch.parallel import pencil
+from poissbox_tpu_torch.parallel.halo import allgather_field, allreduce_max
 from poissbox_tpu_torch.solvers.result import ConvergedReason, SolveResult
 
 Tensor = torch.Tensor
@@ -39,24 +64,32 @@ Tensor = torch.Tensor
 _COMPLEX = {torch.float32: torch.complex64, torch.float64: torch.complex128}
 
 
-def _inv_eigenvalues(shape, deltas, dtype, rfft: bool, device=None) -> Tensor:
+def _ranges(shape, box, device):
+    """The mode indices along each axis: all of them, or the box's."""
+    if box is None:
+        return [torch.arange(n, device=device) for n in shape]
+    return [torch.arange(s, s + c, device=device) for s, c in zip(*box)]
+
+
+def _inv_eigenvalues(shape, deltas, dtype, rfft: bool, device=None,
+                     box=None) -> Tensor:
     """Pseudo-inverse eigenvalues of the periodic 7-point Laplacian, in
-    rfft layout (last axis halved) or full-fft layout."""
+    rfft layout (last axis halved) or full-fft layout; with `box`
+    ((starts), (counts)) only those modes (a rank's pencil block)."""
     nx, ny, nz = shape
     dx, dy, dz = deltas
 
-    def lam(n, d):
+    def lam(k, n, d):
         # -4 sin^2(theta/2), cancellation-free (2 cos(theta) - 2 loses
         # ~7 digits on the low modes in float32)
-        k = torch.arange(n, dtype=dtype, device=device)
-        s = torch.sin((math.pi / n) * k)
+        s = torch.sin((math.pi / n) * k.to(dtype))
         return (-4.0 / d**2) * s * s
 
-    lz = lam(nz, dz)
-    if rfft:
-        lz = lz[: nz // 2 + 1]
-    eig = (lam(nx, dx)[:, None, None] + lam(ny, dy)[None, :, None]
-           + lz[None, None, :])
+    kx, ky, kz = _ranges(shape, box, device)
+    if rfft and box is None:
+        kz = kz[: nz // 2 + 1]
+    eig = (lam(kx, nx, dx)[:, None, None] + lam(ky, ny, dy)[None, :, None]
+           + lam(kz, nz, dz)[None, None, :])
     nz_mask = eig != 0.0
     return torch.where(nz_mask, 1.0 / torch.where(nz_mask, eig, 1.0), 0.0)
 
@@ -76,9 +109,11 @@ def make_fft_preconditioner(deltas: Sequence[float], grid=None):
     """The exact periodic 7-point inverse as a preconditioner
     (`-pc_type fft`): spectrally equivalent to the 6th-order compact
     operator, so FCG on that system converges in a handful of
-    iterations. (`grid` is accepted for the JAX package's signature; a
-    single-device grid adds nothing.)"""
+    iterations. On a `grid` over several ranks it takes and returns rank
+    blocks (:func:`poisson_solve_fft_dist`)."""
     deltas = tuple(float(d) for d in deltas)
+    if grid is not None and grid.distributed:
+        return lambda r: poisson_solve_fft_dist(r, grid)
     return lambda r: poisson_solve_fft(r, deltas)
 
 
@@ -86,14 +121,21 @@ def fft_solver_result(A, b: Tensor, deltas: Sequence[float],
                       grid=None) -> SolveResult:
     """Run the direct solve (the operator's own spectral solve where it
     has one, 7-point or compact) and wrap it as a SolveResult: one
-    iteration, the residual measured, reason CONVERGED_ATOL."""
+    iteration, the residual measured, reason CONVERGED_ATOL. On rank
+    blocks (an operator with `allreduce`) the two sums are all-reduced in
+    one call."""
     if getattr(A, "direct_solve", None) is not None:
         x = A.direct_solve(b)
+    elif grid is not None and grid.distributed:
+        x = poisson_solve_fft_dist(b, grid)
     else:
         x = poisson_solve_fft(b, deltas)
     r = A.project(b) - A(x)
-    resnorm = torch.sqrt(torch.sum(r * r))
-    hist = torch.stack([torch.sqrt(torch.sum(b * b)), resnorm])
+    sums = torch.stack([torch.sum(r * r), torch.sum(b * b)])
+    if getattr(A, "allreduce", None) is not None:
+        sums = A.allreduce(sums)
+    resnorm, bnorm = torch.sqrt(sums).unbind()
+    hist = torch.stack([bnorm, resnorm])
     dev = b.device
     return SolveResult(
         x=x,
@@ -125,15 +167,16 @@ def _op_symbol(theta: Tensor, a: float, b: float, opsign: int, shift: int,
     return R / (1.0 + 2.0 * alpha * torch.cos(theta))
 
 
-def compact_inv_eigenvalues(shape, deltas, dtype, device=None) -> Tensor:
-    """Pseudo-inverse eigenvalues of the 6th-order compact Laplacian, in
-    full-fft layout (complex, as the JAX package returns them)."""
+def _compact_symbol(shape, deltas, dtype, device=None, idx=None) -> Tensor:
+    """The compact Laplacian's symbol S on the modes `idx` (one index
+    tensor an axis; all modes by default), complex as the JAX package
+    computes it."""
     cplx = _COMPLEX[dtype]
-    real = dtype
     ci = compact_interp_coeffs()
+    idx = _ranges(shape, None, device) if idx is None else idx
 
-    def axis_parts(n, d):
-        theta = (2.0 * math.pi / n) * torch.arange(n, dtype=real, device=device)
+    def axis_parts(k, n, d):
+        theta = (2.0 * math.pi / n) * k.to(dtype)
         cg = compact_grad_coeffs(d)
         G = _op_symbol(theta, cg.a, cg.b, -1, 0, cg.alpha)   # grad, cell->vtx
         D = _op_symbol(theta, cg.a, cg.b, -1, 1, cg.alpha)   # div', vtx->cell
@@ -141,20 +184,29 @@ def compact_inv_eigenvalues(shape, deltas, dtype, device=None) -> Tensor:
         Ip = _op_symbol(theta, ci.a, ci.b, +1, 1, ci.alpha)  # interp'
         return (D * G).to(cplx), (I * Ip).to(cplx)
 
-    nx, ny, nz = shape
-    dx, dy, dz = deltas
-    DGx, IIx = axis_parts(nx, dx)
-    DGy, IIy = axis_parts(ny, dy)
-    DGz, IIz = axis_parts(nz, dz)
-    S = (DGx[:, None, None] * IIy[None, :, None] * IIz[None, None, :]
-         + IIx[:, None, None] * DGy[None, :, None] * IIz[None, None, :]
-         + IIx[:, None, None] * IIy[None, :, None] * DGz[None, None, :])
-    mag = torch.abs(S)
-    tol = (1e-6 if cplx == torch.complex64 else 1e-12) * torch.max(mag)
-    keep = mag > tol
-    one = torch.ones((), dtype=cplx, device=device)
-    zero = torch.zeros((), dtype=cplx, device=device)
+    (DGx, IIx), (DGy, IIy), (DGz, IIz) = (
+        axis_parts(k, n, float(d)) for k, n, d in zip(idx, shape, deltas))
+    return (DGx[:, None, None] * IIy[None, :, None] * IIz[None, None, :]
+            + IIx[:, None, None] * DGy[None, :, None] * IIz[None, None, :]
+            + IIx[:, None, None] * IIy[None, :, None] * DGz[None, None, :])
+
+
+def _compact_inv(S: Tensor, peak: Tensor) -> Tensor:
+    """1/S, zero on the kernel modes: those below a tolerance of the
+    symbol's largest magnitude over the whole spectrum (`peak`)."""
+    cplx = S.dtype
+    tol = (1e-6 if cplx == torch.complex64 else 1e-12) * peak
+    keep = torch.abs(S) > tol
+    one = torch.ones((), dtype=cplx, device=S.device)
+    zero = torch.zeros((), dtype=cplx, device=S.device)
     return torch.where(keep, 1.0 / torch.where(keep, S, one), zero)
+
+
+def compact_inv_eigenvalues(shape, deltas, dtype, device=None) -> Tensor:
+    """Pseudo-inverse eigenvalues of the 6th-order compact Laplacian, in
+    full-fft layout (complex, as the JAX package returns them)."""
+    S = _compact_symbol(shape, deltas, dtype, device)
+    return _compact_inv(S, torch.max(torch.abs(S)))
 
 
 def compact_poisson_solve_fft(b: Tensor, deltas: Sequence[float]) -> Tensor:
@@ -167,3 +219,139 @@ def compact_poisson_solve_fft(b: Tensor, deltas: Sequence[float]) -> Tensor:
                                   b.dtype, device=b.device)
     xhat = torch.fft.rfftn(b) * inv.real[..., : shape[-1] // 2 + 1]
     return torch.fft.irfftn(xhat, s=shape).to(b.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Across ranks: the pencil-decomposed 3-D FFT
+# ---------------------------------------------------------------------------
+
+def fft_route(shape: Sequence[int], pgrid: Sequence[int]) -> str:
+    """The distributed solve's route for a grid of `shape` over `pgrid`:
+    "packed", "complex" or "gather" (see the module docstring)."""
+    nx, ny, nz = shape
+    if (nz % 2 == 0 and pencil.pencil_ok(shape, pgrid, (None, 2))
+            and pencil.pencil_ok((nx, ny, nz // 2), pgrid, (2, 1, 0))):
+        return "packed"
+    if pencil.pencil_ok(shape, pgrid):
+        return "complex"
+    return "gather"
+
+
+def _box(shape, grid, local_dim):
+    return pencil.block_of(shape, grid.pgrid, pencil.pencil_spec(grid, local_dim),
+                           grid.mesh.rank)
+
+
+def _spectral_solve_pencil(b: Tensor, grid, inv: Tensor) -> Tensor:
+    """x = F^-1 (inv * F b) through the Z, Y and X pencils, complex; `inv`
+    is this rank's X-pencil block of the inverse eigenvalues."""
+    cplx = _COMPLEX[b.dtype]
+    f = pencil.to_pencil(b, grid, 2).to(cplx)
+    f = torch.fft.fft(f, dim=2)
+    prev = 2
+    for axis in (1, 0):
+        f = torch.fft.fft(pencil.to_pencil(f, grid, axis, prev), dim=axis)
+        prev = axis
+    f = f * inv
+    for axis in (0, 1, 2):
+        f = torch.fft.ifft(pencil.to_pencil(f, grid, axis, prev), dim=axis)
+        prev = axis
+    return pencil.from_pencil(f.real.to(b.dtype).contiguous(), grid, 2)
+
+
+def _spectral_solve_pencil_packed(b: Tensor, grid, inv_body: Tensor,
+                                  inv_nyq: Tensor) -> Tensor:
+    """The packed-real pencil solve: ``rfft`` along z on Z-pencils; the
+    body of the half spectrum (modes 0 .. nz/2 - 1) through the Y and X
+    pencils, times `inv_body` (this rank's X-pencil block of it); the
+    Nyquist plane gathered once, transformed whole on every rank and
+    multiplied by `inv_nyq` (nx, ny, 1); then back and ``irfft``."""
+    nx, ny, nz = grid.n
+    n2 = nz // 2
+    body_shape = (nx, ny, n2)
+    U = torch.fft.rfft(pencil.to_pencil(b, grid, 2), dim=2)
+    body = U[..., :n2].contiguous()
+    nyq = pencil.allgather_blocks(U[..., n2:].contiguous(), grid,
+                                  pencil.pencil_spec(grid, 2), (nx, ny, 1))
+    prev = 2
+    for axis in (1, 0):
+        body = torch.fft.fft(pencil.to_pencil(body, grid, axis, prev, body_shape), dim=axis)
+        nyq = torch.fft.fft(nyq, dim=axis)
+        prev = axis
+    body = body * inv_body
+    nyq = nyq * inv_nyq
+    for axis in (0, 1):
+        body = torch.fft.ifft(pencil.to_pencil(body, grid, axis, prev, body_shape), dim=axis)
+        nyq = torch.fft.ifft(nyq, dim=axis)
+        prev = axis
+    body = pencil.to_pencil(body, grid, 2, prev, body_shape)
+    (sx, sy, _), (cx, cy, _) = _box(grid.n, grid, 2)
+    half = torch.cat([body, nyq[sx:sx + cx, sy:sy + cy]], dim=2)
+    # the kz = 0 and kz = nz/2 planes of a real field are real: irfft drops
+    # their imaginary rounding on the CPU, cuFFT's C2R does not (at 256^3
+    # f32 on an H100 that tripled the order-6 residual, 8.86e-4 against
+    # 3.21e-4 with these zeroed, PERF.md)
+    half[..., 0].imag.zero_()
+    half[..., n2].imag.zero_()
+    x = torch.fft.irfft(half, n=nz, dim=2).to(b.dtype).contiguous()
+    return pencil.from_pencil(x, grid, 2)
+
+
+def _gathered_solve(solve, b: Tensor, grid) -> Tensor:
+    """The one-rank `solve` on the gathered b; this rank's box of x."""
+    return grid.shard(solve(allgather_field(b, grid), grid.deltas))
+
+
+def poisson_solve_fft_dist(b: Tensor, grid) -> Tensor:
+    """x = A^+ b for the periodic 7-point Laplacian on this rank's block
+    of a grid over several ranks (the one-rank solve on one rank)."""
+    if not grid.distributed:
+        return poisson_solve_fft(b, grid.deltas)
+    route = fft_route(grid.n, grid.pgrid)
+    if route == "gather":
+        return _gathered_solve(poisson_solve_fft, b, grid)
+    deltas = tuple(float(d) for d in grid.deltas)
+    if route == "complex":
+        inv = _inv_eigenvalues(grid.n, deltas, b.dtype, rfft=False, device=b.device,
+                               box=_box(grid.n, grid, 0))
+        return _spectral_solve_pencil(b, grid, inv)
+    nx, ny, nz = grid.n
+    inv_body = _inv_eigenvalues(grid.n, deltas, b.dtype, rfft=True, device=b.device,
+                                box=_box((nx, ny, nz // 2), grid, 0))
+    inv_nyq = _inv_eigenvalues(grid.n, deltas, b.dtype, rfft=True, device=b.device,
+                               box=((0, 0, nz // 2), (nx, ny, 1)))
+    return _spectral_solve_pencil_packed(b, grid, inv_body, inv_nyq)
+
+
+def compact_poisson_solve_fft_dist(b: Tensor, grid) -> Tensor:
+    """x = A^+ b for the 6th-order compact Laplacian on this rank's block
+    (the one-rank solve on one rank). The symbol's kernel-mode tolerance
+    is relative to its largest magnitude over the whole spectrum: each
+    rank takes the maximum over its blocks, which together cover every
+    mode (the packed route's blocks with their mirror images kz -> nz -
+    kz, since the symbol is even), and one all-reduce takes the maximum
+    over ranks."""
+    if not grid.distributed:
+        return compact_poisson_solve_fft(b, grid.deltas)
+    route = fft_route(grid.n, grid.pgrid)
+    if route == "gather":
+        return _gathered_solve(compact_poisson_solve_fft, b, grid)
+    deltas = tuple(float(d) for d in grid.deltas)
+    nx, ny, nz = grid.n
+    dev = b.device
+    sym = lambda idx: _compact_symbol(grid.n, deltas, b.dtype, dev, idx)
+    box = _box(grid.n if route == "complex" else (nx, ny, nz // 2), grid, 0)
+    idx = _ranges(None, box, dev)
+    S = sym(idx)
+    peak = torch.max(torch.abs(S))
+    if route == "packed":
+        kx, ky, kz = idx
+        S_nyq = sym([torch.arange(nx, device=dev), torch.arange(ny, device=dev),
+                     torch.tensor([nz // 2], device=dev)])
+        peak = torch.maximum(peak, torch.max(torch.abs(S_nyq)))
+        peak = torch.maximum(peak, torch.max(torch.abs(sym([kx, ky, (nz - kz) % nz]))))
+    peak = allreduce_max(peak.reshape(1), grid.mesh)[0]
+    if route == "complex":
+        return _spectral_solve_pencil(b, grid, _compact_inv(S, peak).real)
+    return _spectral_solve_pencil_packed(b, grid, _compact_inv(S, peak).real,
+                                         _compact_inv(S_nyq, peak).real)

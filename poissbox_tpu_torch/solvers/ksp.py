@@ -34,6 +34,7 @@ from poissbox_tpu_torch.solvers.mg import (
 from poissbox_tpu_torch.solvers.pipecg import pipecg
 from poissbox_tpu_torch.solvers.result import SolveResult
 from poissbox_tpu_torch.solvers.richardson import richardson
+from poissbox_tpu_torch.utils.logging import is_process0
 from poissbox_tpu_torch.utils.profiling import kernel_time
 
 Tensor = torch.Tensor
@@ -49,8 +50,8 @@ def make_preconditioner(
     grid=None,
 ) -> Optional[Callable[[Tensor], Tensor]]:
     """Build the preconditioner closure selected by `pc_type` (over a
-    process grid: none, jacobi or mg, the V-cycle's fine levels
-    distributed over `grid`)."""
+    process grid the V-cycle's fine levels are distributed over `grid`,
+    and fft is the pencil FFT on rank blocks)."""
     if opts.pc_type in ("none", ""):
         return None
     if opts.pc_type == "jacobi":
@@ -61,10 +62,9 @@ def make_preconditioner(
     if opts.pc_type == "fft":
         # the exact periodic 7-point inverse as a spectrally equivalent
         # preconditioner (for the compact 6th-order system)
-        require_one_rank(A, "-pc_type fft")
         if deltas is None:
             raise ValueError("fft preconditioning needs the grid deltas")
-        return make_fft_preconditioner(deltas)
+        return make_fft_preconditioner(deltas, grid)
     if opts.pc_type == "mg":
         if shape is None or deltas is None:
             raise ValueError("mg preconditioning needs the grid shape and deltas")
@@ -151,7 +151,7 @@ def make_solver(
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"make_solver(device={str(device)!r}) needs a CUDA "
                            "device; torch.cuda.is_available() is False")
-    if opts.ksp_type not in ("cg", "fcg"):
+    if opts.ksp_type not in ("cg", "fcg", "fft"):
         require_one_rank(A, f"-ksp_type {opts.ksp_type}")
     common = dict(rtol=opts.ksp_rtol, atol=opts.ksp_atol,
                   max_it=opts.ksp_max_it, monitor=opts.ksp_monitor)
@@ -162,7 +162,7 @@ def make_solver(
         M = None
 
         def solver(b, x0=None):
-            return fft_solver_result(A, b, deltas)
+            return fft_solver_result(A, b, deltas, grid)
     else:
         M = make_preconditioner(A, opts, shape, deltas, dtype, device, grid)
 
@@ -321,6 +321,8 @@ def solve(
     if db is not None and (db.get_bool("options_left")
                            or db.get_bool("options_error_if_unused")):
         db.check_unused()
+    if not is_process0():     # every rank holds the same reduced values
+        return result
     if opts.ksp_monitor and opts.ksp_type == "fft":
         # the direct solve has no iterations: its one-line residual
         # history, printed after the solve

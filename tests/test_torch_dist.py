@@ -21,13 +21,13 @@ from pathlib import Path
 import pytest
 
 from torch_dist_common import *  # noqa: F401,F403  (the shared checks)
-from torch_dist_common import run_case
+from torch_dist_common import run_case, test_mg_options_match_one_rank  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=[((2, 2, 1), 32)], ids=["221-32"])
 def dist_run(request, tmp_path_factory):
     pgrid, n = request.param
-    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"))
+    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), mgopts=True, n6=32)
     return pgrid, n, ranks, ref
 
 

@@ -12,5 +12,5 @@ from torch_dist_common import run_case
 @pytest.fixture(scope="module", params=[((2, 2, 2), 16)], ids=["222-16"])
 def dist_run(request, tmp_path_factory):
     pgrid, n = request.param
-    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"))
+    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), n6=16)
     return pgrid, n, ranks, ref

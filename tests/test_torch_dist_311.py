@@ -11,13 +11,14 @@ import numpy as np
 import pytest
 
 from torch_dist_common import *  # noqa: F401,F403  (the shared checks)
-from torch_dist_common import blocks, run_case
+from torch_dist_common import blocks, run_case, test_mg_options_match_one_rank  # noqa: F401
 
 
 @pytest.fixture(scope="module", params=[((3, 1, 1), 64)], ids=["311-64"])
 def dist_run(request, tmp_path_factory):
     pgrid, n = request.param
-    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), jacobi=True)
+    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), jacobi=True,
+                          mgopts=True, n6=16)
     return pgrid, n, ranks, ref
 
 

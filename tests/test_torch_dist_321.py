@@ -10,5 +10,5 @@ from torch_dist_common import run_case
 @pytest.fixture(scope="module", params=[((3, 2, 1), 24)], ids=["321-24"])
 def dist_run(request, tmp_path_factory):
     pgrid, n = request.param
-    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"))
+    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), n6=18)
     return pgrid, n, ranks, ref

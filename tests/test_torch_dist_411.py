@@ -11,5 +11,5 @@ from torch_dist_common import run_case
 @pytest.fixture(scope="module", params=[((4, 1, 1), 32)], ids=["411-32"])
 def dist_run(request, tmp_path_factory):
     pgrid, n = request.param
-    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"))
+    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), n6=32)
     return pgrid, n, ranks, ref

@@ -31,6 +31,7 @@ from poissbox_tpu_torch import interop, mesh
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options
 from poissbox_tpu_torch.mesh import Grid3D, ProcessGrid, make_process_grid
+from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.parallel import decomp, dist_stencil as ds, halo, uneven
 from poissbox_tpu_torch.solvers.cg import cg
@@ -336,7 +337,7 @@ def _dist_operator(pgrid=(2, 1, 1), n=(8, 8, 8)):
 
 def test_distributed_operator_binds_the_sharded_forms():
     g, A = _dist_operator()
-    assert A.allreduce is not None and A.ndof == 512 and A.direct_solve is None
+    assert A.allreduce is not None and A.ndof == 512 and A.direct_solve is not None
     assert getattr(A.nullspace, "is_constant_projector", False)
     gu, Au = _dist_operator((3, 1, 1), (8, 8, 8))
     assert not getattr(Au.nullspace, "is_constant_projector", False)   # as in JAX
@@ -344,10 +345,28 @@ def test_distributed_operator_binds_the_sharded_forms():
         make_laplacian_operator(Grid3D((8,) * 3, device="cpu"), impl="dist")
 
 
+def test_distributed_compact_operator_binds_the_pencil_forms():
+    """Order 6 over several ranks: compact_dist's Laplacian, the pencil
+    FFT as its direct solve, the global projector and the reductions; only
+    K15's methods run there."""
+    g = Grid3D((8,) * 3, device="cpu", mesh=ProcessGrid((2, 1, 1), 0))
+    A = make_compact_laplacian_operator(g)
+    assert A.allreduce is not None and A.ndof == 512 and A.direct_solve is not None
+    assert getattr(A.nullspace, "is_constant_projector", False)
+    for method in ("pallas", "pscan"):
+        with pytest.raises(NotImplementedError, match="K15"):
+            make_compact_laplacian_operator(g, method=method)
+
+
 @pytest.mark.parametrize("ksp_type", ["pipecg", "gmres", "richardson", "fft"])
 def test_other_krylov_types_raise_across_ranks(ksp_type):
+    """What is left for the next slice raises; the FFT direct solve runs
+    across ranks now (the pencil FFT), so its solver builds."""
     g, A = _dist_operator()
     opts = Options(["-ksp_type", ksp_type, "-pc_type", "none"])
+    if ksp_type == "fft":
+        assert callable(ksp.make_solver(A, opts, grid=g))
+        return
     with pytest.raises(NotImplementedError, match="next multi-process slice"):
         ksp.make_solver(A, opts, grid=g)
 
@@ -358,8 +377,9 @@ def test_direct_calls_refuse_rank_blocks():
     for fn in (pipecg, gmres, richardson):
         with pytest.raises(NotImplementedError, match="next multi-process slice"):
             fn(A, b)
-    with pytest.raises(NotImplementedError, match="next multi-process slice"):
-        ksp.make_solver(A, Options(["-ksp_type", "cg", "-pc_type", "fft"]), grid=g)
+    # -pc_type fft runs across ranks now: the pencil FFT on rank blocks
+    solver = ksp.make_solver(A, Options(["-ksp_type", "cg", "-pc_type", "fft"]), grid=g)
+    assert callable(solver.M)
     s = PoissonSolver((8,) * 3, dtype=torch.float64, device="cpu")
     s.A = A
     for call in (lambda: s.solve_refined(b), lambda: s.solve_checkpointed(b, "unused")):

@@ -2,7 +2,18 @@
 (tests/torch_dist_worker.py) for one decomposition, compute the JAX
 package's results for the same inputs on the 8 virtual CPU devices while
 the ranks run, and collect both. Every rank has a time limit; a rank that
-fails or hangs fails the fixture, and every rank is stopped."""
+fails or hangs fails the fixture, and every rank is stopped.
+
+The order-6 and FFT references: the JAX package's ``compact_dist`` and
+distributed FFT solves on the same process grid, and its order-6 CG + GMG
+solve there. Two of its sharded paths fail on its CPU backend, so there
+the reference is its one-device path (what the sharded path computes):
+on an uneven decomposition every jitted ``_uneven_fallback`` (the compact
+Laplacian came out far from the serial one at 32^3 on (3, 1, 1), while
+the same code run eagerly matches it), and ``-pc_type fft`` across
+devices (XLA's CPU FFT thunk refuses the pencil layout inside the
+solver's loop: ``fft_thunk.cc:167`` RET_CHECK).
+"""
 
 from __future__ import annotations
 
@@ -22,18 +33,25 @@ from poissbox_tpu.config import Options as JOptions
 from poissbox_tpu.config import SolverOptions as JSolverOptions
 from poissbox_tpu.mesh import Grid3D as JGrid
 from poissbox_tpu.mesh import make_device_mesh
+from poissbox_tpu.ops import compact_dist as jcd
+from poissbox_tpu.ops.compact import make_compact_laplacian_operator as jmake_op6
 from poissbox_tpu.ops.stencil import make_laplacian_operator as jmake_op
 from poissbox_tpu.parallel import dist_stencil as jds
 from poissbox_tpu.parallel import uneven as jue
+from poissbox_tpu.solvers import fft as jfft
 from poissbox_tpu.solvers.ksp import make_solver as jmake_solver
 from poissbox_tpu.solvers.mg import MGConfig as JMGConfig
 from poissbox_tpu.solvers.mg import _build_levels as j_build_levels
 from poissbox_tpu.solvers.mg import make_mg_preconditioner as jmake_mg
 from poissbox_tpu_torch.parallel.decomp import owned_boxes
+from poissbox_tpu_torch.parallel.pencil import pencil_ok
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 import torch_dist_worker as worker  # noqa: E402
+
+sys.path.insert(0, str(HERE.parent))
+from chip_smoke import pencil_bytes_model  # noqa: E402
 
 RANK_TIMEOUT = 150.0   # s for the whole group; each collective has 120 s
 # what a test file takes with `from torch_dist_common import *`: the
@@ -43,7 +61,12 @@ __all__ = ["run_case", "blocks", "test_dof_counts",
            "test_sharded_operator_matches_jax", "test_sharded_reductions_match_jax",
            "test_vcycle_matches_jax", "test_level_stack_matches_jax",
            "test_mgcg_iterations_equal_jax", "test_mgcg_true_residual",
-           "test_mgcg_x_matches_jax"]
+           "test_mgcg_x_matches_jax", "test_compact_dist_matches_jax",
+           "test_compact_dist_matches_one_rank", "test_fft_dist_matches_jax",
+           "test_fft_dist_matches_one_rank", "test_pencil_counts_equal_the_model",
+           "test_order6_mgcg_iterations_equal_jax", "test_order6_mgcg_true_residual",
+           "test_order6_mgcg_x_matches_jax", "test_order6_fcg_fft_matches_jax",
+           "test_ksp_fft_residual_within_twice_one_rank"]
 OPS = ("apply", "apply_padded", "apply_dot", "residual", "jacobi", "sor0", "sor1",
        "cgupd.x", "cgupd.r")
 
@@ -55,6 +78,7 @@ def free_port() -> int:
 
 
 def spawn(pgrid, n: int, out_dir: Path, extra=()) -> list:
+    """Start one process a rank."""
     world = int(np.prod(pgrid))
     port = free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -152,13 +176,50 @@ def jax_reference(pgrid, n: int) -> dict:
     return ref
 
 
-def run_case(pgrid, n: int, out_dir: Path, jacobi: bool = False):
+def jax_order6(pgrid, n: int) -> dict:
+    """The JAX package's compact operators, FFT solves and order-6 solves
+    at n^3 for the order-6 checks (see the module docstring for where its
+    one-device path stands in)."""
+    jg = JGrid((n,) * 3, mesh=make_device_mesh(pgrid))
+    one = JGrid((n,) * 3)
+    og = one if jg.uneven else jg
+    f = worker.fields6(n)
+    sh = lambda a: og.shard(jnp.asarray(a)) if og.mesh is not None else jnp.asarray(a)
+
+    def ops(u, F0, F1, F2, smooth):
+        """Every operator in one jitted program (one compile); b6 is the
+        solves' right-hand side."""
+        return {"lapl": jcd.lapl(u, og), "grad": jcd.grad(u, og),
+                "div": jcd.div(jnp.stack([F0, F1, F2], -1), og),
+                "interp": jcd.interp(u, og, stagger=+1),
+                "fft2": jfft.poisson_solve_fft_dist(u, og),
+                "fft6": jfft.compact_poisson_solve_fft_dist(u, og),
+                "b6": jcd.lapl(smooth, og)}
+
+    ref = {k: np.asarray(v) for k, v in _run(
+        ops, sh(f["u"]), *(sh(f["F"][..., k]) for k in range(3)), sh(f["smooth"])).items()}
+    for tag, argv, g in (("cg6", ["-ksp_type", "cg", "-pc_type", "mg"], og),
+                         ("fcg6", ["-ksp_type", "fcg", "-pc_type", "fft"], one)):
+        opts = JSolverOptions.from_options(JOptions(
+            argv + ["-ksp_rtol", "1e-8", "-ksp_max_it", "200"]))
+        bg = g.shard(jnp.asarray(ref["b6"])) if g.mesh is not None else jnp.asarray(ref["b6"])
+        res = _run(jmake_solver(jmake_op6(g), opts, g.n, g.deltas, jnp.float64, grid=g), bg)
+        ref[f"{tag}.its"] = int(res.iterations)
+        ref[f"{tag}.x"] = np.asarray(res.x)
+    return ref
+
+
+def run_case(pgrid, n: int, out_dir: Path, *, n6: int, jacobi: bool = False,
+             mgopts: bool = False):
     """(the ranks' results, the JAX package's): the ranks run while JAX
-    computes its side."""
+    computes its side. `n6`: the size of the order-6 and FFT cases."""
     t0 = time.perf_counter()
-    procs = spawn(pgrid, n, out_dir, ["jacobi"] if jacobi else [])
+    extra = (["jacobi"] if jacobi else []) + (["mgopts"] if mgopts else [])
+    procs = spawn(pgrid, n, out_dir, extra + [f"n6={n6}"])
     try:
         ref = jax_reference(pgrid, n)
+        ref["order6"] = jax_order6(pgrid, n6)
+        ref["n6"] = n6
     except BaseException:
         for p in procs:
             p.kill()
@@ -237,3 +298,124 @@ def test_mgcg_x_matches_jax(dist_run):
     got = np.concatenate([rk["sor.x"].ravel() for rk in ranks])
     want = np.concatenate([b.ravel() for b in blocks(ref["sor.x"], n, pgrid)])
     assert np.linalg.norm(got - want) <= 1e-6 * np.linalg.norm(want)
+
+
+# ---------------------------------------------------------------------------
+# order 6 and the FFT across ranks (the worker's `n6` cases)
+# ---------------------------------------------------------------------------
+
+OPS6 = ("lapl", "grad", "div", "interp", "fft2", "fft6")   # the worker's order6()
+
+
+def _glued(ranks, key, n, pgrid):
+    """The ranks' blocks of `key` in one global field (vector fields by
+    component)."""
+    first = ranks[0][key]
+    out = np.empty((n,) * 3 + first.shape[3:])
+    for rk, (_, ((xs, ys, zs), (xn, yn, zn))) in zip(
+            ranks, sorted(owned_boxes((n,) * 3, pgrid).items())):
+        out[xs:xs + xn, ys:ys + yn, zs:zs + zn] = rk[key]
+    return out
+
+
+@pytest.mark.parametrize("op", ("lapl", "grad", "div", "interp"))
+def test_compact_dist_matches_jax(dist_run, op):
+    pgrid, _, ranks, ref = dist_run
+    n = ref["n6"]
+    want = ref["order6"][op]
+    assert np.abs(_glued(ranks, op, n, pgrid) - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("op", ("lapl", "grad", "div", "interp"))
+def test_compact_dist_matches_one_rank(dist_run, op):
+    """Each rank's block against its box of the one-rank operator on the
+    global field (the same sweeps on whole lines: no rounding apart)."""
+    for rk in dist_run[2]:
+        assert float(rk[f"{op}.vs1"]) <= 1e-14
+
+
+@pytest.mark.parametrize("op", ("fft2", "fft6"))
+def test_fft_dist_matches_jax(dist_run, op):
+    pgrid, _, ranks, ref = dist_run
+    n = ref["n6"]
+    want = ref["order6"][op]
+    assert np.abs(_glued(ranks, op, n, pgrid) - want).max() <= 1e-12 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("op", ("fft2", "fft6"))
+def test_fft_dist_matches_one_rank(dist_run, op):
+    for rk in dist_run[2]:
+        assert float(rk[f"{op}.vs1"]) <= 1e-14
+
+
+@pytest.mark.parametrize("op", OPS6)
+def test_pencil_counts_equal_the_model(dist_run, op):
+    """Rank 0's all-to-alls, their bytes and its gathers against the shape
+    model (chip_smoke.pencil_bytes_model) of the route the call takes on
+    this decomposition, f64 fields: a compact operator transposes where
+    every layout divides the grid, else gathers its inputs (div: three
+    components); an FFT solve takes fft.fft_route's route (the packed one
+    gathers the Nyquist plane)."""
+    pgrid, _, ranks, ref = dist_run
+    n = ref["n6"]
+    if op.startswith("fft"):
+        route = str(ranks[0]["fft.route"])
+        gathers = 0 if route == "complex" else 1
+    else:
+        route = op if pencil_ok((n,) * 3, pgrid) else "gather"
+        gathers = 0 if route != "gather" else (3 if op == "div" else 1)
+    calls, nbytes = pencil_bytes_model((n,) * 3, pgrid, 8, route)
+    assert list(ranks[0][f"{op}.counts"]) == [calls, nbytes, gathers]
+
+
+def test_order6_mgcg_iterations_equal_jax(dist_run):
+    _, _, ranks, ref = dist_run
+    assert {int(rk["cg6.its"]) for rk in ranks} == {ref["order6"]["cg6.its"]}
+    assert int(ranks[0]["cg61.its"]) == ref["order6"]["cg6.its"]
+
+
+def test_order6_mgcg_true_residual(dist_run):
+    for rk in dist_run[2]:
+        assert float(rk["cg6.rel"]) <= 1.01e-8
+
+
+def test_order6_mgcg_x_matches_jax(dist_run):
+    pgrid, _, ranks, ref = dist_run
+    n = ref["n6"]
+    want = ref["order6"]["cg6.x"]
+    got = _glued(ranks, "cg6.x", n, pgrid)
+    assert np.linalg.norm(got - want) <= 1e-12 * np.linalg.norm(want)
+    one = ranks[0]["cg61.x"]
+    assert np.linalg.norm(got - one) <= 1e-12 * np.linalg.norm(one)
+
+
+def test_order6_fcg_fft_matches_jax(dist_run):
+    pgrid, _, ranks, ref = dist_run
+    n = ref["n6"]
+    assert {int(rk["fcg6.its"]) for rk in ranks} == {ref["order6"]["fcg6.its"]}
+    for rk in ranks:
+        assert float(rk["fcg6.rel"]) <= 1.01e-8
+    want = ref["order6"]["fcg6.x"]
+    got = _glued(ranks, "fcg6.x", n, pgrid)
+    assert np.linalg.norm(got - want) <= 1e-12 * np.linalg.norm(want)
+
+
+@pytest.mark.parametrize("order", (2, 6))
+def test_ksp_fft_residual_within_twice_one_rank(dist_run, order):
+    _, _, ranks, _ = dist_run
+    one = float(ranks[0][f"kspfft{order}1.rel"])
+    for rk in ranks:
+        assert int(rk[f"kspfft{order}.its"]) == 1
+        assert float(rk[f"kspfft{order}.rel"]) <= 2.0 * one
+
+
+@pytest.mark.parametrize("opt", tuple(worker.MG_OPTS))
+def test_mg_options_match_one_rank(dist_run, opt):
+    """MG options across ranks (spawns run with `mgopts`): the one-rank
+    iteration count, and x within 1e-12 of the one-rank x."""
+    pgrid, n, ranks, _ = dist_run
+    one = ranks[0]
+    assert {int(r[f"mg.{opt}.its"]) for r in ranks} == {int(one[f"mg1.{opt}.its"])}
+    got = np.concatenate([r[f"mg.{opt}.x"].ravel() for r in ranks])
+    want = np.concatenate([b.ravel() for b in blocks(one[f"mg1.{opt}.x"], n, pgrid)])
+    assert np.linalg.norm(got - want) <= 1e-12 * np.linalg.norm(want)
