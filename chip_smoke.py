@@ -98,21 +98,31 @@ and fails loudly if any phase fails:
              K15 path's iterations on the same b; then K17's Laplacian
              against K15's at 512^3 f32 and f64, seven pairs in turns.
 
-  7. distributed MG-CG, path (m): the parent builds the library, solves
-     each case on one rank (the reference: iterations, x, b = A u by K1,
-     the warm wall), then spawns one process a rank (`--dist-worker`,
+  7. distributed Krylov solves, path (m): the parent builds the library,
+     runs each case on one rank (the reference: iterations, x, b = A u by
+     K1, the warm wall), then spawns one process a rank (`--dist-worker`,
      each within DIST_TIMEOUT) that drives PoissonSolver(shard=pgrid):
-     (2,2,1) 512^3 f32 rtol 1e-6, the default cycle (7 iterations, as one
-     rank); (3,1,1) 64^3 f64 rtol 1e-8, the reference's 90112/86016/86016
-     split, the matvec within 1e-13 of one rank's K1 (6 iterations, the
-     JAX package's count there), and with the Jacobi smoother (K10, 7, the
-     one-rank count);
-     (2,2,2) 64^3 f64, 8 ranks (6). On every rank the counters are reset
-     before rhs_for + solve + residual_norm and read after; rank 0's
-     counts and the sums over ranks are printed with the exchanges, the
-     face bytes (held to exchange_bytes_model) and halo.staged, and K1,
-     K2, K8, K9 and K11 (K10 in its case) must show launches on every
-     rank; x must be within 100 rtol of the one-rank x. With one card
+     (2,2,1) 512^3 f32 rtol 1e-6, the default cycle: MG-CG (7 iterations,
+     as one rank), PIPECG, GMRES(30) (its pre-smooth in float32) and
+     Richardson + MG, solve_refined to 1e-12 (float64 b), the MG-CG solve
+     with -log_view (the table printed by rank 0 alone, its events and
+     counts the one-rank table's, its GDoF/s the global DoF count's), and
+     at 256^3 f32 solve_checkpointed every 2 iterations, killed after
+     chunk 0 and resumed (bit-equal to the uninterrupted run) and over a b
+     one ulp away on rank 1 (every rank starts fresh); (3,1,1) 64^3 f64
+     rtol 1e-8, the reference's 90112/86016/86016 split, the matvec within
+     1e-13 of one rank's K1: MG-CG (6 iterations, the JAX package's count
+     there), with the Jacobi smoother (K10, 7, the one-rank count), PIPECG
+     and GMRES(30) + MG, and GMRES -pc_type none to rtol 1e-5 (K2 in the
+     Gram-Schmidt step); (2,2,2) 64^3 f64 MG-CG, 8 ranks (6). On every
+     rank the counters are reset before rhs_for + the run + residual_norm
+     and read after; rank 0's counts and the sums over ranks are printed
+     with the exchanges, all-reduces, the face bytes (held to
+     exchange_bytes_model times each method's matvecs and V-cycles,
+     krylov_work) and halo.staged, and each case's kernels (K1, K9 and
+     K11, or K10; K2 and K8 under CG; K2 without a preconditioner) must
+     show launches on every rank; the iterations must equal the one-rank
+     run's; x must be within 100 rtol of the one-rank x. With one card
      the ranks share it over gloo, every face staged through pinned host
      buffers (walls printed, no speed figure); with two cards or more the
      same cases also run over NCCL, one rank a card (a group of more ranks
@@ -132,14 +142,15 @@ and fails loudly if any phase fails:
      Laplacian of the same u (relative RMS within 50 eps, max|diff|
      printed), rank 0's all-to-alls and bytes of one Laplacian, one FFT
      solve and the counted window against pencil_bytes_model, K15
-     launched on every rank (by rank in the kernels line, under
-     dist_launches), iterations equal to one rank's, residuals within
+     launched on every rank, iterations equal to one rank's, residuals within
      1.01 rtol (-ksp_type fft: twice one rank's), warm walls beside one
      rank's. Phase 3 holds K15's Laplacian sweeps to their plain versions
      at the pencil block shapes (PENCIL_BLOCKS), bit for bit.
 
 The last two lines of standard output are a JSON object with one entry
-per kernel mode, then {"ok": true, "device": {...}}.
+per kernel mode (with its launches by rank in each case of paths (m) and
+(n) that launched it, under dist_launches), then {"ok": true, "device":
+{...}}.
 
     python3 chip_smoke.py
     python3 chip_smoke.py --dist-only   # device, build and phase 7 alone:
@@ -151,6 +162,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import io
+import itertools
 import json
 import math
 import os
@@ -1706,23 +1718,60 @@ def checkpoint_case(n, smi, every: int = 2) -> None:
 # ---------------------------------------------------------------------------
 
 # (label, process grid, cases); a case: the global size, dtype, rtol, extra
-# options, the iteration count it must take and the kernels every rank must
-# launch. The counts: 7 is the port's one-rank count at 512^3 (path (b),
-# and the parent's reference solve below); 6 the JAX package's on (3, 1, 1)
-# at 64^3 (tests/test_torch_dist_311.py runs it there) and on (2, 2, 2), the
-# same as its one-device count; 7 with the Jacobi smoother, the one-rank
-# count (tests/test_torch_dist_311.py holds the ranks to it).
+# options (after "-ksp_type cg -pc_type mg -ksp_rtol RTOL -ksp_max_it 50",
+# so a later -ksp_type wins), the iteration count it must take (None: the
+# one-rank count alone), the kernels every rank must launch, and its kind:
+# "solve" (PoissonSolver.solve), "refine" (solve_refined to RTOL: outer and
+# inner counts), "ckpt" (solve_checkpointed every CKPT_EVERY iterations,
+# then killed after chunk 0 and resumed, and over a b one ulp away on rank
+# 1) or "logview" (ksp.solve with -log_view). The counts: 7 is the port's
+# one-rank count at 512^3 (path (b), and the parent's reference solve
+# below); 6 the JAX package's on (3, 1, 1) at 64^3 (tests/test_torch_dist_311.py
+# runs it there) and on (2, 2, 2), the same as its one-device count; 7 with
+# the Jacobi smoother, the one-rank count (tests/test_torch_dist_311.py holds
+# the ranks to it).
 DIST_K = ["stencil7.apply", "stencil7.apply_dot", "cgupd", "stencil7.residual"]
+K11 = ["stencil7.apply", "stencil7.residual", "rbsor.general"]
+K11_BF16 = K11 + ["rbsor.general.bf16"]
+PIPECG = ["-ksp_type", "pipecg"]
+GMRES = ["-ksp_type", "gmres", "-gmres_restart", "30"]
+RICH = ["-ksp_type", "richardson"]
+GMRES_NONE = GMRES + ["-pc_type", "none", "-ksp_max_it", "100"]
+CKPT_EVERY = 2
 DIST_GROUPS = [
     ("(2,2,1) 512^3 f32, the default cycle (bf16 pre-smooth)", (2, 2, 1),
-     [(512, "float32", 1e-6, [], 7, DIST_K + ["rbsor.general", "rbsor.general.bf16"])]),
+     [(512, "float32", 1e-6, [], 7, DIST_K + ["rbsor.general", "rbsor.general.bf16"], "solve"),
+      # GMRES and PIPECG keep their pre-smooth in float32 (a linear M):
+      # no bf16 K11
+      (512, "float32", 1e-6, PIPECG, None, K11, "solve"),
+      (512, "float32", 1e-6, GMRES, None, K11, "solve"),
+      (512, "float32", 1e-6, RICH, None, K11_BF16, "solve"),
+      # float32 MG-CG corrections of a float64 iterate: K1 on both
+      (512, "float64", 1e-12, [], None, DIST_K + ["rbsor.general", "rbsor.general.bf16"],
+       "refine"),
+      (512, "float32", 1e-6, [], 7, DIST_K + ["rbsor.general", "rbsor.general.bf16"],
+       "logview"),
+      (256, "float32", 1e-6, [], None, DIST_K + ["rbsor.general"], "ckpt")]),
     ("(3,1,1) 64^3 f64, the reference's split", (3, 1, 1),
-     [(64, "float64", 1e-8, [], 6, DIST_K + ["rbsor.general"]),
+     [(64, "float64", 1e-8, [], 6, DIST_K + ["rbsor.general"], "solve"),
       (64, "float64", 1e-8, ["-mg_levels_pc_type", "jacobi"], 7,
-       DIST_K + ["stencil7.jacobi"])]),
+       DIST_K + ["stencil7.jacobi"], "solve"),
+      (64, "float64", 1e-8, PIPECG, None, K11, "solve"),
+      (64, "float64", 1e-8, GMRES, None, K11, "solve"),
+      # K2 in the Gram-Schmidt step (use_fused), its partial dot in the
+      # step's all-reduce
+      (64, "float64", 1e-5, GMRES_NONE, None, ["stencil7.apply", "stencil7.apply_dot"],
+       "solve")]),
     ("(2,2,2) 64^3 f64, 8 ranks", (2, 2, 2),
-     [(64, "float64", 1e-8, [], 6, DIST_K + ["rbsor.general"])]),
+     [(64, "float64", 1e-8, [], 6, DIST_K + ["rbsor.general"], "solve")]),
 ]
+# x against the one-rank x within 100 rtol, the rtol floored by kind:
+# solve_refined's two float64 iterates each sit within the refinement's
+# own error of the solution, cond(A) * 1e-12 at most, not within 1e-12 of
+# each other
+X_RTOL_FLOOR = {"refine": 1e-9}
+# path (m)'s launches by rank for the kernels line: "label case" -> {kernel: [rank 0, ...]}
+DIST_M: dict = {}
 # the local blocks of those cases, and the smallest distributed level's,
 # for the kernels of the path against their plain versions
 DIST_BLOCKS = [((256, 256, 512), 512, torch.float32), ((22, 64, 64), 64, torch.float64),
@@ -1839,26 +1888,74 @@ def check_pencil_blocks(stats: dict) -> None:
     torch.cuda.empty_cache()
 
 
-def _dist_reference(case, tmp: str, idx: int) -> dict:
-    """The one-rank solve of `case` on the card (the parent's): u, b = A u
-    (K1) and x saved for the ranks, its iterations and warm wall."""
-    n, dtype_name, rtol, extra, _, _ = case
-    dtype = getattr(torch, dtype_name)
-    argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
-            "-ksp_max_it", "50", *extra]
-    solver = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype, device=DEVICE)
-    u = np.random.default_rng(1).uniform(-1.0, 1.0, (n,) * 3)
-    u -= u.mean()
-    ut = torch.as_tensor(u, dtype=dtype, device=DEVICE)
-    b = solver.rhs_for(ut)
+def dist_argv(case) -> list:
+    n, dtype_name, rtol, extra, _, _, _ = case
+    return ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol), "-ksp_max_it", "50",
+            *extra]
+
+
+def dist_kind_run(kind, solver, b, rtol, path=None):
+    """One run of a path (m) case: (result, iterations) where the
+    iterations are the solve's count, [outer, inner] of solve_refined, or
+    the total of solve_checkpointed (checkpoints under `path`)."""
+    if kind == "refine":
+        res = solver.solve_refined(b, rtol=rtol)
+        return res, [res.outer_iterations, res.inner_iterations]
+    if kind == "ckpt":
+        res, total = solver.solve_checkpointed(b, path, rtol=rtol, every=CKPT_EVERY)
+        return res, total
     res = solver.solve(b)
-    files = {k: os.path.join(tmp, f"{k}{idx}.npy") for k in ("u", "b", "x")}
-    for k, t in (("u", ut), ("b", b), ("x", res.x)):
-        np.save(files[k], t.cpu().numpy())
-    wall = warm_ms({"one rank": lambda: solver.solve(b)})["one rank"]
-    out = {"its": int(res.iterations), "wall_ms": wall, "files": files,
-           "rel": solver.residual_norm(res.x, b)}
-    del solver, b, res, ut
+    return res, int(res.iterations)
+
+
+def log_view_table(A, b, argv, grid) -> tuple[list, object]:
+    """ksp.solve with -log_view: the table's lines this process printed
+    (every other line of the solve's output dropped) and the result."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = ksp.solve(A, b, Options(list(argv) + ["-log_view"]), grid=grid)
+    return [ln for ln in buf.getvalue().splitlines() if ln.startswith("log_view:")], res
+
+
+def log_view_events(lines) -> list:
+    """(event, count) of each row of a -log_view table ("other" has no
+    count)."""
+    return [(ln[12:22].strip(), ln[23:28].strip()) for ln in lines
+            if ln.startswith("log_view:   ")]
+
+
+def _dist_reference(case, tmp: str, idx: int, shared: dict) -> dict:
+    """The one-rank run of `case` on the card (the parent's): u, b = A u
+    (K1) and x saved for the ranks (u and b once a size and dtype), its
+    iterations and warm wall; for "logview" the one-rank table's events."""
+    n, dtype_name, rtol, extra, _, _, kind = case
+    dtype = getattr(torch, dtype_name)
+    solver = PoissonSolver((n,) * 3, options=Options(dist_argv(case)), dtype=dtype,
+                           device=DEVICE)
+    key = (n, dtype_name)
+    if key not in shared:
+        u = np.random.default_rng(1).uniform(-1.0, 1.0, (n,) * 3)
+        u -= u.mean()
+        ut = torch.as_tensor(u, dtype=dtype, device=DEVICE)
+        files = {k: os.path.join(tmp, f"{k}_{n}_{dtype_name}.npy") for k in ("u", "b")}
+        np.save(files["u"], ut.cpu().numpy())
+        np.save(files["b"], solver.rhs_for(ut).cpu().numpy())
+        shared[key] = files
+        del ut
+    files = dict(shared[key], x=os.path.join(tmp, f"x{idx}.npy"))
+    b = torch.as_tensor(np.load(files["b"]), device=DEVICE)
+    with tempfile.TemporaryDirectory(dir=tmp) as ck:
+        res, its = dist_kind_run(kind, solver, b, rtol, os.path.join(ck, "one"))
+        np.save(files["x"], res.x.cpu().numpy())
+        out = {"its": its, "files": files, "rel": solver.residual_norm(res.x, b)}
+        fresh = itertools.count()
+        out["wall_ms"] = warm_ms({"one rank": lambda: dist_kind_run(
+            kind, solver, b, rtol, os.path.join(ck, f"warm{next(fresh)}"))})["one rank"]
+    if kind == "logview":
+        lines, _ = log_view_table(solver.A, b, dist_argv(case), solver.grid)
+        out["events"] = log_view_events(lines)
+        out["lines"] = lines
+    del solver, b, res
     torch.cuda.empty_cache()
     return out
 
@@ -1867,7 +1964,8 @@ def dist_worker(spec_path: str, rank: int) -> int:
     """One rank of a distributed group (run by the parent as
     `chip_smoke.py --dist-worker SPEC RANK`): the group's cases through
     PoissonSolver(shard=pgrid), the counters reset before and read after
-    rhs_for, solve and residual_norm; rank 0 writes the results."""
+    rhs_for, the case's run (dist_kind_run; ksp.solve with -log_view) and
+    residual_norm; rank 0 writes the results."""
     import torch.distributed as dist
     from poissbox_tpu_torch import mesh
     from poissbox_tpu_torch.parallel import halo
@@ -1880,29 +1978,36 @@ def dist_worker(spec_path: str, rank: int) -> int:
                             backend=spec["backend"], device=DEVICE,
                             timeout=DIST_TIMEOUT)
     results = []
-    for case, ref in zip(spec["cases"], spec["refs"]):
-        n, dtype_name, rtol, extra, _, _ = case
+    for idx, (case, ref) in enumerate(zip(spec["cases"], spec["refs"])):
+        n, dtype_name, rtol, extra, _, _, kind = case
         dtype = getattr(torch, dtype_name)
-        argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
-                "-ksp_max_it", "50", *extra]
+        argv = dist_argv(case)
         solver = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype,
                                device=DEVICE, shard=pgrid)
         g, A = solver.grid, solver.A
         u = g.shard(np.load(ref["files"]["u"], mmap_mode="r"))
         b1 = g.shard(np.load(ref["files"]["b"], mmap_mode="r"))
         x1 = g.shard(np.load(ref["files"]["x"], mmap_mode="r"))
+        ck = os.path.join(spec["tmp"], f"ckpt{idx}_{spec['backend']}")
         dist.barrier()
         sc.reset_launches()
         halo.reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         b = solver.rhs_for(u)
-        res = solver.solve(b)
+        lines = []
+        if kind == "logview":
+            lines, res = log_view_table(A, b, argv, g)
+            its = int(res.iterations)
+        else:
+            res, its = dist_kind_run(kind, solver, b, rtol, os.path.join(ck, "full"))
         rel = solver.residual_norm(res.x, b)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t0) * 1e3
         counts = dict(sc.LAUNCHES)
         hcounts = dict(halo.COUNTS)
+        by_rank = [None] * g.mesh.size
+        dist.all_gather_object(by_rank, {k: v for k, v in counts.items() if v})
         keys = sorted(k for k in counts)
         vec = torch.tensor([counts[k] for k in keys], dtype=torch.float64,
                            device=g.device)
@@ -1918,26 +2023,32 @@ def dist_worker(spec_path: str, rank: int) -> int:
         ex = res.x.double() - u.double()
         sq = A.allreduce(torch.stack([torch.sum(dx * dx), torch.sum(x1.double() ** 2),
                                       torch.sum(ex * ex), torch.sum(u.double() ** 2)]))
+        printed = [None] * g.mesh.size
+        dist.all_gather_object(printed, len(lines))
+        extra_out = checkpoint_checks(solver, b, ck, res, its, halo) if kind == "ckpt" else {}
         # the bytes of one matvec (K2) and of one V-cycle, alone
         halo.reset_counts()
         A.apply_dot(b)
         mv_bytes = halo.COUNTS["bytes"]
         halo.reset_counts()
-        solver._solver.M(b)
+        if solver._solver.M is not None and kind == "solve":
+            solver._solver.M(b)
         v_bytes = halo.COUNTS["bytes"]
         walls = []
-        # three warm solves over NCCL; one where the ranks share a card
-        for _ in range(3 if halo.transport(b) == "nccl" else 1):
+        # three warm runs over NCCL; one where the ranks share a card
+        for rep in range(3 if halo.transport(b) == "nccl" else 1):
             dist.barrier()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            solver.solve(b)
+            dist_kind_run("solve" if kind == "logview" else kind, solver, b, rtol,
+                          os.path.join(ck, f"warm{rep}"))
             torch.cuda.synchronize()
             walls.append(halo.allreduce_max(torch.tensor(
                 [(time.perf_counter() - t0) * 1e3], dtype=torch.float64,
                 device=g.device), g.mesh))
         results.append({
-            "its": int(res.iterations), "rel": rel, "reason": int(res.reason),
+            # solve_refined has no reason: its residual check stands for it
+            "its": its, "rel": rel, "reason": 1 if kind == "refine" else int(res.reason),
             "shape": list(res.x.shape), "finite": bool(torch.isfinite(res.x).all()),
             "dofs": g.dof_counts(), "local_shape": list(g.local_shape),
             "backend": dist.get_backend(), "route": halo.transport(b),
@@ -1947,12 +2058,14 @@ def dist_worker(spec_path: str, rank: int) -> int:
             "launches_rank0": {k: v for k, v in counts.items() if v},
             "launches_sum": {k: int(v) for k, v in zip(keys, csum.tolist()) if v},
             "launches_min": {k: int(v) for k, v in zip(keys, cmin.tolist())},
+            "launches_by_rank": by_rank,
             "halo_rank0": hcounts,
             "halo_sum": {k: int(v) for k, v in zip(sorted(hcounts), hsum.tolist())},
             "mv_bytes": mv_bytes, "v_bytes": v_bytes,
+            "lines": lines, "printed_by_rank": printed,
             "first_ms": first_ms,
             "warm_ms": statistics.median(float(w) for w in walls),
-            "warm_reps": len(walls)})
+            "warm_reps": len(walls), **extra_out})
         del solver, u, b1, x1, b, res
         torch.cuda.empty_cache()
     results_n = [pencil_worker_case(case, halo, dist) for case in spec["cases_n"]]
@@ -1962,6 +2075,48 @@ def dist_worker(spec_path: str, rank: int) -> int:
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def checkpoint_checks(solver, b, ck, full, total, halo) -> dict:
+    """After the counted solve_checkpointed of a "ckpt" case: a run killed
+    after chunk 0 and resumed (the saved count on every rank, the resumed
+    total and x against the uninterrupted run's, bit for bit), then the
+    killed checkpoint over a b one ulp away on rank 1 alone (every rank
+    must start fresh: its first monitored norm is ||b||)."""
+    g, A = solver.grid, solver.A
+    M = mg.make_mg_preconditioner(g.n, g.deltas, mg.MGConfig(), dtype=b.dtype,
+                                  device=g.device, grid=g)
+    kw = dict(M=M, rtol=1e-6, max_it=500, every=CKPT_EVERY, grid=g)
+    killed = os.path.join(ck, "killed")
+
+    def kill(chunk, result):
+        raise Killed
+
+    try:
+        checkpoint.solve_with_checkpoints(A, b, killed, on_chunk=kill, **kw)
+        raise AssertionError("the chunk hook did not stop the run")
+    except Killed:
+        pass
+    saved = checkpoint.load(checkpoint.checkpoint_path(killed, g), device="cpu")
+    saved_its = halo.allreduce_max(torch.tensor(
+        [int(saved["iterations"]), -int(saved["iterations"])], dtype=torch.float64,
+        device=g.device), g.mesh).tolist()
+    resumed, total_r = solver.solve_checkpointed(b, killed, rtol=1e-6, every=CKPT_EVERY)
+    diff = float(halo.allreduce_max((resumed.x - full.x).abs().max().double().reshape(1),
+                                    g.mesh))
+    norm = lambda v: math.sqrt(float(A.allreduce(torch.sum(v.double() ** 2).reshape(1))))
+    first = []
+    on = lambda c, r: first.append(float(r.history[0])) if c == 0 else None
+    b2 = b.clone()
+    if g.mesh.rank == 1:
+        flat = b2.view(-1)
+        flat[0] = torch.nextafter(flat[0], torch.tensor(math.inf, dtype=b.dtype,
+                                                        device=b.device))
+    _, total_f = checkpoint.solve_with_checkpoints(A, b2, killed, on_chunk=on, **kw)
+    _, total_0 = checkpoint.solve_with_checkpoints(A, b2, os.path.join(ck, "fresh"), **kw)
+    return {"saved_its": [saved_its[0], -saved_its[1]], "resumed_total": total_r,
+            "resumed_diff": diff, "foreign_r0": first[0] / norm(b2),
+            "foreign_total": total_f, "fresh_total": total_0}
 
 
 def pencil_u(case, grid, solver):
@@ -2164,6 +2319,13 @@ def _check_pencil_case(case, ref, r, backend, smi, totals) -> None:
             totals[k] = totals.get(k, 0) + v
 
 
+def dist_launches(key: str) -> dict:
+    """The launches of kernel `key` by rank in each case of paths (m) and
+    (n) that launched it: case -> [rank 0, rank 1, ...]."""
+    return {label: by[key] for label, by in {**DIST_M, **DIST_K15}.items()
+            if any(by.get(key, []))}
+
+
 def _free_port() -> int:
     import socket
     with socket.socket() as s:
@@ -2181,7 +2343,7 @@ def _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp) -> dict:
     with open(spec, "w") as fh:
         json.dump({"world": world, "pgrid": list(pgrid), "port": _free_port(),
                    "backend": backend, "cases": cases, "refs": refs,
-                   "cases_n": cases_n, "out": out}, fh)
+                   "cases_n": cases_n, "out": out, "tmp": tmp}, fh)
     here = os.path.dirname(os.path.abspath(__file__))
     logs = [open(os.path.join(tmp, f"rank{r}_{world}_{backend}.log"), "w+")
             for r in range(world)]
@@ -2229,10 +2391,11 @@ def dist_phase(smi: str, totals: dict, backends) -> None:
                           f"ranks and {torch.cuda.device_count()} cards", flush=True)
                     continue
                 if refs is None:
-                    refs = [_dist_reference(c, tmp, i) for i, c in enumerate(cases)]
+                    shared = {}
+                    refs = [_dist_reference(c, tmp, i, shared) for i, c in enumerate(cases)]
                 cases_n = PENCIL_CASES.get((pgrid, backend), [])
                 refs_n = [_pencil_reference(c) for c in cases_n]
-                print(f"-- path (m) distributed MG-CG {label}, {world} ranks over "
+                print(f"-- path (m) distributed Krylov solves {label}, {world} ranks over "
                       f"{backend}" + (f"; then path (n), {len(cases_n)} cases of order 6 "
                                       "and the FFT" if cases_n else ""), flush=True)
                 t0 = time.perf_counter()
@@ -2249,59 +2412,146 @@ def dist_phase(smi: str, totals: dict, backends) -> None:
                     _check_pencil_case(case, ref, r, backend, cards, totals)
 
 
+def krylov_work(argv, its: int, restart: int = 30) -> tuple[int, int]:
+    """(matvecs, V-cycles) of rhs_for + solve + residual_norm for the
+    method `argv` names, from its recurrence (x0 = 0): CG one matvec and
+    one V-cycle an iteration and a V-cycle first; PIPECG a V-cycle and a
+    matvec first; Richardson a matvec first, one of each an iteration;
+    GMRES a matvec and two V-cycles first (r0 and M b), one of each a step
+    and a restart (no V-cycle without a preconditioner)."""
+    opts = SolverOptions.from_options(Options(list(argv)))
+    if opts.ksp_type == "cg":
+        return its + 2, its + 1
+    if opts.ksp_type == "pipecg":
+        return its + 3, its + 1
+    if opts.ksp_type == "richardson":
+        return its + 3, its
+    cycles = max(1, -(-its // restart))
+    return its + cycles + 2, (0 if opts.pc_type == "none" else its + cycles + 1)
+
+
 def _check_dist_case(label, pgrid, case, ref, r, backend, smi, totals) -> None:
-    n, dtype_name, rtol, extra, expect_its, required = case
-    # the face bytes the shapes give (V(1,1) at 512^3 with its bf16
-    # pre-smooth, V(3,3) at 64^3), against the counters
-    sweeps = 1 if n >= 512 else (2 if n >= 256 else 3)
-    esize = 4 if dtype_name == "float32" else 8
-    mv, v = exchange_bytes_model(n, pgrid, esize, 2 if n >= 512 and esize == 4 else esize,
-                                 sweeps, sweeps, "jacobi" if "jacobi" in extra else "sor")
-    window = (r["its"] + 2) * mv + (r["its"] + 1) * v
+    n, dtype_name, rtol, extra, expect_its, required, kind = case
+    argv = dist_argv(case)
+    method = SolverOptions.from_options(Options(argv)).ksp_type if kind == "solve" else kind
     idle = [k for k in required if r["launches_min"].get(k, 0) == 0]
     problems = []
     if idle:
         problems.append(f"kernels not launched on every rank: {idle}")
-    if r["its"] != expect_its or r["its"] != ref["its"]:
+    if r["its"] != ref["its"] or (expect_its is not None and r["its"] != expect_its):
         problems.append(f"{r['its']} iterations, expected {expect_its} "
                         f"(one rank: {ref['its']})")
-    if not r["rel"] <= 1.01 * rtol or r["reason"] <= 0:
-        problems.append(f"relative residual {r['rel']:.3e}, reason {r['reason']}")
+    # the true residual's limit (PERF.md section 2): GMRES monitors ||M r||
+    limit = {"gmres": 10 * rtol, "refine": rtol}.get(method, 1.01 * rtol)
+    if not r["rel"] <= limit or r["reason"] <= 0:
+        problems.append(f"relative residual {r['rel']:.3e} (limit {limit:.3e}), "
+                        f"reason {r['reason']}")
     if r["shape"] != r["local_shape"] or not r["finite"]:
         problems.append(f"bad solution block {r['shape']} (finite {r['finite']})")
-    if not r["x_rel_diff"] <= 100 * rtol:
+    if not r["x_rel_diff"] <= 100 * max(rtol, X_RTOL_FLOOR.get(kind, 0.0)):
         problems.append(f"x differs from the one-rank x by {r['x_rel_diff']:.3e}")
     if dtype_name == "float64" and not r["matvec_rel"] <= 1e-13:
         problems.append(f"matvec {r['matvec_rel']:.3e} from the one-rank K1")
     if r["dofs"] != dof_distribution((n,) * 3, pgrid):
         problems.append(f"dof counts {r['dofs']}")
-    if (r["mv_bytes"], r["v_bytes"], r["halo_rank0"]["bytes"]) != (mv, v, window):
-        problems.append(f"face bytes: matvec {r['mv_bytes']}, V-cycle {r['v_bytes']}, "
-                        f"window {r['halo_rank0']['bytes']}; the shapes give {mv}, {v}, "
-                        f"{window}")
+    model = None
+    if kind == "solve":
+        # the face bytes the shapes give (V(1,1) at 512^3 with its bf16
+        # pre-smooth, float32 under GMRES and PIPECG; V(3,3) at 64^3),
+        # against the counters
+        sweeps = 1 if n >= 512 else (2 if n >= 256 else 3)
+        esize = 4 if dtype_name == "float32" else 8
+        pre = (2 if n >= 512 and esize == 4 and method not in ("gmres", "pipecg")
+               else esize)
+        mv, v = exchange_bytes_model(n, pgrid, esize, pre, sweeps, sweeps,
+                                     "jacobi" if "jacobi" in extra else "sor")
+        nmv, nv = krylov_work(argv, r["its"])
+        model = (mv, v if nv else 0, nmv * mv + nv * v)
+        if (r["mv_bytes"], r["v_bytes"], r["halo_rank0"]["bytes"]) != model:
+            problems.append(f"face bytes: matvec {r['mv_bytes']}, V-cycle {r['v_bytes']}, "
+                            f"window {r['halo_rank0']['bytes']}; the shapes give {model}")
+    if kind == "logview":
+        events = log_view_events(r["lines"])
+        if events != [tuple(e) for e in ref["events"]]:
+            problems.append(f"-log_view events {events}, one rank's {ref['events']}")
+        if r["printed_by_rank"] != [len(r["lines"])] + [0] * (len(r["printed_by_rank"]) - 1):
+            problems.append(f"-log_view lines printed by rank: {r['printed_by_rank']}")
+        gdofs = gdofs_check(r["lines"], n)
+        if gdofs is not None:
+            problems.append(gdofs)
+    if kind == "ckpt":
+        if not (r["saved_its"] == [CKPT_EVERY, CKPT_EVERY] and r["resumed_diff"] == 0.0
+                and r["resumed_total"] == r["its"]):
+            problems.append(f"killed and resumed: saved {r['saved_its']} (max, min over "
+                            f"ranks), total {r['resumed_total']} against {r['its']}, "
+                            f"max|dx| {r['resumed_diff']:.3e}")
+        if not (abs(r["foreign_r0"] - 1.0) <= 1e-5
+                and r["foreign_total"] == r["fresh_total"]):
+            problems.append(f"a b one ulp away on rank 1 resumed: first norm "
+                            f"{r['foreign_r0']:.6e} of ||b||, total {r['foreign_total']} "
+                            f"(fresh {r['fresh_total']})")
     if problems:
-        raise AssertionError(f"distributed {label} {extra} over {backend}: "
+        raise AssertionError(f"distributed {label} {kind} {' '.join(extra)} over {backend}: "
                              + "; ".join(problems))
-    print(f"  {n}^3 {dtype_name} {' '.join(extra)} over {r['backend']} ({r['route']}): "
+    what = {"solve": f"{method} {' '.join(extra)}", "refine": "solve_refined",
+            "ckpt": f"solve_checkpointed every {CKPT_EVERY}",
+            "logview": "CG + MG with -log_view"}[kind]
+    print(f"  {n}^3 {dtype_name} {what} over {r['backend']} ({r['route']}): "
           f"{r['its']} iterations (one rank {ref['its']}), relative residual "
-          f"{r['rel']:.3e}; DoF {r['dofs']}; matvec vs one-rank K1 {r['matvec_rel']:.3e}; "
-          f"x vs one-rank x {r['x_rel_diff']:.3e} (errors vs u: {r['x_err_exact']:.3e})",
-          flush=True)
+          f"{r['rel']:.3e} (one rank {ref['rel']:.3e}); DoF {r['dofs']}; matvec vs one-rank "
+          f"K1 {r['matvec_rel']:.3e}; x vs one-rank x {r['x_rel_diff']:.3e} (errors vs u: "
+          f"{r['x_err_exact']:.3e})", flush=True)
     print(f"  launches, rank 0: {r['launches_rank0']}", flush=True)
     print(f"  launches, sum over ranks: {r['launches_sum']}", flush=True)
-    print(f"  exchanges, rank 0: {r['halo_rank0']}; sum over ranks: {r['halo_sum']}",
-          flush=True)
-    print(f"  face bytes, rank 0: a matvec {mv}, a V-cycle {v}, a CG iteration {mv + v} "
-          f"(as the shapes give them); rhs_for + solve + residual_norm {window}",
-          flush=True)
-    print(f"  walls: rhs_for + first solve + residual_norm {r['first_ms']:.1f} ms, warm "
-          f"solve {r['warm_ms']:.2f} ms (the slowest rank, median of {r['warm_reps']}); "
-          f"one-rank warm "
-          f"solve {ref['wall_ms']:.2f} ms ({smi})"
+    print(f"  exchanges and all-reduces, rank 0: {r['halo_rank0']}; sum over ranks: "
+          f"{r['halo_sum']}", flush=True)
+    if model is not None:
+        nmv, nv = krylov_work(argv, r["its"])
+        print(f"  face bytes, rank 0: a matvec {model[0]}, a V-cycle {model[1]} (as the "
+              f"shapes give them); rhs_for + solve + residual_norm {model[2]} = {nmv} "
+              f"matvecs + {nv} V-cycles", flush=True)
+    if kind == "logview":
+        for ln in r["lines"]:
+            print(f"  rank 0 | {ln}", flush=True)
+        print(f"  -log_view lines printed by rank: {r['printed_by_rank']}; the one-rank "
+              f"table's events {ref['events']}", flush=True)
+        for ln in ref["lines"]:
+            print(f"  one rank | {ln}", flush=True)
+    if kind == "ckpt":
+        print(f"  killed after chunk 0 (saved {r['saved_its'][0]} iterations on every rank) "
+              f"and resumed: total {r['resumed_total']}, max|dx| {r['resumed_diff']:.1f} "
+              f"against the uninterrupted run; a b one ulp away on rank 1: every rank "
+              f"fresh (first norm {r['foreign_r0']:.9f} of ||b||, {r['foreign_total']} "
+              f"iterations, a fresh run {r['fresh_total']})", flush=True)
+    run = {"solve": "solve", "refine": "solve_refined", "ckpt": "solve_checkpointed",
+           "logview": "solve"}[kind]
+    print(f"  walls: rhs_for + first {run} + residual_norm {r['first_ms']:.1f} ms, warm "
+          f"{run} {r['warm_ms']:.2f} ms (the slowest rank, median of {r['warm_reps']}); "
+          f"one-rank warm {run} {ref['wall_ms']:.2f} ms ({smi})"
           + ("; ranks share one card and stage every face through the host: no "
              "speed figure" if r["route"] == "gloo-staged" else ""), flush=True)
+    DIST_M[f"{pgrid} {n}^3 {dtype_name} {what} over {backend}"] = {
+        k: [lc.get(k, 0) for lc in r["launches_by_rank"]] for k in r["launches_sum"]}
     for k, v in r["launches_sum"].items():
         totals[k] = totals.get(k, 0) + v
+
+
+def gdofs_check(lines, n: int):
+    """None when the table's GDoF/s is the global DoF count's (n^3 times
+    the iterations over the solve's seconds, to the printed digits), else
+    what is wrong."""
+    row = next((ln for ln in lines if ln.startswith("log_view:   solve")), None)
+    if row is None:
+        return "no solve row in the -log_view table"
+    secs = float(row.split()[3])
+    its = int(row.split("(")[1].split()[0])
+    got = float(row.split("ms/it, ")[1].split()[0])
+    ndof = int(row.split(" of ")[1].split()[0])
+    want = n ** 3 * max(its, 1) / secs / 1e9
+    if ndof != n ** 3 or abs(got - want) > 0.006 + 0.01 * want:
+        return (f"-log_view GDoF/s {got} of {ndof} DoF; the global DoF count "
+                f"{n ** 3} gives {want:.2f}")
+    return None
 
 
 def exchange_bytes_model(n: int, pgrid, esize: int, pre_esize: int, pre: int,
@@ -2603,8 +2853,7 @@ def main() -> int:
         {"name": key, "route": "cuda",
          "source": f"poissbox_tpu_torch/csrc/{src}", "replaces": replaces,
          "launches": totals[key], **{k: stats[key][k] for k in keys},
-         **({"dist_launches": {label: k15[key] for label, k15 in DIST_K15.items()}}
-            if key in LAPL_KEYS else {})}
+         **({"dist_launches": dist_launches(key)} if dist_launches(key) else {})}
         for key, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

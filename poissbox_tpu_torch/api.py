@@ -12,15 +12,16 @@ preconditioner + options bound once, then solves.
 Across ranks (``torchrun --nproc-per-node N``, after
 ``mesh.init_process_group()``), ``PoissonSolver(n, shard=True)``
 decomposes the grid over the world group and every field is this rank's
-owned box: ``random_solution``, ``rhs_for``, ``solve`` and
-``residual_norm`` take and return blocks (``solver.grid.unshard`` gathers
-one). Both orders run there: CG/FCG with the V-cycle, `-ksp_type fft`
-and `-pc_type fft` (the pencil FFT), order 6 on K15's pencil sweeps. What
-is left for the next multi-process slice raises NotImplementedError:
-PIPECG, GMRES, Richardson, ``solve_refined``, ``solve_checkpointed`` and
-`-log_view`. Owned boxes need no padding, so the JAX package's ``_prep``
-(which scatters a logical field into its padded uneven layout) has no
-counterpart.
+owned box: ``random_solution``, ``rhs_for``, ``solve``,
+``solve_refined``, ``solve_checkpointed`` and ``residual_norm`` take and
+return blocks (``solver.grid.unshard`` gathers one). Everything runs
+there that runs on one device: both orders, every `-ksp_type` (CG/FCG,
+PIPECG, GMRES, Richardson, `fft`) and `-pc_type` (the V-cycle's fine
+levels distributed, `fft` the pencil FFT), `-log_view`, refinement over
+the distributed float32 MG-CG, and checkpoints of one file a rank. Each
+call is a collective: call it on every rank. Owned boxes need no padding,
+so the JAX package's ``_prep`` (which scatters a logical field into its
+padded uneven layout) has no counterpart.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import torch
 
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.constants import default_real
-from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
+from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.mesh import Grid3D, make_process_grid
 from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
@@ -123,10 +124,11 @@ class PoissonSolver:
                       max_outer: int = 4) -> RefineResult:
         """float64-accurate solve by mixed-precision iterative refinement:
         float32 MG-CG corrections (rtol 1e-6, at most 50 iterations each;
-        the MG is built at each call), float64 true residuals."""
-        require_one_rank(self.A, "solve_refined")
+        the MG is built at each call, over the grid's process grid),
+        float64 true residuals."""
         M = make_mg_preconditioner(self.grid.n, self.grid.deltas, MGConfig(),
-                                   dtype=torch.float32, device=self.grid.device)
+                                   dtype=torch.float32, device=self.grid.device,
+                                   grid=self.grid)
         inner = lambda r: cg(self.A, r, M=M, rtol=1e-6, max_it=50)
         return refine(self.A, inner, b, rtol=rtol, max_outer=max_outer)
 
@@ -135,14 +137,15 @@ class PoissonSolver:
                            every: int = 25):
         """Preemption-tolerant MG-CG solve: a snapshot every `every`
         iterations; a killed run resumes from `path` with at most `every`
-        iterations lost (checkpoint.solve_with_checkpoints). Returns
-        (SolveResult, total_iterations)."""
-        require_one_rank(self.A, "solve_checkpointed")
+        iterations lost (checkpoint.solve_with_checkpoints; across ranks
+        one file a rank under `path`). Returns (SolveResult,
+        total_iterations)."""
         from poissbox_tpu_torch.checkpoint import solve_with_checkpoints
         M = make_mg_preconditioner(self.grid.n, self.grid.deltas, MGConfig(),
-                                   dtype=self.dtype, device=self.grid.device)
+                                   dtype=self.dtype, device=self.grid.device,
+                                   grid=self.grid)
         return solve_with_checkpoints(self.A, b, path, M=M, rtol=rtol,
-                                      max_it=max_it, every=every)
+                                      max_it=max_it, every=every, grid=self.grid)
 
     def residual_norm(self, x: Tensor, b: Tensor) -> float:
         """True relative residual ||A x - b|| / ||b|| (over every rank's

@@ -13,6 +13,13 @@ residual target stays relative to ||b||.
     ...
     st = load(path, device="cuda")
     res = cg(A, st["b"], x0=st["x"], ...)
+
+Across ranks each rank saves its owned box and nothing is gathered (the
+JAX package refuses its gathering fallback on several hosts for the same
+reason): one file a rank under `path` (:func:`checkpoint_path`), each
+with the box's offset and shape beside the state. Every file is written
+under a temporary name and renamed into place, so a kill leaves the last
+complete file.
 """
 
 from __future__ import annotations
@@ -30,12 +37,41 @@ def _numpy(v) -> np.ndarray:
 
 
 def save(path: str, state: Mapping[str, Any]) -> str:
-    """Save a dict of tensors (or numbers) to `path`.npz; returns the file
-    name."""
+    """Save a dict of tensors (or numbers) to `path`.npz, written under a
+    temporary name and renamed into place; returns the file name."""
     path = os.path.abspath(path)
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    np.savez(path + ".npz", **{k: _numpy(v) for k, v in state.items()})
+    tmp = f"{path}.npz.{os.getpid()}.tmp"
+    with open(tmp, "wb") as fh:
+        np.savez(fh, **{k: _numpy(v) for k, v in state.items()})
+    os.replace(tmp, path + ".npz")
     return path + ".npz"
+
+
+def checkpoint_path(path: str, grid=None) -> str:
+    """Where this rank's checkpoint of `path` lives (without ".npz"):
+    `path` itself on one rank; over a process grid of more than one rank
+    one file a rank under the directory `path`, named by rank and world
+    size (``rank1of4``)."""
+    if grid is None or not grid.distributed:
+        return path
+    return os.path.join(path, f"rank{grid.mesh.rank}of{grid.mesh.size}")
+
+
+def resume_verdict(ok: bool, iterations: int, allreduce_max=None,
+                   device="cpu") -> bool:
+    """Whether to resume, the same on every rank: this rank's own verdict
+    (`ok`: its file exists, holds its box and this b exactly) and its
+    saved iteration count, reduced by `allreduce_max` (the maximum of a
+    1-D tensor over every rank; None on one rank). All ranks resume only
+    if every one may and all saved the same count (a kill between two
+    ranks' writes leaves files of different chunks); else all start
+    fresh."""
+    if allreduce_max is None:
+        return ok
+    v = allreduce_max(torch.tensor([0.0 if ok else 1.0, iterations, -iterations],
+                                   dtype=torch.float64, device=device)).tolist()
+    return v[0] == 0.0 and v[1] == -v[2]
 
 
 def load(path: str, device="cuda") -> dict:
@@ -84,6 +120,7 @@ def solve_with_checkpoints(
     every: int = 25,
     solver=None,
     on_chunk=None,
+    grid=None,
 ):
     """Krylov solve in chunks of `every` iterations, with (x, b,
     iterations, residual_norm) saved to `path` after each chunk; a killed
@@ -95,21 +132,42 @@ def solve_with_checkpoints(
     chunk_index, result)` is called after each save (tests inject a kill
     there). Returns (SolveResult, total_iterations), the total counting the
     resumed run's saved iterations.
+
+    Over a process grid (`A` on rank blocks) pass the `grid`: each rank
+    saves its box to its own file (:func:`checkpoint_path`) and checks on
+    load that the file holds this box and this b; the verdict is
+    all-reduced (:func:`resume_verdict`), so every rank resumes or every
+    rank starts fresh.
     """
     from poissbox_tpu_torch.solvers.cg import cg
     from poissbox_tpu_torch.solvers.result import ConvergedReason
 
+    distributed = grid is not None and grid.distributed
+    if getattr(A, "allreduce", None) is not None and not distributed:
+        raise ValueError("a solve on rank blocks saves each rank's box: pass "
+                         "the grid over its process grid")
+    file = checkpoint_path(path, grid)
+    box = {}
+    if distributed:
+        box = {"offset": torch.tensor(grid.offset), "shape": torch.tensor(grid.local_shape)}
     solver = solver or cg
     done_before = 0
     x0 = None
+    ok, saved, st = False, -1, None
     try:
-        st = SolveCheckpoint.from_dict(load(path, device=b.device))
-        if (st.b.shape == b.shape and st.b.dtype == b.dtype
-                and torch.equal(st.b, b)):
-            x0 = st.x
-            done_before = st.iterations
+        data = load(file, device=b.device)
+        st = SolveCheckpoint.from_dict(data)
+        saved = st.iterations
+        ok = (st.b.shape == b.shape and st.b.dtype == b.dtype
+              and torch.equal(st.b, b)
+              and all(torch.equal(data[k].cpu(), v) for k, v in box.items()))
     except (FileNotFoundError, KeyError, OSError):
         pass
+    if distributed:
+        ok = resume_verdict(ok, saved, A.allreduce_max, device=b.device)
+    if ok:
+        x0 = st.x
+        done_before = st.iterations
 
     total = done_before
     result = None
@@ -118,9 +176,9 @@ def solve_with_checkpoints(
         it = min(every, max_it - total)
         result = solver(A, b, x0, M=M, rtol=rtol, atol=atol, max_it=it)
         total += int(result.iterations)
-        save(path, SolveCheckpoint(
+        save(file, {**SolveCheckpoint(
             x=result.x, b=b, iterations=total,
-            residual_norm=float(result.residual_norm)).as_dict())
+            residual_norm=float(result.residual_norm)).as_dict(), **box})
         if on_chunk is not None:
             on_chunk(chunk, result)
         chunk += 1

@@ -23,7 +23,11 @@ on cuda each rank takes card local_rank % device_count, over NCCL when
 every rank has a card of its own and over gloo, staged through pinned host
 buffers, when ranks share one. Process 0 prints; the self-checks compare
 the distributed operator with the single-device views on the gathered
-field.
+field. Every `-ksp_type` and `-pc_type` runs across ranks, and so does
+`-log_view` (the slowest rank's times, the global DoF count):
+
+    torchrun --nproc-per-node 3 -m poissbox_tpu_torch.demo -n 24 -device cpu \
+        -ksp_type pipecg -log_view
 """
 
 from __future__ import annotations

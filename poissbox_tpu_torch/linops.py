@@ -36,19 +36,6 @@ def make_nullspace_projector(mesh=None, ndof: Optional[int] = None
     return project
 
 
-# what a process grid of more than one rank does not run yet
-NEXT_SLICE = ("comes with the port's next multi-process slice (PIPECG, "
-              "GMRES, Richardson, solve_refined, solve_checkpointed and "
-              "-log_view across ranks; ROADMAP.md queue 1)")
-
-
-def require_one_rank(A, what: str) -> None:
-    """Raise NotImplementedError when `A` works on rank blocks (carries an
-    `allreduce`): `what` does not run across ranks yet."""
-    if getattr(A, "allreduce", None) is not None:
-        raise NotImplementedError(f"{what} across ranks {NEXT_SLICE}")
-
-
 @dataclasses.dataclass(frozen=True)
 class LinearOperator:
     """A matrix-free linear operator A: field -> field.
@@ -77,6 +64,9 @@ class LinearOperator:
         every rank. Its fused hooks (`apply_dot`, `fused_update`) then
         return THIS rank's partial sums, and the solver reduces them,
         stacked, once per reduction point.
+      allreduce_max: set with `allreduce`: the elementwise maximum of a
+        1-D tensor over every rank (the decisions every rank must take
+        alike: GMRES's restart length, `-log_view`'s slowest rank).
       ndof: the global DoF count where fields are rank blocks (None: the
         field's own size).
     """
@@ -90,6 +80,7 @@ class LinearOperator:
     direct_solve: Optional[Callable[[Tensor], Tensor]] = None
     pupdate_apply_dot: Optional[Callable[..., tuple]] = None
     allreduce: Optional[Callable[[Tensor], Tensor]] = None
+    allreduce_max: Optional[Callable[[Tensor], Tensor]] = None
     ndof: Optional[int] = None
 
     def __call__(self, x: Tensor) -> Tensor:

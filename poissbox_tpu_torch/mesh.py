@@ -64,6 +64,19 @@ def rank_device(device="cuda") -> torch.device:
     return torch.device("cuda", local_rank() % torch.cuda.device_count())
 
 
+def ranks_on_device(device) -> int:
+    """How many ranks of this host share `device`: the local ranks that
+    :func:`rank_device` puts on that card (1 for any other device, and
+    without a process group)."""
+    device = torch.device(device)
+    if device.type != "cuda" or not (dist.is_available() and dist.is_initialized()):
+        return 1
+    local_world = _env_int("LOCAL_WORLD_SIZE") or dist.get_world_size()
+    cards = torch.cuda.device_count()
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return max(1, sum(1 for lr in range(local_world) if lr % cards == index))
+
+
 def default_backend(device, world_size: int) -> str:
     """NCCL when every rank of this host has a card of its own (NCCL refuses
     two ranks on one device), gloo otherwise and on the CPU."""

@@ -345,7 +345,7 @@ def make_compact_laplacian_operator(grid, method: str = "auto") -> LinearOperato
                 "operators run K15's sweeps only (auto|pcr|cuda), as the JAX "
                 "package's compact_dist has no method")
         from poissbox_tpu_torch.ops import compact_dist
-        from poissbox_tpu_torch.parallel.halo import allreduce_sum
+        from poissbox_tpu_torch.parallel.halo import allreduce_max, allreduce_sum
         from poissbox_tpu_torch.solvers.fft import compact_poisson_solve_fft_dist
         mesh = grid.mesh
         return LinearOperator(
@@ -354,6 +354,7 @@ def make_compact_laplacian_operator(grid, method: str = "auto") -> LinearOperato
             symmetric=True,
             direct_solve=lambda b: compact_poisson_solve_fft_dist(b, grid),
             allreduce=lambda t: allreduce_sum(t, mesh),
+            allreduce_max=lambda t: allreduce_max(t, mesh),
             ndof=grid.ndof,
         )
 

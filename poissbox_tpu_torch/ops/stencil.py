@@ -85,8 +85,8 @@ def make_laplacian_operator(grid, impl: str = "auto"):
     process grid does not divide; 'dist' becomes 'uneven' there). 'auto'
     follows the grid (:func:`default_impl`). Over several ranks
     `direct_solve` is the pencil FFT (``fft.poisson_solve_fft_dist``), the
-    operator carries `allreduce` and `ndof`, and its fused hooks return
-    this rank's partial sums.
+    operator carries `allreduce`, `allreduce_max` and `ndof`, and its fused
+    hooks return this rank's partial sums.
     """
     deltas = grid.deltas
     mesh = grid.mesh if grid.distributed else None
@@ -94,20 +94,21 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         impl = default_impl(grid.device, mesh)
     if impl == "dist" and grid.uneven:
         impl = "uneven"
-    apply_dot = fused_update = allreduce = None
+    apply_dot = fused_update = allreduce = allreduce_max = None
     nullspace = make_nullspace_projector()
     if impl in ("dist", "uneven"):
         if mesh is None:
             raise ValueError(f"impl={impl!r} needs a grid over a process grid "
                              "of more than one rank")
         from poissbox_tpu_torch.parallel import dist_stencil as ds
-        from poissbox_tpu_torch.parallel.halo import allreduce_sum
+        from poissbox_tpu_torch.parallel import halo
         from poissbox_tpu_torch.parallel.uneven import make_masked_projector
         apply = lambda u: ds.apply_laplacian_sharded(u, grid)
         apply_dot = lambda u: ds.apply_laplacian_dot_sharded(u, grid, reduce=False)
         fused_update = lambda a, x, p, r, ap: ds.cg_fused_update_sharded(
             a, x, p, r, ap, grid, reduce=False)
-        allreduce = lambda t: allreduce_sum(t, mesh)
+        allreduce = lambda t: halo.allreduce_sum(t, mesh)
+        allreduce_max = lambda t: halo.allreduce_max(t, mesh)
         nullspace = (make_masked_projector(grid) if impl == "uneven"
                      else make_nullspace_projector(mesh, grid.ndof))
     elif impl == "roll":
@@ -139,6 +140,7 @@ def make_laplacian_operator(grid, impl: str = "auto"):
         fused_update=fused_update,
         direct_solve=direct_solve,
         allreduce=allreduce,
+        allreduce_max=allreduce_max,
         ndof=grid.ndof if mesh is not None else None,
     )
 

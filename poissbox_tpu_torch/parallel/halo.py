@@ -184,6 +184,7 @@ def allreduce_max(t: Tensor, mesh=None) -> Tensor:
     if mesh is None or mesh.size == 1:
         return t
     h = t.detach().to("cpu") if transport(t) == "gloo-staged" else t.detach().clone()
+    COUNTS["allreduces"] += 1
     dist.all_reduce(h, op=dist.ReduceOp.MAX)
     return h.to(t.device)
 

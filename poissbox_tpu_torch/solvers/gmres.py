@@ -10,6 +10,15 @@ which gives the same history and iteration count. Each step copies the
 new Hessenberg column (m + 2 numbers) to the host, which is the loop's one
 synchronisation; the rotations and the triangular solve run there, in the
 field dtype.
+
+Over a process grid (``A.allreduce``) the fields are rank blocks and the
+basis holds this rank's block of every vector: the initial norms go out
+in one all-reduce, a restart's norm in one, and a Gram-Schmidt step takes
+two, as the JAX package's two psums: the local coefficients h = V w (with
+K2's partial <V_j, A V_j> stacked on them on the fused path), then
+||w - h V||^2. Every rank then holds the same column, so the host's
+rotations and every stopping decision agree; the restart length is agreed
+too (:func:`clamp_restart`).
 """
 
 from __future__ import annotations
@@ -20,8 +29,9 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
-from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
+from poissbox_tpu_torch.linops import LinearOperator
+from poissbox_tpu_torch.mesh import ranks_on_device
+from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print, _sums
 from poissbox_tpu_torch.solvers.mg import _full_fp32_matmul
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
@@ -33,20 +43,31 @@ _NP = {torch.float32: np.float32, torch.float64: np.float64}
 
 def _basis_budget_bytes(device=None) -> int:
     """Device-memory budget for the Krylov basis: a quarter of the card's
-    memory, 4 GiB elsewhere. The (m+1, *field) basis is GMRES's dominant
-    allocation; the rest is left to the operator and the preconditioner."""
+    memory, shared by the ranks on that card, 4 GiB elsewhere. The
+    (m+1, *field) basis is GMRES's dominant allocation; the rest is left
+    to the operator and the preconditioner."""
     if device is not None and torch.device(device).type == "cuda":
-        return torch.cuda.mem_get_info(device)[1] // 4
+        return torch.cuda.mem_get_info(device)[1] // 4 // ranks_on_device(device)
     return 4 << 30
 
 
-def clamp_restart(restart: int, b: Tensor, budget_bytes=None) -> int:
+def clamp_restart(restart: int, b: Tensor, budget_bytes=None,
+                  allreduce_max=None) -> int:
     """Shrink the restart length so that the stacked basis fits the
     budget, with a warning (more restarts, same convergence semantics).
-    At 512^3 f32, GMRES(30) needs 31 fields, 16.6 GB."""
+    At 512^3 f32, GMRES(30) needs 31 fields, 16.6 GB.
+
+    Over a process grid pass the operator's `allreduce_max`: every rank
+    then takes the largest box against the smallest budget, so all take
+    the same length (a rank that restarted alone would leave the others
+    in the next all-reduce) and warn alike."""
     budget = (_basis_budget_bytes(b.device) if budget_bytes is None
               else int(budget_bytes))
     field = b.numel() * b.element_size()
+    if allreduce_max is not None:
+        v = allreduce_max(torch.tensor([field, -budget], dtype=torch.float64,
+                                       device=b.device))
+        field, budget = int(v[0]), -int(v[1])
     max_m = max(1, budget // max(field, 1) - 1)
     if restart > max_m:
         warnings.warn(
@@ -77,8 +98,10 @@ def gmres(
     to its end (or convergence) even past `max_it`; its later entries
     fall off the end of the history.
     """
-    require_one_rank(A, "GMRES")
-    m = clamp_restart(int(restart), b)
+    reduce = getattr(A, "allreduce", None)
+    m = clamp_restart(int(restart), b,
+                      allreduce_max=getattr(A, "allreduce_max", None)
+                      if reduce is not None else None)
     x = torch.zeros_like(b) if x0 is None else x0
     b = A.project(b)
     x = A.project(x)
@@ -89,9 +112,9 @@ def gmres(
         return A.project(precond(v))
 
     r0 = pres(b - A(x))
-    rnorm0_t = torch.sqrt(_dot(r0, r0))
     pb = pres(b)
-    bnorm_t = torch.sqrt(_dot(pb, pb))
+    rr0, pbb = _sums(reduce, _dot(r0, r0), _dot(pb, pb))
+    rnorm0_t, bnorm_t = torch.sqrt(rr0), torch.sqrt(pbb)
     rnorm0, bnorm = ft(rnorm0_t.item()), ft(bnorm_t.item())
     debugging.check_norm(rnorm0, "gmres", 0)
     hist = [rnorm0]
@@ -111,7 +134,8 @@ def gmres(
         if r is None:
             # a restart: the true preconditioned residual, a clean basis
             r = pres(b - A(x))
-            beta_t = torch.sqrt(_dot(r, r))
+            rr, = _sums(reduce, _dot(r, r))
+            beta_t = torch.sqrt(rr)
             V.zero_()
         torch.div(r, torch.clamp(beta_t, min=float(tiny)), out=V[0])
         beta = ft(beta_t.item())
@@ -135,10 +159,17 @@ def gmres(
                 w = pres(A(V[j]))
             with _full_fp32_matmul():
                 h = Vf @ w.reshape(-1)
+                if reduce is not None:
+                    # this rank's coefficients (and K2's partial) summed
+                    # over every rank in one all-reduce
+                    h = reduce(torch.cat([h, vAv.reshape(1)]) if use_fused else h)
+                    if use_fused:
+                        h, vAv = h[:-1], h[-1]
                 if use_fused:
                     h[j] = vAv
                 w = w - (h @ Vf).view(b.shape)
-            hnext_t = torch.sqrt(_dot(w, w))
+            ww, = _sums(reduce, _dot(w, w))
+            hnext_t = torch.sqrt(ww)
             torch.div(w, torch.clamp(hnext_t, min=float(tiny)), out=V[j + 1])
             col = torch.cat([h, hnext_t.reshape(1)]).cpu().numpy().astype(ft)
             hcol = col[:m + 1].copy()

@@ -6,7 +6,10 @@ the preconditioner (none/jacobi/fft/mg), the method (cg/fcg, pipecg,
 gmres — PETSc's default and so the default here — richardson, or the FFT
 direct solve), the stopping controls and the monitor. Solvers are built
 for the card unless `device` (or the grid's device) says otherwise; a
-request for the card without one raises.
+request for the card without one raises. Over a process grid (an operator
+with ``allreduce``) every type runs on rank blocks, and so does
+`-log_view`: every rank times its events together, the table takes the
+slowest rank's times and the global DoF count, and process 0 prints it.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from poissbox_tpu_torch.config import Options, SolverOptions
-from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
+from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import cg
 from poissbox_tpu_torch.solvers.fft import fft_solver_result, make_fft_preconditioner
 from poissbox_tpu_torch.solvers.gmres import gmres
@@ -90,19 +93,21 @@ def make_preconditioner(
                 "use -ksp_type fcg or ksp_rtol >= 1e-5",
                 stacklevel=2)
         pre_dtype = opts.mg_pre_dtype
-        if opts.ksp_type == "gmres":
-            # GMRES stops on its estimate of ||M r||, which holds only for
+        if opts.ksp_type in ("gmres", "pipecg"):
+            # GMRES stops on its estimate of ||M r||, and PIPECG on a
+            # residual kept by a recurrence through M; both hold only for
             # a linear M, and a bf16 pre-smooth is not one: at 512^3 f32
             # on an H100 the JAX package's default bf16 pre-smooth left a
-            # true residual of 7e-4 behind an estimate converged to 1e-6
-            # (PERF.md). So GMRES keeps the automatic pre-smooth in
-            # float32, and warns on a bf16 one asked for.
+            # true residual of 7e-4 behind GMRES's estimate converged to
+            # 1e-6, and PIPECG ran to its 50 iterations at 8.4e-5 (PERF.md).
+            # So both keep the automatic pre-smooth in float32, and warn
+            # on a bf16 one asked for.
             if "bfloat16" in (opts.mg_pre_dtype, opts.mg_cycle_dtype):
                 warnings.warn(
                     "a bf16 MG pre-smooth or cycle is not a linear "
-                    "preconditioner: GMRES's residual estimate can then "
-                    "stop far above the true residual; use -ksp_type cg "
-                    "or fcg", stacklevel=2)
+                    f"preconditioner: {opts.ksp_type.upper()}'s residual "
+                    "estimate can then stop far above the true residual; "
+                    "use -ksp_type cg or fcg", stacklevel=2)
             elif auto_bf16_presmooth(MGConfig(dtype=opts.mg_cycle_dtype,
                                               pre_dtype=pre_dtype), shape, dtype):
                 pre_dtype = "float32"
@@ -151,8 +156,6 @@ def make_solver(
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"make_solver(device={str(device)!r}) needs a CUDA "
                            "device; torch.cuda.is_available() is False")
-    if opts.ksp_type not in ("cg", "fcg", "fft"):
-        require_one_rank(A, f"-ksp_type {opts.ksp_type}")
     common = dict(rtol=opts.ksp_rtol, atol=opts.ksp_atol,
                   max_it=opts.ksp_max_it, monitor=opts.ksp_monitor)
     if opts.ksp_type == "fft":
@@ -239,14 +242,32 @@ def _print_log_view(A: LinearOperator, b: Tensor, M, result,
     by its count, MatMult it+1 and PCApply it. The rest of the warm solve
     wall ("other") is the vector algebra, the reductions, the host loop and
     the fused hooks' gain or loss against the standalone events.
+
+    Over a process grid every rank runs this together (MatMult and PCApply
+    exchange faces): each time is the slowest rank's (``A.allreduce_max``),
+    an event that one rank cannot time is dropped on every rank, the DoF
+    count is the global one, and process 0 prints.
     """
+    reduce_max = getattr(A, "allreduce_max", None)
+
+    def slowest(*vals: float) -> list:
+        if reduce_max is None:
+            return list(vals)
+        return reduce_max(torch.tensor(vals, dtype=torch.float64,
+                                       device=b.device)).tolist()
+
     def _warm_time(name, fn):
         try:
-            return kernel_time(fn, b, lo=2, hi=8, scale=1e-3)
+            t = kernel_time(fn, b, lo=2, hi=8, scale=1e-3, reduce_max=reduce_max)
         except (RuntimeError, ValueError) as err:
             # an event that cannot run alone is left out of the table
             print(f"log_view:   {name} not timed: {err}")
+            t = None
+        # the verdict is every rank's: none waits on a collective that
+        # another has skipped
+        if slowest(float(t is None))[0]:
             return None
+        return t
 
     it = max(int(result.iterations), 1)
     events = []
@@ -257,7 +278,10 @@ def _print_log_view(A: LinearOperator, b: Tensor, M, result,
         t_pc = _warm_time("PCApply", M)
         if t_pc is not None:
             events.append(("PCApply", it, t_pc))
-    ndof = b.numel()
+    t_setup, t_solve = slowest(t_setup, t_solve)
+    if not is_process0():
+        return
+    ndof = A.ndof or b.numel()
     print("log_view: event        count   time/call        total   %solve")
     accounted = 0.0
     for name, count, tc in events:
@@ -274,7 +298,7 @@ def _print_log_view(A: LinearOperator, b: Tensor, M, result,
     print(f"log_view:   {'solve':<10} {1:5d}   {'':12}   {t_solve:8.4f} s"
           f"   ({int(result.iterations)} iterations, "
           f"{t_solve / it * 1e3:.3f} ms/it, "
-          f"{ndof * it / max(t_solve, 1e-12) / 1e9:.2f} GDoF/s)")
+          f"{ndof * it / max(t_solve, 1e-12) / 1e9:.2f} GDoF/s of {ndof} DoF)")
 
 
 def _sync(t: Tensor) -> None:
@@ -301,12 +325,10 @@ def solve(
         opts = SolverOptions.from_options(opts)
     opts = opts or SolverOptions()
     log_view = db is not None and db.get_bool("log_view")
-    if log_view:
-        require_one_rank(A, "-log_view")
     t0 = time.perf_counter()
     solver = make_solver(A, opts, shape, deltas, b.dtype, b.device, grid=grid)
     t_setup = time.perf_counter() - t0
-    if opts.ksp_view:
+    if opts.ksp_view and is_process0():
         print(view(opts, solver.shape, solver.M))
     result = solver(b, x0)
     _sync(b)

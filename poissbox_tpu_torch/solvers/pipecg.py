@@ -14,6 +14,13 @@ reads one boolean per iteration (the stopping test) with a single
 ``.item()``; every scalar stays on the device. The residual is kept by
 recurrence one step further from the truth than CG's, so its rounding
 drift is larger: check the true residual as well as the monitored norm.
+
+Over a process grid (``A.allreduce``) the fields are rank blocks: the
+partial sums of each reduction point go out stacked in ONE all-reduce
+(at the start <r, u>, <w, u>, ||r||^2, ||b||^2; then <r, u>, <w, u>,
+||r||^2 an iteration), and the stopping test reads only reduced values.
+The JAX package has no overlap of that all-reduce with M and A either:
+the iterates are its recurrence's.
 """
 
 from __future__ import annotations
@@ -22,8 +29,8 @@ from typing import Callable, Optional
 
 import torch
 
-from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
-from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
+from poissbox_tpu_torch.linops import LinearOperator
+from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print, _sums
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
 
@@ -52,7 +59,6 @@ def pipecg(
     if norm_type not in ("unpreconditioned", "natural"):
         raise ValueError(f"unknown norm_type {norm_type!r} "
                          "(expected unpreconditioned|natural)")
-    require_one_rank(A, "PIPECG")
     natural = norm_type == "natural"
     b = A.project(b)
     precond = M if M is not None else (lambda v: v)
@@ -69,11 +75,13 @@ def pipecg(
         r = b - A(x)
     u = Mp(r)
     w = A(u)
-    gamma = _dot(r, u)
-    delta = _dot(w, u)
-    rnorm0 = torch.sqrt(torch.abs(gamma)) if natural else torch.sqrt(_dot(r, r))
+    reduce = getattr(A, "allreduce", None)
+    gamma, delta, rr, bb = _sums(reduce, _dot(r, u), _dot(w, u),
+                                 None if natural else _dot(r, r),
+                                 None if natural else _dot(b, b))
+    rnorm0 = torch.sqrt(torch.abs(gamma)) if natural else torch.sqrt(rr)
     # natural norm: the initial natural residual stands in for ||b||_M
-    bnorm = rnorm0 if natural else torch.sqrt(_dot(b, b))
+    bnorm = rnorm0 if natural else torch.sqrt(bb)
 
     hist = torch.full((max_it + 1,), float("nan"), dtype=b.dtype,
                       device=b.device)
@@ -119,9 +127,10 @@ def pipecg(
         u = u - alpha * q
         w = w - alpha * z
         gamma_old = gamma
-        gamma = _dot(r, u)
-        delta = _dot(w, u)
-        norm = torch.sqrt(torch.abs(gamma)) if natural else torch.sqrt(_dot(r, r))
+        # the iteration's one reduction point
+        gamma, delta, rr = _sums(reduce, _dot(r, u), _dot(w, u),
+                                 None if natural else _dot(r, r))
+        norm = torch.sqrt(torch.abs(gamma)) if natural else torch.sqrt(rr)
         resnorm = torch.where(ok, norm, zero)
         alpha_old = alpha
         k += 1

@@ -8,11 +8,14 @@ solve, float64 iterate and true residuals.
 
 Each outer iteration recovers about six digits. torch has no global x64
 switch: b and the residuals are cast to ``torch.float64`` explicitly, and
-the inner solve receives the residual cast to ``torch.float32``.
+the inner solve receives the residual cast to ``torch.float32``. Over a
+process grid (``A64.allreduce``) ||b|| and every outer residual are global
+norms, all-reduced, so every rank takes the outer test alike.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple, Optional
 
 import torch
@@ -29,6 +32,15 @@ class RefineResult(NamedTuple):
     inner_iterations: int     # total Krylov iterations of the inner solves
     residual_norm: Tensor     # float64 true residual ||b - A x||
     history: Tensor           # float64 residual before each outer step, and at the end
+
+
+def _norm(A: LinearOperator, v: Tensor) -> float:
+    """||v||_2 of the whole field: the block's sum of squares all-reduced
+    where `A` works on rank blocks."""
+    ss = torch.sum(v * v).reshape(1)
+    if A.allreduce is not None:
+        ss = A.allreduce(ss)
+    return math.sqrt(float(ss[0]))
 
 
 def refine(
@@ -55,12 +67,12 @@ def refine(
     """
     b = A64.project(b.to(torch.float64))
     x = torch.zeros_like(b) if x0 is None else x0.to(torch.float64)
-    bnorm = float(torch.linalg.vector_norm(b))
+    bnorm = _norm(A64, b)
     hist = []
     inner_total = 0
     for _ in range(max_outer):
         r = b - A64(x)
-        resnorm = float(torch.linalg.vector_norm(r))
+        resnorm = _norm(A64, r)
         hist.append(resnorm)
         if resnorm <= rtol * bnorm:
             break
@@ -68,7 +80,7 @@ def refine(
         inner_total += int(inner.iterations)
         x = A64.project(x + inner.x.to(torch.float64))
     r = b - A64(x)
-    resnorm = float(torch.linalg.vector_norm(r))
+    resnorm = _norm(A64, r)
     hist.append(resnorm)
     return RefineResult(
         x=x,

@@ -3,7 +3,9 @@ path (port of :mod:`poissbox_tpu.solvers.richardson`).
 
 x <- x + omega * M(b - A x); with M one V-cycle this is the stationary
 multigrid iteration. A host loop reading one boolean per iteration, as
-:mod:`poissbox_tpu_torch.solvers.cg`.
+:mod:`poissbox_tpu_torch.solvers.cg`. Over a process grid
+(``A.allreduce``) the initial ||r||^2 and ||b||^2 go out in one
+all-reduce, then one ||r||^2 a step, so every rank stops together.
 """
 
 from __future__ import annotations
@@ -12,8 +14,8 @@ from typing import Callable, Optional
 
 import torch
 
-from poissbox_tpu_torch.linops import LinearOperator, require_one_rank
-from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print
+from poissbox_tpu_torch.linops import LinearOperator
+from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print, _sums
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
 
@@ -34,15 +36,15 @@ def richardson(
 ) -> SolveResult:
     """Solve A x = b by damped preconditioned Richardson iteration; the
     monitored norm is the true ||b - A x||_2."""
-    require_one_rank(A, "Richardson")
     x = torch.zeros_like(b) if x0 is None else x0
     b = A.project(b)
     x = A.project(x)
     precond = M if M is not None else (lambda v: v)
 
     r0 = b - A(x)
-    rnorm0 = torch.sqrt(_dot(r0, r0))
-    bnorm = torch.sqrt(_dot(b, b))
+    reduce = getattr(A, "allreduce", None)
+    rr0, bb = _sums(reduce, _dot(r0, r0), _dot(b, b))
+    rnorm0, bnorm = torch.sqrt(rr0), torch.sqrt(bb)
     hist = torch.full((max_it + 1,), float("nan"), dtype=b.dtype,
                       device=b.device)
     hist[0] = rnorm0
@@ -63,7 +65,8 @@ def richardson(
         # r is b - A x of the current x (the JAX package forms it twice)
         x = A.project(x + w * precond(r))
         r = b - A(x)
-        resnorm = torch.sqrt(_dot(r, r))
+        rr, = _sums(reduce, _dot(r, r))
+        resnorm = torch.sqrt(rr)
         k += 1
         hist[k] = resnorm
         if monitor:

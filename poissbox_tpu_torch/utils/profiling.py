@@ -86,12 +86,18 @@ def _differenced(timed: Callable[[int], float], lo: int, hi: int, cap: int) -> f
 
 
 def kernel_time(fn: Callable, example: torch.Tensor, lo: int = 10, hi: int = 40,
-                reps: int = 3, scale: Optional[float] = None) -> float:
+                reps: int = 3, scale: Optional[float] = None,
+                reduce_max: Optional[Callable] = None) -> float:
     """Steady-state seconds per application of `fn` on `example`: `fn`
     chained `lo` and `hi` times (each application reads the last one's
     output), the difference over `hi - lo`. `hi` grows until the
     difference dominates the jitter. `scale` multiplies each output (a
-    decay that keeps a chained operator's values finite)."""
+    decay that keeps a chained operator's values finite).
+
+    Where `fn` is a collective (an operator on rank blocks), every rank
+    times it together and passes `reduce_max` (the maximum of a 1-D tensor
+    over every rank): each timed loop then counts as the slowest rank's,
+    so all ranks grow `hi` alike and return the same time."""
     step = fn if scale is None else (lambda v: fn(v) * scale)
 
     def timed(iters: int) -> float:
@@ -100,7 +106,11 @@ def kernel_time(fn: Callable, example: torch.Tensor, lo: int = 10, hi: int = 40,
             for _ in range(iters):
                 v = step(v)
             return v
-        return _seconds(run, example.device, reps)
+        t = _seconds(run, example.device, reps)
+        if reduce_max is None:
+            return t
+        return float(reduce_max(torch.tensor([t], dtype=torch.float64,
+                                             device=example.device))[0])
 
     return _differenced(timed, lo, hi, 20000)
 

@@ -2,6 +2,9 @@
 package's loader), kill-and-resume equal to an uninterrupted chunked
 solve, the exact foreign-RHS guard, and the facade's solve_checkpointed."""
 
+import dataclasses
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,7 +16,7 @@ from poissbox_tpu.ops.stencil import make_laplacian_operator as jmake_operator
 from poissbox_tpu.solvers.cg import cg as jcg
 from poissbox_tpu_torch import checkpoint, interop
 from poissbox_tpu_torch.api import PoissonSolver
-from poissbox_tpu_torch.mesh import Grid3D
+from poissbox_tpu_torch.mesh import Grid3D, ProcessGrid
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.solvers.cg import cg
 
@@ -149,3 +152,53 @@ def test_solve_checkpointed_on_the_facade(tmp_path):
                                           every=2, on_chunk=kill)
     res2, total2 = s.solve_checkpointed(b, path + "2", rtol=1e-8, every=2)
     assert total2 == total and torch.equal(res2.x, res.x)
+
+
+def test_checkpoint_path_names_each_rank(tmp_path):
+    """One rank: `path` itself (the .npz beside it); over a process grid
+    one file a rank under the directory `path`, by rank and world size."""
+    path = str(tmp_path / "ck")
+    assert checkpoint.checkpoint_path(path) == path
+    assert checkpoint.checkpoint_path(path, Grid3D((8,) * 3, device="cpu")) == path
+    one = Grid3D((8,) * 3, device="cpu", mesh=ProcessGrid((1, 1, 1), 0))
+    assert checkpoint.checkpoint_path(path, one) == path
+    names = {checkpoint.checkpoint_path(path, Grid3D((8,) * 3, device="cpu",
+                                                     mesh=ProcessGrid((2, 2, 1), r)))
+             for r in range(4)}
+    assert names == {os.path.join(path, f"rank{r}of4") for r in range(4)}
+    # written under a temporary name and renamed: nothing else is left
+    f = checkpoint.save(os.path.join(path, "rank3of4"), {"x": torch.ones(2)})
+    assert os.listdir(path) == ["rank3of4.npz"] and f.endswith("rank3of4.npz")
+
+
+@pytest.mark.parametrize("case,oks,its,resume", [
+    ("every rank may", [True] * 4, [6, 6, 6, 6], True),
+    ("b differs on one rank", [True, False, True, True], [6, 6, 6, 6], False),
+    ("killed between two writes", [True] * 4, [6, 6, 4, 6], False),
+    ("one rank has no file", [True, True, True, False], [6, 6, 6, -1], False),
+])
+def test_resume_verdict_is_every_ranks(case, oks, its, resume):
+    """Every rank reaches the same verdict from its own: all resume only
+    if every one may and all saved the same iteration count."""
+    vectors = [torch.tensor([0.0 if ok else 1.0, k, -k], dtype=torch.float64)
+               for ok, k in zip(oks, its)]
+
+    def group(rank):
+        def allreduce_max(t):
+            assert torch.equal(t, vectors[rank])
+            return torch.stack(vectors).max(0).values
+        return allreduce_max
+
+    got = [checkpoint.resume_verdict(ok, k, group(r)) for r, (ok, k) in enumerate(zip(oks, its))]
+    assert got == [resume] * 4, case
+    # one rank decides alone
+    assert checkpoint.resume_verdict(oks[1], its[1]) == oks[1]
+
+
+def test_rank_blocks_need_the_grid(tmp_path):
+    """An operator on rank blocks (it carries an all-reduce) cannot save to
+    one file: the grid names each rank's."""
+    A, b = problem(6)
+    A_blocks = dataclasses.replace(A, allreduce=lambda t: t)
+    with pytest.raises(ValueError, match="grid"):
+        checkpoint.solve_with_checkpoints(A_blocks, b, str(tmp_path / "ck"))

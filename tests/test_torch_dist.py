@@ -21,13 +21,19 @@ from pathlib import Path
 import pytest
 
 from torch_dist_common import *  # noqa: F401,F403  (the shared checks)
-from torch_dist_common import run_case, test_mg_options_match_one_rank  # noqa: F401
+from torch_dist_common import (run_case, test_mg_options_match_one_rank,  # noqa: F401
+                               test_krylov_matches_jax, test_solve_refined_matches_jax,
+                               test_solve_checkpointed_matches_jax,
+                               test_checkpoint_kill_and_resume_equals_uninterrupted,
+                               test_checkpoint_starts_fresh_on_every_rank,
+                               test_restart_length_agreed_over_boxes)
 
 
 @pytest.fixture(scope="module", params=[((2, 2, 1), 32)], ids=["221-32"])
 def dist_run(request, tmp_path_factory):
     pgrid, n = request.param
-    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), mgopts=True, n6=32)
+    ranks, ref = run_case(pgrid, n, tmp_path_factory.mktemp("ranks"), mgopts=True,
+                          krylov=True, n6=32)
     return pgrid, n, ranks, ref
 
 
@@ -50,3 +56,35 @@ def test_demo_under_torchrun():
     line = next(ln for ln in text.splitlines() if ln.startswith("verification:"))
     rel = float(line.split("(relative ")[1].split(")")[0])
     assert rel <= 1.01e-8
+
+
+def _table(text: str) -> list:
+    """(event, count) of each row of a -log_view table."""
+    return [(ln[12:22].strip(), ln[23:28].strip()) for ln in text.splitlines()
+            if ln.startswith("log_view:   ")]
+
+
+def test_demo_log_view_under_torchrun(capsys):
+    """PIPECG with -log_view on 3 gloo ranks under torchrun: the table is
+    printed once, by rank 0, with the one-rank table's events and counts,
+    and its rate counts the global DoF (24^3, not a rank's third)."""
+    from poissbox_tpu_torch import demo
+    from poissbox_tpu_torch.config import Options
+    argv = ["-n", "24", "-device", "cpu", "-ksp_type", "pipecg", "-ksp_rtol", "1e-8",
+            "-log_view"]
+    repo = Path(__file__).resolve().parent.parent
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join([str(repo), os.environ.get("PYTHONPATH", "")]))
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", "3", "-m", "poissbox_tpu_torch.demo", *argv],
+        cwd=repo, env=env, capture_output=True, text=True, timeout=150)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    text = out.stdout
+    assert text.count("log_view: event") == 1
+    demo.run(Options(argv))
+    one = capsys.readouterr().out
+    assert _table(text) == _table(one)
+    assert [e for e, _ in _table(text)] == ["MatMult", "PCApply", "other", "setup", "solve"]
+    row = next(ln for ln in text.splitlines() if ln.startswith("log_view:   solve"))
+    assert row.endswith(f"GDoF/s of {24 ** 3} DoF)")

@@ -24,7 +24,8 @@ from poissbox_tpu.solvers.cg import cg as jcg
 from poissbox_tpu.solvers.gmres import clamp_restart as jclamp_restart
 from poissbox_tpu.solvers.mg import MGConfig as JMGConfig
 from poissbox_tpu.solvers.mg import make_mg_preconditioner as jmake_mg
-from poissbox_tpu_torch.config import SolverOptions
+from poissbox_tpu_torch.api import PoissonSolver
+from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops import stencil_cuda
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
@@ -119,9 +120,10 @@ def test_gmres_fused_apply_dot_matches_jax():
 
 def test_gmres_keeps_a_linear_presmooth():
     """At 512^3 f32 the JAX package's MG default is a bf16 pre-smooth, a
-    nonlinear M under which GMRES's residual estimate converges while the
-    true residual does not. The port's GMRES keeps that pre-smooth in
-    float32 (CG keeps the default) and warns on a bf16 one asked for."""
+    nonlinear M under which GMRES's residual estimate, and PIPECG's
+    recurrence residual, converge while the true residual does not. The
+    port's GMRES and PIPECG keep that pre-smooth in float32 (CG keeps the
+    default) and warn on a bf16 one asked for."""
     A = make_laplacian_operator(Grid3D((8,) * 3, device="cpu"))
     shape, deltas = (512,) * 3, (1.0 / 512,) * 3
     pre = {}
@@ -129,12 +131,35 @@ def test_gmres_keeps_a_linear_presmooth():
         M = ksp.make_preconditioner(A, SolverOptions(ksp_type=ksp_type, pc_type="mg"),
                                     shape, deltas, torch.float32, device="cpu")
         pre[ksp_type] = M.resolved["pre_dtype"]
-    assert pre == {"gmres": "float32", "cg": "bfloat16", "pipecg": "bfloat16"}
-    with pytest.warns(UserWarning, match="not a linear preconditioner"):
-        M = ksp.make_preconditioner(
-            A, SolverOptions(ksp_type="gmres", pc_type="mg", mg_pre_dtype="bfloat16"),
-            shape, deltas, torch.float32, device="cpu")
-    assert M.resolved["pre_dtype"] == "bfloat16"
+    assert pre == {"gmres": "float32", "cg": "bfloat16", "pipecg": "float32"}
+    for ksp_type in ("gmres", "pipecg"):
+        with pytest.warns(UserWarning, match="not a linear preconditioner"):
+            M = ksp.make_preconditioner(
+                A, SolverOptions(ksp_type=ksp_type, pc_type="mg", mg_pre_dtype="bfloat16"),
+                shape, deltas, torch.float32, device="cpu")
+        assert M.resolved["pre_dtype"] == "bfloat16"
+
+
+def test_pipecg_with_a_bf16_presmooth_stops_far_from_the_residual():
+    """Why PIPECG keeps a linear pre-smooth: with a bf16 one asked for at
+    32^3 f32 the true residual stays near 1e-4 (the recurrence residual
+    converges apart from it or the solve runs out of iterations); with the
+    float32 one PIPECG converges to the rtol."""
+    n = 32
+    u = np.random.default_rng(1).uniform(-1.0, 1.0, (n,) * 3)
+    rel = {}
+    for pre in ("float32", "bfloat16"):
+        argv = ["-ksp_type", "pipecg", "-pc_type", "mg", "-ksp_rtol", "1e-6",
+                "-ksp_max_it", "20", "-mg_pre_dtype", pre]
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            s = PoissonSolver((n,) * 3, options=Options(argv), dtype=torch.float32,
+                              device="cpu")
+        b = s.rhs_for(s.A.project(torch.as_tensor(u, dtype=torch.float32)))
+        res = s.solve(b)
+        rel[pre] = (int(res.reason), s.residual_norm(res.x, b))
+    assert rel["float32"][0] > 0 and rel["float32"][1] <= 1.01e-6
+    assert rel["bfloat16"][1] > 1e-5
 
 
 def test_pipecg_true_residual_follows_the_recurrence():
@@ -202,6 +227,39 @@ def test_clamp_restart_matches_jax():
     assert not w
     # off the card the budget is the JAX package's 4 GiB fallback
     assert _basis_budget_bytes(torch.device("cpu")) == 4 << 30
+
+
+def _group_max(vectors, rank):
+    """An all-reduce max over ranks whose contributions are `vectors`, as
+    rank `rank` calls it: it must send its own vector."""
+    def allreduce_max(t):
+        assert torch.equal(t, vectors[rank])
+        return torch.stack(vectors).max(0).values
+    return allreduce_max
+
+
+@pytest.mark.parametrize("budgets", ["equal", "per_rank"])
+def test_clamp_restart_agrees_over_uneven_boxes(budgets):
+    """64^3 on (3, 1, 1): boxes of 90112, 86016 and 86016 cells. With a
+    budget just under 31 fields of the largest box, each rank alone takes a
+    different restart (29, 30, 30: the ranks would then restart at
+    different steps and hang in the next all-reduce); through the
+    all-reduce every rank takes the largest box against the smallest
+    budget, and warns alike."""
+    from poissbox_tpu_torch.parallel.decomp import owned_boxes
+    blocks = [torch.zeros(c, dtype=torch.float64)
+              for _, (_, c) in sorted(owned_boxes((64,) * 3, (3, 1, 1)).items())]
+    big = 31 * 90112 * 8 - 1
+    budget = [big] * 3 if budgets == "equal" else [2 * big, big, 2 * big]
+    assert [clamp_restart(30, b, budget_bytes=big) for b in blocks] == [29, 30, 30]
+    vectors = [torch.tensor([b.numel() * 8, -bud], dtype=torch.float64)
+               for b, bud in zip(blocks, budget)]
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        agreed = [clamp_restart(30, b, budget_bytes=bud, allreduce_max=_group_max(vectors, r))
+                  for r, (b, bud) in enumerate(zip(blocks, budget))]
+    assert agreed == [29, 29, 29]
+    assert len(w) == 3 and len({str(x.message) for x in w}) == 1
 
 
 def test_view_gmres_matches_jax():

@@ -360,31 +360,56 @@ def test_distributed_compact_operator_binds_the_pencil_forms():
 
 @pytest.mark.parametrize("ksp_type", ["pipecg", "gmres", "richardson", "fft"])
 def test_other_krylov_types_raise_across_ranks(ksp_type):
-    """What is left for the next slice raises; the FFT direct solve runs
-    across ranks now (the pencil FFT), so its solver builds."""
+    """Every -ksp_type builds a solver over a process grid (no collective
+    runs until it solves): PIPECG, GMRES and Richardson on rank blocks,
+    the FFT direct solve by the pencil FFT."""
     g, A = _dist_operator()
     opts = Options(["-ksp_type", ksp_type, "-pc_type", "none"])
-    if ksp_type == "fft":
-        assert callable(ksp.make_solver(A, opts, grid=g))
+    solver = ksp.make_solver(A, opts, grid=g)
+    assert callable(solver) and solver.opts.ksp_type == ksp_type
+    assert solver.M is None
+
+
+def _identity_reduced(A):
+    """`A` with identity all-reduces: one device taken through the
+    reduction points of a solve across ranks."""
+    return dataclasses.replace(A, allreduce=lambda t: t, allreduce_max=lambda t: t)
+
+
+@pytest.mark.parametrize("method", ["pipecg", "gmres_mg", "gmres_none", "richardson",
+                                    "refine"])
+def test_direct_calls_refuse_rank_blocks(method):
+    """An identity all-reduce takes each method through the stacked
+    reduction points it runs across ranks; on one device the iterates are
+    bit for bit the same (GMRES both ways: with MG, and -pc_type none,
+    where K2's partial <V_j, A V_j> rides the Gram-Schmidt all-reduce)."""
+    s = PoissonSolver((16,) * 3, dtype=torch.float64, device="cpu",
+                      options=Options(["-ksp_rtol", "1e-8"]))
+    b = s.rhs_for(s.random_solution(3))
+    M = s._solver.M
+    # -pc_type none: the operator that binds K2 (its plain version here)
+    A = make_laplacian_operator(s.grid, impl="cuda") if method == "gmres_none" else s.A
+    A_id = _identity_reduced(A)
+    if method == "refine":
+        from poissbox_tpu_torch.solvers.refine import refine
+        M32 = mg.make_mg_preconditioner(s.grid.n, s.grid.deltas, MGConfig(),
+                                        dtype=torch.float32, device="cpu")
+        r0, r1 = (refine(op, lambda r, op=op: cg(op, r, M=M32, rtol=1e-6, max_it=50), b)
+                  for op in (A, A_id))
+        assert (r0.outer_iterations, r0.inner_iterations) == (
+            r1.outer_iterations, r1.inner_iterations)
+        assert r0.inner_iterations > 0
+        assert torch.equal(r0.x, r1.x) and torch.equal(r0.history, r1.history)
         return
-    with pytest.raises(NotImplementedError, match="next multi-process slice"):
-        ksp.make_solver(A, opts, grid=g)
-
-
-def test_direct_calls_refuse_rank_blocks():
-    g, A = _dist_operator()
-    b = torch.zeros(g.local_shape, dtype=torch.float64)
-    for fn in (pipecg, gmres, richardson):
-        with pytest.raises(NotImplementedError, match="next multi-process slice"):
-            fn(A, b)
-    # -pc_type fft runs across ranks now: the pencil FFT on rank blocks
-    solver = ksp.make_solver(A, Options(["-ksp_type", "cg", "-pc_type", "fft"]), grid=g)
-    assert callable(solver.M)
-    s = PoissonSolver((8,) * 3, dtype=torch.float64, device="cpu")
-    s.A = A
-    for call in (lambda: s.solve_refined(b), lambda: s.solve_checkpointed(b, "unused")):
-        with pytest.raises(NotImplementedError, match="next multi-process slice"):
-            call()
+    fn, kw = {"pipecg": (pipecg, dict(M=M)), "richardson": (richardson, dict(M=M)),
+              "gmres_mg": (gmres, dict(M=M)),
+              "gmres_none": (gmres, dict(max_it=40))}[method]
+    assert (A.apply_dot is not None) == (method == "gmres_none")
+    r0 = fn(A, b, rtol=1e-8, **kw)
+    r1 = fn(A_id, b, rtol=1e-8, **kw)
+    assert int(r0.iterations) == int(r1.iterations) > 0
+    assert torch.equal(r0.x, r1.x)
+    assert torch.equal(r0.history.nan_to_num(), r1.history.nan_to_num())
 
 
 def test_one_device_cg_is_unchanged_by_the_reduction_points():

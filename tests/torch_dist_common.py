@@ -17,11 +17,13 @@ solver's loop: ``fft_thunk.cc:167`` RET_CHECK).
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import socket
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import jax
@@ -29,6 +31,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from poissbox_tpu import checkpoint as jcheckpoint
 from poissbox_tpu.config import Options as JOptions
 from poissbox_tpu.config import SolverOptions as JSolverOptions
 from poissbox_tpu.mesh import Grid3D as JGrid
@@ -39,10 +42,12 @@ from poissbox_tpu.ops.stencil import make_laplacian_operator as jmake_op
 from poissbox_tpu.parallel import dist_stencil as jds
 from poissbox_tpu.parallel import uneven as jue
 from poissbox_tpu.solvers import fft as jfft
+from poissbox_tpu.solvers.cg import cg as jcg
 from poissbox_tpu.solvers.ksp import make_solver as jmake_solver
 from poissbox_tpu.solvers.mg import MGConfig as JMGConfig
 from poissbox_tpu.solvers.mg import _build_levels as j_build_levels
 from poissbox_tpu.solvers.mg import make_mg_preconditioner as jmake_mg
+from poissbox_tpu.solvers.refine import refine as jrefine
 from poissbox_tpu_torch.parallel.decomp import owned_boxes
 from poissbox_tpu_torch.parallel.pencil import pencil_ok
 
@@ -66,7 +71,7 @@ __all__ = ["run_case", "blocks", "test_dof_counts",
            "test_fft_dist_matches_one_rank", "test_pencil_counts_equal_the_model",
            "test_order6_mgcg_iterations_equal_jax", "test_order6_mgcg_true_residual",
            "test_order6_mgcg_x_matches_jax", "test_order6_fcg_fft_matches_jax",
-           "test_ksp_fft_residual_within_twice_one_rank"]
+           "test_ksp_fft_residual_within_twice_one_rank", "test_pipecg_matches_jax"]
 OPS = ("apply", "apply_padded", "apply_dot", "residual", "jacobi", "sor0", "sor1",
        "cgupd.x", "cgupd.r")
 
@@ -116,17 +121,63 @@ def blocks(a: np.ndarray, n: int, pgrid) -> list[np.ndarray]:
             in sorted(owned_boxes((n,) * 3, pgrid).items())]
 
 
-def _run(fn, *args):
-    """`fn` jitted and run, compiled with XLA's backend (LLVM) optimisation
-    off: the same IEEE arithmetic, compiled in about half the time, which
-    is most of this file's cost."""
+def _compiled(fn, *args):
+    """`fn` jitted for arguments like `args`, compiled with XLA's backend
+    (LLVM) optimisation off: the same IEEE arithmetic, compiled in about
+    half the time, which is most of this file's cost."""
     return jax.jit(fn).lower(*args).compile(
-        compiler_options={"xla_backend_optimization_level": 0})(*args)
+        compiler_options={"xla_backend_optimization_level": 0})
 
 
-def jax_reference(pgrid, n: int) -> dict:
+def _run(fn, *args):
+    """`fn` compiled by :func:`_compiled` and run."""
+    return _compiled(fn, *args)(*args)
+
+
+def jax_krylov(jg, A, bx, krylov: bool) -> dict:
+    """The JAX package's PIPECG + MG on the MG-CG system and, with
+    `krylov`, the worker's other KRYLOV solves, all in one program (one
+    compile)."""
+    solvers = {tag: jmake_solver(A, JSolverOptions.from_options(JOptions(argv)), jg.n,
+                                 jg.deltas, jnp.float64, grid=jg)
+               for tag, (argv, _) in worker.KRYLOV.items() if krylov or tag == "pipecg"}
+    ref = {}
+    for tag, res in _run(lambda b: {t: s(b) for t, s in solvers.items()}, bx).items():
+        ref[f"{tag}.its"] = int(res.iterations)
+        ref[f"{tag}.x"] = np.asarray(jg.unshard(res.x))
+        ref[f"{tag}.hist"] = np.asarray(res.history)
+    return ref
+
+
+def jax_refine(jg, A, bx) -> dict:
+    """solve_refined as the JAX package's facade builds it, on this
+    process grid: float32 MG-CG corrections, float64 residuals."""
+    M32 = jmake_mg(jg.n, jg.deltas, JMGConfig(), jnp.float32, grid=jg)
+    inner = _compiled(lambda r: jcg(A, r, M=M32, rtol=1e-6, max_it=50),
+                      bx.astype(jnp.float32))
+    # the outer residuals through the compiled operator (an eager sharded
+    # apply compiles at every call)
+    A64 = dataclasses.replace(A, apply=_compiled(A.apply, bx))
+    rr = jrefine(A64, inner, bx, rtol=1e-12, max_outer=4)
+    return {"refine.counts": [rr.outer_iterations, rr.inner_iterations],
+            "refine.x": np.asarray(jg.unshard(rr.x))}
+
+
+def jax_checkpointed(jg, A, bx, out_dir: Path) -> dict:
+    """solve_checkpointed as the JAX package's facade runs it (MG-CG in
+    chunks of worker.EVERY iterations)."""
+    M64 = jmake_mg(jg.n, jg.deltas, JMGConfig(), jnp.float64, grid=jg)
+    res, total = jcheckpoint.solve_with_checkpoints(
+        A, bx, str(out_dir / "jax_ckpt"), M=M64, rtol=1e-8, max_it=50, every=worker.EVERY)
+    return {"ckpt.total": total, "ckpt.x": np.asarray(jg.unshard(res.x))}
+
+
+def jax_reference(pgrid, n: int, out_dir: Path, pool, krylov: bool = False) -> dict:
     """The JAX package's sharded operators, V-cycle and MG-CG solves on
-    the same process grid and inputs, as global numpy fields."""
+    the same process grid and inputs, as global numpy fields, and its
+    other Krylov solves there (:func:`jax_krylov`; with `krylov` also
+    :func:`jax_refine` and :func:`jax_checkpointed`), each of those in a
+    thread of `pool` (XLA compiles them side by side)."""
     jg = JGrid((n,) * 3, mesh=make_device_mesh(pgrid))
     f = worker.fields(n)
     sh = lambda a: jg.shard(jnp.asarray(a))
@@ -168,9 +219,15 @@ def jax_reference(pgrid, n: int) -> dict:
     A = jmake_op(jg)
     bx = _run(A.apply, sh(f["x_exact"]))
     sopts = JSolverOptions.from_options(JOptions(worker.SOLVE))
+    parts = [pool.submit(jax_krylov, jg, A, bx, krylov)]
+    if krylov:
+        parts += [pool.submit(jax_refine, jg, A, bx),
+                  pool.submit(jax_checkpointed, jg, A, bx, out_dir)]
     res = _run(jmake_solver(A, sopts, jg.n, jg.deltas, jnp.float64, grid=jg), bx)
     ref["sor.its"] = int(res.iterations)
     ref["sor.x"] = un(res.x)
+    for part in parts:
+        ref.update(part.result())
     ref["dofs"] = jg.dof_counts()
     ref["fields"] = f
     return ref
@@ -210,15 +267,19 @@ def jax_order6(pgrid, n: int) -> dict:
 
 
 def run_case(pgrid, n: int, out_dir: Path, *, n6: int, jacobi: bool = False,
-             mgopts: bool = False):
+             mgopts: bool = False, krylov: bool = False):
     """(the ranks' results, the JAX package's): the ranks run while JAX
-    computes its side. `n6`: the size of the order-6 and FFT cases."""
+    computes its side. `n6`: the size of the order-6 and FFT cases;
+    `krylov`: the worker's other Krylov and facade cases too."""
     t0 = time.perf_counter()
-    extra = (["jacobi"] if jacobi else []) + (["mgopts"] if mgopts else [])
+    extra = ((["jacobi"] if jacobi else []) + (["mgopts"] if mgopts else [])
+             + (["krylov"] if krylov else []))
     procs = spawn(pgrid, n, out_dir, extra + [f"n6={n6}"])
     try:
-        ref = jax_reference(pgrid, n)
-        ref["order6"] = jax_order6(pgrid, n6)
+        with ThreadPoolExecutor(4) as pool:
+            order6 = pool.submit(jax_order6, pgrid, n6)
+            ref = jax_reference(pgrid, n, out_dir, pool, krylov)
+            ref["order6"] = order6.result()
         ref["n6"] = n6
     except BaseException:
         for p in procs:
@@ -419,3 +480,93 @@ def test_mg_options_match_one_rank(dist_run, opt):
     got = np.concatenate([r[f"mg.{opt}.x"].ravel() for r in ranks])
     want = np.concatenate([b.ravel() for b in blocks(one[f"mg1.{opt}.x"], n, pgrid)])
     assert np.linalg.norm(got - want) <= 1e-12 * np.linalg.norm(want)
+
+
+# ---------------------------------------------------------------------------
+# the rest of the Krylov layer and the facade across ranks (the worker's
+# krylov(): PIPECG in every spawn, the rest where a file runs `krylov`)
+# ---------------------------------------------------------------------------
+
+
+def _x_within(ranks, key, want, n, pgrid, tol):
+    got = np.concatenate([rk[key].ravel() for rk in ranks])
+    want = np.concatenate([b.ravel() for b in blocks(want, n, pgrid)])
+    assert np.linalg.norm(got - want) <= tol * np.linalg.norm(want), key
+
+
+def _krylov_matches_jax(dist_run, tag):
+    """JAX's iteration count on every rank, the true residual within the
+    method's limit, x within 1e-6 of JAX's x, and the monitored history
+    within 1e-8 of JAX's (relative to its first entry)."""
+    pgrid, n, ranks, ref = dist_run
+    assert {int(rk[f"{tag}.its"]) for rk in ranks} == {ref[f"{tag}.its"]}
+    for rk in ranks:
+        assert float(rk[f"{tag}.rel"]) <= worker.KRYLOV[tag][1], tag
+    _x_within(ranks, f"{tag}.x", ref[f"{tag}.x"], n, pgrid, 1e-6)
+    k = ref[f"{tag}.its"] + 1
+    want = ref[f"{tag}.hist"][:k]
+    for rk in ranks:
+        got = rk[f"{tag}.hist"][:k]
+        assert np.abs(got - want).max() <= 1e-8 * want[0], tag
+
+
+def test_pipecg_matches_jax(dist_run):
+    _krylov_matches_jax(dist_run, "pipecg")
+
+
+@pytest.mark.parametrize("tag", ("gmres", "gmresnone", "richardson"))
+def test_krylov_matches_jax(dist_run, tag):
+    """GMRES(30) + MG, GMRES -pc_type none (the sharded K2's partial dot
+    in the Gram-Schmidt all-reduce) and Richardson + MG."""
+    _krylov_matches_jax(dist_run, tag)
+
+
+def test_solve_refined_matches_jax(dist_run):
+    """The outer and inner counts of the JAX package's refinement on the
+    same process grid, a true residual <= 1e-12, x within 1e-6."""
+    pgrid, n, ranks, ref = dist_run
+    for rk in ranks:
+        assert list(rk["refine.counts"]) == ref["refine.counts"]
+        assert float(rk["refine.rel"]) <= 1e-12
+    _x_within(ranks, "refine.x", ref["refine.x"], n, pgrid, 1e-6)
+
+
+def test_solve_checkpointed_matches_jax(dist_run):
+    pgrid, n, ranks, ref = dist_run
+    assert {int(rk["ckpt.total"]) for rk in ranks} == {ref["ckpt.total"]}
+    for rk in ranks:
+        assert float(rk["ckpt.rel"]) <= 1.01e-8
+    _x_within(ranks, "ckpt.x", ref["ckpt.x"], n, pgrid, 1e-6)
+
+
+def test_checkpoint_kill_and_resume_equals_uninterrupted(dist_run):
+    """Killed after chunk 0, every rank's file holds its box and EVERY
+    iterations; the resumed run starts from the saved iterate and ends
+    with the uninterrupted run's total and x, bit for bit."""
+    pgrid, n, ranks, _ = dist_run
+    for rk, (_, (start, count)) in zip(ranks, sorted(owned_boxes((n,) * 3, pgrid).items())):
+        assert list(rk["ckpt.saved"]) == [worker.EVERY, *start, *count]
+        assert int(rk["ckpt.resumed.total"]) == int(rk["ckpt.total"])
+        np.testing.assert_array_equal(rk["ckpt.resumed.x"], rk["ckpt.x"])
+        assert float(rk["ckpt.resumed.r0"]) < 0.1
+
+
+@pytest.mark.parametrize("case", ("foreign", "other"))
+def test_checkpoint_starts_fresh_on_every_rank(dist_run, case):
+    """A b that differs on rank 1 alone (one ulp), or a checkpoint written
+    on another process grid of the same ranks: every rank starts fresh,
+    its first monitored norm ||b||."""
+    for rk in dist_run[2]:
+        assert abs(float(rk[f"ckpt.{case}.r0"]) - 1.0) <= 1e-12
+
+
+def test_restart_length_agreed_over_boxes(dist_run):
+    """A basis budget just under 31 fields of the largest box: every rank
+    takes the largest box's restart (29), where each rank's own block
+    alone would give 29 or 30 (uneven boxes)."""
+    pgrid, n, ranks, _ = dist_run
+    boxes = [int(np.prod(c)) for _, (_, c) in sorted(owned_boxes((n,) * 3, pgrid).items())]
+    for rk, cells in zip(ranks, boxes):
+        agreed, alone = (int(v) for v in rk["clamp"])
+        assert agreed == 29
+        assert alone == (29 if cells == max(boxes) else 30)

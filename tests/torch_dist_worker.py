@@ -1,6 +1,6 @@
 """One rank of a spawned gloo group on the CPU, for tests/test_torch_dist*.py.
 
-    python tests/torch_dist_worker.py RANK WORLD PORT PX,PY,PZ N OUT_DIR [jacobi] [mgopts] [n6=M]
+    python tests/torch_dist_worker.py RANK WORLD PORT PX,PY,PZ N OUT_DIR [jacobi] [mgopts] [krylov] [n6=M]
 
 It imports torch, numpy and poissbox_tpu_torch only (never jax), joins the
 group over tcp://127.0.0.1:PORT, and writes OUT_DIR/rank{RANK}.npz: its
@@ -9,7 +9,12 @@ halo-padded block from the real exchange, the sharded operators' blocks
 and an MG-CG solve to rtol 1e-8 (with the Jacobi smoother too when asked,
 rank 0 then also solving the same system on one rank). With `mgopts`,
 solves with other MG options (MG_OPTS), each beside rank 0's one-rank
-solve. With `n6=M`, at M^3: the compact operators across ranks (and each
+solve. PIPECG + MG on the MG-CG system always; with `krylov`, the rest of
+the Krylov layer and the facade (KRYLOV: GMRES(30) + MG, GMRES with
+`-pc_type none`, Richardson + MG; then solve_refined, solve_checkpointed
+killed after chunk 0 and resumed, over a b that differs on rank 1 only
+and over a checkpoint of another process grid, and the restart length
+agreed over uneven boxes). With `n6=M`, at M^3: the compact operators across ranks (and each
 rank's error from the one-rank operator), the FFT solves of both orders,
 order 6 by CG + GMG, FCG + `-pc_type fft` and `-ksp_type fft`, order 2 by
 `-ksp_type fft`, with the pencil counters of each operator and solve.
@@ -19,6 +24,7 @@ JAX package. Every collective has a 120 s limit; a failure exits nonzero.
 
 from __future__ import annotations
 
+import math
 import os
 import sys
 
@@ -43,6 +49,16 @@ SOLVE = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-8", "-ksp_max_it"
 MG_OPTS = {"w": ["-mg_cycle", "w"], "cycles2": ["-mg_cycles", "2"],
            "chebyshev": ["-mg_levels_ksp_type", "chebyshev"],
            "direct": ["-mg_coarse_pc_type", "direct"], "roll": ["-mg_impl", "roll"]}
+# the other Krylov types on the MG-CG system: options, and the true
+# residual each must reach (GMRES monitors ||M r||: 10 rtol)
+MG = ["-pc_type", "mg", "-ksp_rtol", "1e-8", "-ksp_max_it", "50"]
+KRYLOV = {"pipecg": (["-ksp_type", "pipecg"] + MG, 1.01e-8),
+          "gmres": (["-ksp_type", "gmres", "-gmres_restart", "30"] + MG, 1e-7),
+          "gmresnone": (["-ksp_type", "gmres", "-gmres_restart", "30", "-pc_type", "none",
+                         "-ksp_rtol", "1e-5", "-ksp_max_it", "100"], 1e-4),
+          "richardson": (["-ksp_type", "richardson"] + MG, 1.01e-8)}
+OTHER_PGRID = {(2, 2, 1): (4, 1, 1), (3, 1, 1): (1, 3, 1)}   # same world, other boxes
+EVERY = 2
 # order 6 and the FFT: the Krylov solves to rtol 1e-8
 SOLVES6 = {"cg6": (6, ["-ksp_type", "cg", "-pc_type", "mg"]),
            "fcg6": (6, ["-ksp_type", "fcg", "-pc_type", "fft"]),
@@ -124,6 +140,105 @@ def order6(pgrid, n: int, out: dict) -> None:
             out[f"{tag}1.rel"] = s1.residual_norm(r1.x, b1)
 
 
+class Killed(Exception):
+    pass
+
+
+def _kill(chunk, result):
+    raise Killed
+
+
+def krylov(pgrid, n: int, f: dict, out_dir: str, extra, out: dict) -> None:
+    """PIPECG (and with `krylov` the rest of KRYLOV and the facade) on the
+    MG-CG system across ranks: each solve's block of x, iterations, true
+    relative residual and monitored history."""
+    from poissbox_tpu_torch import checkpoint
+    from poissbox_tpu_torch.solvers.gmres import clamp_restart
+
+    for tag, (argv, _) in KRYLOV.items():
+        if tag != "pipecg" and "krylov" not in extra:
+            continue
+        s = PoissonSolver((n,) * 3, options=Options(argv), dtype=torch.float64,
+                          device="cpu", shard=pgrid)
+        b = s.rhs_for(f["x_exact"])
+        res = s.solve(b)
+        out[f"{tag}.x"], out[f"{tag}.its"] = res.x.numpy(), int(res.iterations)
+        out[f"{tag}.rel"] = s.residual_norm(res.x, b)
+        out[f"{tag}.hist"] = res.history.numpy()
+    if "krylov" not in extra:
+        return
+    s = PoissonSolver((n,) * 3, options=Options(SOLVE), dtype=torch.float64, device="cpu",
+                      shard=pgrid)
+    g, A = s.grid, s.A
+    b = s.rhs_for(f["x_exact"])
+    ref = s.solve_refined(b)
+    out["refine.x"], out["refine.rel"] = ref.x.numpy(), s.residual_norm(ref.x, b)
+    out["refine.counts"] = np.array([ref.outer_iterations, ref.inner_iterations])
+    # the restart length over uneven boxes: a budget between the largest
+    # box's 31 fields and the smallest's
+    big = max(int(np.prod(c)) for _, c in
+              (g.box_of(r) for r in range(g.mesh.size))) * 8
+    out["clamp"] = np.array([clamp_restart(30, b, budget_bytes=31 * big - 1,
+                                           allreduce_max=A.allreduce_max),
+                             clamp_restart(30, b, budget_bytes=31 * big - 1)])
+
+    # solve_checkpointed: uninterrupted, then killed after chunk 0 and resumed
+    ck = os.path.join(out_dir, "ckpt")
+    M = make_mg_preconditioner(g.n, g.deltas, MGConfig(), torch.float64, "cpu", grid=g)
+    kw = dict(M=M, rtol=1e-8, max_it=50, every=EVERY, grid=g)
+    full, total = s.solve_checkpointed(b, os.path.join(ck, "full"), rtol=1e-8, max_it=50,
+                                       every=EVERY)
+    out["ckpt.x"], out["ckpt.total"] = full.x.numpy(), total
+    out["ckpt.rel"] = s.residual_norm(full.x, b)
+    killed = os.path.join(ck, "killed")
+    try:
+        checkpoint.solve_with_checkpoints(A, b, killed, on_chunk=_kill, **kw)
+        raise AssertionError("the kill hook did not fire")
+    except Killed:
+        pass
+    saved = checkpoint.load(checkpoint.checkpoint_path(killed, g), device="cpu")
+    out["ckpt.saved"] = np.array([int(saved["iterations"]), *saved["offset"].tolist(),
+                                  *saved["shape"].tolist()])
+    first = []
+    on = lambda c, r: first.append(float(r.history[0])) if c == 0 else None
+    res, total2 = checkpoint.solve_with_checkpoints(A, b, killed, on_chunk=on, **kw)
+    out["ckpt.resumed.x"], out["ckpt.resumed.total"] = res.x.numpy(), total2
+    bnorm = math.sqrt(float(A.allreduce(torch.sum(b * b).reshape(1))[0]))
+    # a resumed run's first monitored norm is its saved iterate's residual,
+    # a fresh run's is ||b|| (x0 = 0)
+    out["ckpt.resumed.r0"] = first[0] / bnorm
+
+    # a b that differs on rank 1 alone, one ulp in one element
+    foreign = os.path.join(ck, "foreign")
+    try:
+        checkpoint.solve_with_checkpoints(A, b, foreign, on_chunk=_kill, **kw)
+    except Killed:
+        pass
+    b2 = b.clone()
+    if g.mesh.rank == 1:
+        b2[0, 0, 0] = torch.nextafter(b2[0, 0, 0], torch.tensor(np.inf, dtype=b.dtype))
+    first.clear()
+    checkpoint.solve_with_checkpoints(A, b2, foreign, on_chunk=on, **kw)
+    out["ckpt.foreign.r0"] = first[0] / math.sqrt(
+        float(A.allreduce(torch.sum(b2 * b2).reshape(1))[0]))
+
+    # a checkpoint written on another process grid of the same ranks
+    other = os.path.join(ck, "other")
+    so = PoissonSolver((n,) * 3, options=Options(SOLVE), dtype=torch.float64, device="cpu",
+                       shard=OTHER_PGRID[tuple(pgrid)])
+    Mo = make_mg_preconditioner(g.n, g.deltas, MGConfig(), torch.float64, "cpu",
+                                grid=so.grid)
+    try:
+        checkpoint.solve_with_checkpoints(
+            so.A, so.rhs_for(so.grid.shard(fields(n)["x_exact"])), other,
+            **dict(kw, M=Mo, grid=so.grid, on_chunk=_kill))
+    except Killed:
+        pass
+    first.clear()
+    checkpoint.solve_with_checkpoints(A, b, other, on_chunk=on, **kw)
+    out["ckpt.other.r0"] = first[0] / bnorm
+
+
 def main(argv) -> int:
     rank, world, port = int(argv[0]), int(argv[1]), int(argv[2])
     pgrid = tuple(int(p) for p in argv[3].split(","))
@@ -180,6 +295,7 @@ def main(argv) -> int:
                                    dtype=torch.float64, device="cpu")
                 r1 = s1.solve(s1.rhs_for(torch.as_tensor(fields(n)["x_exact"])))
                 out[f"mg1.{tag}.x"], out[f"mg1.{tag}.its"] = r1.x.numpy(), int(r1.iterations)
+    krylov(pgrid, n, f, out_dir, extra, out)
     n6 = next((int(a[3:]) for a in extra if a.startswith("n6=")), None)
     if n6:
         order6(pgrid, n6, out)
