@@ -16,7 +16,12 @@ and fails loudly if any phase fails:
      and f32, at 4^3 and 8^3 f64 and at odd (6, 5, 7) extents; KA's grid
      against ops/stencil_cuda.ka_blocks), then kernel, plain and bound
      times at 256^3 f32 and, for the modes of the 512^3 path (and K2, K12),
-     at 512^3 f32, with K2's share of its floor; K1 beside Conv3d; then the
+     at 512^3 f32, with K2's share of its floor; K1 beside Conv3d; K11 bit
+     for bit at every distributed block (DIST_BLOCKS), (6, 5, 7), (9, 6, 5),
+     (40, 36, 52), (64, 32, 48), 256^3 and 512^3 in f32, f64
+     (below 256^3) and bf16, both colours, cubic cells and not, and
+     timed in bf16 at the (2, 2, 1) block of 512^3
+     and at 512^3, in f32 at 256^3 and the block; then the
      one-launch general sweep against two K11 launches at 256^3 f32 and
      512^3 bf16, seven pairs in turns;
   4. transfers: the banded-matrix y/z transfers against the roll form in
@@ -211,9 +216,9 @@ RED_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # banded-matrix transfers against the roll form, float32
 MM_TOL = 1e-6
 # the kernels whose fields must equal their plain versions bit for bit
-# (KA's epilogues, K15 on both of its kernels, K14, and K13, K16 and K17
-# on their strip and streaming kernels)
-BIT_EQUAL = ("stencil7.", "compact.", "tridiag.")
+# (KA's epilogues, K11's colour update, K15 on both of its kernels, K14,
+# and K13, K16 and K17 on their strip and streaming kernels)
+BIT_EQUAL = ("stencil7.", "rbsor.general", "compact.", "tridiag.")
 
 PALLAS = "poissbox_tpu/ops/stencil_pallas.py"
 INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
@@ -540,7 +545,7 @@ def check_kernels() -> dict:
             # a sweep mode's row takes the rev=False sweep, K11's the
             # colour-0 update
             record = "/" not in name or name.endswith(("rev=False", "colour=0"))
-            timed = record and not (n == 512 and key in CHECK_512)
+            timed = record and not (n == 512 and key in CHECK_512) and key not in K11_KEYS
             if n in (256, 512) and timed:
                 ms, plain_ms = median_ms(lambda: kern(f)), median_ms(lambda: plain(f))
                 bd = bound(sum(f[k].nbytes for k in ins) + out_bytes(got),
@@ -1327,7 +1332,7 @@ def utils_on_card(run, smi) -> None:
 
 
 # kernel name -> group of the device-time breakdown (first match wins)
-GROUPS = (("KB", ("sweep_kernel", "colour_kernel")), ("K6", ("restrict_kernel",)),
+GROUPS = (("KB", ("sweep_kernel",)), ("K11", ("colour_kernel",)), ("K6", ("restrict_kernel",)),
           ("K7", ("prolong_add_kernel",)), ("KA", ("stencil7_kernel",)),
           ("K8", ("cgupd",)), ("K15", ("compact_reg_kernel", "compact_kernel")),
           ("contractions", ("gemm", "cutlass", "xmma", "sm90")))
@@ -1824,37 +1829,81 @@ DIST_K15: dict = {}
 
 
 def check_dist_blocks(stats: dict) -> None:
-    """K1, K2, K8, K9, K10 and K11 (bf16 K11 on the float32 blocks) at the
-    local block shapes of the distributed phase against their plain
-    versions; K11 in bf16 timed at the (2, 2, 1) block of 512^3."""
+    """K1, K2, K8, K9, K10 and K11 at the local block shapes of the
+    distributed phase against their plain versions (K11 bit for bit; its
+    bf16 form and its times: check_colour_update)."""
     for shape, n, dtype in DIST_BLOCKS:
         d = (1.0 / n,) * 3
         f = fields(shape, dtype, seed=sum(shape) + 3)
         for name, ins, ops, kern, plain in mode_calls(d, False):
-            if name.split("/")[0] in DIST_MODES:
+            key = name.split("/")[0]
+            if key in DIST_MODES:
                 err = compare(f"{name} block {shape} {dtype}", kern(f), plain(f))
-                key = name.split("/")[0]
+                if key.startswith(BIT_EQUAL) and err != 0.0:
+                    raise AssertionError(f"{name} block {shape} {dtype}: field max|diff| "
+                                         f"{err:.3e}, not bit-equal")
                 stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-        if dtype == torch.float32:
-            for colour in (0, 1):
-                kern = lambda c=colour: sc.sor_sweep_cuda(f["u16"], f["b16"], d, W, c)
-                plain = lambda c=colour: sc.sor_sweep_plain(f["u16"], f["b16"], d, W, c)
-                got = kern()
-                err = compare(f"rbsor.general.bf16 block {shape}", got, plain())
-                st = stats["rbsor.general.bf16"]
-                st["max_abs_err"] = max(st["max_abs_err"], err)
-                if shape == (256, 256, 512) and colour == 0:
-                    ms, plain_ms = median_ms(kern), median_ms(plain)
-                    bd = bound(f["u16"].nbytes + f["b16"].nbytes + out_bytes(got),
-                               7 * f["u"].numel())
-                    st.update(ms=ms, plain_ms=plain_ms, **bd)
-                    print(f"  rbsor.general.bf16 {shape}: kernel {ms:.4f} ms, plain "
-                          f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms, "
-                          f"{share(bd, ms)}, max|diff| {err:.3e}")
         del f
         print(f"  the distributed path's kernels agree on the block {shape} {dtype}",
               flush=True)
     torch.cuda.empty_cache()
+
+
+# K11's shapes: the distributed blocks (DIST_BLOCKS, down to the coarse
+# (4, 4, 8)), odd and ragged tiles, odd x and z extents, 256^3 and 512^3;
+# each in f32, f64 (below 256^3) and bf16, both colours, cubic cells and not
+K11_KEYS = ("rbsor.general", "rbsor.general.bf16")
+K11_SHAPES = [shape for shape, _, _ in DIST_BLOCKS] + [
+    (6, 5, 7), (9, 6, 5), (40, 36, 52), (64, 32, 48), (256,) * 3, (512,) * 3]
+# (shape, dtype) where K11 is timed: bf16 at the (2, 2, 1) block of 512^3
+# (the distributed fine level, the counter's row) and at 512^3; f32 at
+# 256^3 (the counter's row) and at the fine block
+K11_TIMED = [((256, 256, 512), BF16), ((512,) * 3, BF16), ((256,) * 3, torch.float32),
+             ((256, 256, 512), torch.float32)]
+
+
+def check_colour_update(stats: dict) -> None:
+    """K11 against its plain version bit for bit at every shape of
+    K11_SHAPES, in f32, f64 and bf16, both colours, with cubic cells and
+    with three spacings that differ; then kernel, plain and bound times at
+    K11_TIMED, with the share of the bound."""
+    for shape in K11_SHAPES:
+        big = math.prod(shape) >= 256 ** 3
+        for dtype in (torch.float32, torch.float64, BF16):
+            if big and dtype == torch.float64:
+                continue
+            key = "rbsor.general" + (".bf16" if dtype == BF16 else "")
+            g = torch.Generator(device=DEVICE).manual_seed(sum(shape) + 29)
+            u, b = ((torch.rand(shape, generator=g, device=DEVICE,
+                                dtype=torch.float64 if dtype == torch.float64
+                                else torch.float32) * 2 - 0.75).to(dtype) for _ in range(2))
+            iso = (1.0 / max(shape),) * 3
+            for d in (iso, (1.0 / shape[0], 0.75 / shape[1], 1.5 / shape[2])):
+                for colour in (0, 1):
+                    got = sc.sor_sweep_cuda(u, b, d, W, colour)
+                    err = compare(f"K11 {shape} {dtype} deltas {d} colour {colour}",
+                                  got, sc.sor_sweep_plain(u, b, d, W, colour))
+                    torch.cuda.synchronize()
+                    if err != 0.0:
+                        raise AssertionError(f"K11 {shape} {dtype} colour {colour}: field "
+                                             f"max|diff| {err:.3e}, not bit-equal")
+                    stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+                    del got
+            if (shape, dtype) in K11_TIMED:
+                kern = lambda: sc.sor_sweep_cuda(u, b, iso, W, 0)
+                plain = lambda: sc.sor_sweep_plain(u, b, iso, W, 0)
+                ms, plain_ms = median_ms(kern), median_ms(plain)
+                bd = bound(3 * u.nbytes, 7 * u.numel())
+                print(f"  K11 {key} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), {share(bd, ms)}",
+                      flush=True)
+                if (shape, dtype) in K11_TIMED[:1] + K11_TIMED[2:3]:
+                    stats[key].update(ms=ms, plain_ms=plain_ms, **bd)
+            del u, b
+        torch.cuda.empty_cache()
+        print(f"  K11 bit-equal to its plain version at {shape} (f32"
+              + (", f64" if not big else "") + ", bf16; both colours; cubic cells "
+              "and not)", flush=True)
 
 
 # path (n)'s pencil route: (grid, process grid, dtype) whose blocks K15
@@ -2687,6 +2736,7 @@ def main() -> int:
     phase("kernels against plain versions")
     stats = check_kernels()
     check_dist_blocks(stats)
+    check_colour_update(stats)
     check_pencil_blocks(stats)
 
     phase("the one-pass sweep against two K11 launches")

@@ -104,6 +104,17 @@ inline dim3 tile_grid(int nx, int ny, int nz, int chunk) {
   return dim3((nz + kTZ - 1) / kTZ, (ny + kTY - 1) / kTY, (nx + chunk - 1) / chunk);
 }
 
+// the x planes a block of KA (stencil7.cu) or of K11's colour update
+// (rbsor.cu) walks: the chunk halves from 128 until the grid holds
+// kKaMinBlocks blocks (or the chunk is 4); blocks an SM holds. Chosen for
+// KA on an NVIDIA H100 80GB HBM3 at 700 W among 1024 to 8192 blocks, with
+// and without the register cap: 4096 with six blocks an SM was the fastest
+// or within noise of it for every epilogue at 256^3 and 512^3.
+constexpr long kKaMinBlocks = 4096;
+constexpr int kKaResident = 6;
+
+inline int ka_chunk(int nx, int ny, int nz) { return tile_chunk(nx, ny, nz, 128, kKaMinBlocks); }
+
 // The (y, z) window of the tile at (j0, k0) with an H-cell periodic halo:
 // (kTY + 2H) x (kTZ + 2H) cells, row-major, z fastest. Thread `tid` stages
 // cells tid + r * kTileThreads (r < kR, those below kN): `off` holds their

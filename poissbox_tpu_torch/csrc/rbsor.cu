@@ -6,6 +6,7 @@
 //
 // Replaces these TPU kernels of poissbox_tpu/ops/stencil_pallas.py:
 //   K11 _sor (_upd_sor)                   one colour update: colour_kernel
+//       (its own streamed kernel, below the sweep's design)
 //   K3  _sor_rb_zero (_sor_rb_zero_kernel)          sweep_kernel, kZeroSweep:
 //       the first colour from x = 0 is winv * mask * b (x is never read)
 //   K4  _sor_rb (_sor_rb_kernel)                    kSweep; with dots,
@@ -81,11 +82,43 @@
 //     halo cell, so every staged value is a real one; only the owned cells
 //     (j < ny, k < nz) are written.
 //
+// Design (colour_kernel, K11: one colour update, the colour update of every
+// distributed multigrid level). KA's streamed skeleton (stencil7.cu) with
+// the sweep's pairs: a block of 256 threads owns a 32 x 16 (y, z) tile on
+// KA's grid (common.cuh ka_chunk: about 4096 blocks) and walks its chunk of
+// x planes. The plane at hand sits in shared memory as a window with a
+// 1-cell periodic halo in y and a 2-cell one in z (PairWindow), in a ring of
+// three slots, one barrier a plane. A thread owns one z-adjacent pair of the
+// tile a plane, k even: it updates the cell of the colour, chosen by its
+// address (no warp diverges), and copies the other; x[i-1] of its pair is
+// kept in registers from the step before, x[i+1] read at its pair of the
+// next slot, so each x value comes from HBM about once. On an even z extent
+// with aligned fields every window pair, b's pair and the stored pair move
+// as one vector (VEC), so a bf16 cell costs half the load and store
+// instructions of the point kernel it replaced; otherwise cell by cell.
+// The next planes' windows and b are loaded into registers right after the
+// barrier, one plane ahead, two in bf16 (the same registers then keep twice
+// the bytes in flight). An owned pair never straddles the z wrap: on an odd
+// extent the last one of a row is the lone cell nz - 1, updated or copied by
+// its own parity, its z+1 neighbour the window's wrapped cell 0.
+//
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (k11_times.py) K11 takes
+// 0.1094 ms in bf16 on the (256, 256, 512) block of the distributed 512^3
+// level, 54.9 % of its bound (the one-thread-a-point kernel it replaced:
+// 0.1770 ms, 34.0 %), 0.3996 ms in bf16 at 512^3 (60.2 %), 0.0827 ms in
+// f32 at 256^3 (72.7 %; before 0.0896) and 0.1542 ms in f32 on the block
+// (77.9 %; before 0.1730). What still holds bf16 back: a load moves half
+// the bytes of an f32 one, and six blocks an SM two planes ahead keep too
+// few bytes in flight to cover HBM's latency; a grid of 8192 blocks and
+// f32 staged two planes ahead each moved the four cases by under 3 %.
+//
 // Bound on an H100 SXM (3.35 TB/s): a general sweep reads x and b and
 // writes x_out, 3 field passes (0.060 ms at 256^3 f32, 0.240 ms at 512^3
 // bf16); the zero sweep 2 (0.040; bf16 512^3 0.160); the fused update reads
 // r and Ap and writes b and x1, 4 passes (0.080; narrow at 512^3 0.561).
-// The colour update (K11) is 3 passes: a sweep of two of them is 6.
+// The colour update (K11) is 3 passes (0.060 ms at 256^3 f32 and in bf16
+// on the (256, 256, 512) block, 0.120 ms there in f32, 0.240 ms at 512^3
+// bf16): a sweep of two of them is 6.
 #include "common.cuh"
 
 namespace poissbox {
@@ -113,23 +146,6 @@ __device__ __forceinline__ C sor_update(C c, C bv, C xm, C xp, C ym, C yp, C zm,
     res = bv - (acc - k.center * c);
   }
   return c + k.winv * res;
-}
-
-// K11: one colour update, one thread per point.
-template <typename T, bool ISO>
-__global__ void __launch_bounds__(kThreads)
-colour_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restrict__ out, int nx,
-              int ny, int nz, Coef<typename Compute<T>::type> k, int color) {
-  using C = typename Compute<T>::type;
-  const Point q = locate(nx, ny, nz);
-  if (!q.active) return;
-  const C c = cvt<C>(x[q.p]);
-  C v = c;
-  if (((q.i + q.j + q.k) & 1) == color)
-    v = sor_update<C, ISO>(c, cvt<C>(b[q.p]), cvt<C>(x[q.xm]), cvt<C>(x[q.xp]),
-                           cvt<C>(x[q.ym]), cvt<C>(x[q.yp]), cvt<C>(x[q.zm]),
-                           cvt<C>(x[q.zp]), k);
-  out[q.p] = cvt<T>(v);
 }
 
 // The two-element vector of a stored type, for a pair store.
@@ -411,6 +427,175 @@ constexpr size_t sweep_smem() {
   return (size_t)((from_x ? 4 * TileWindow<2>::kN : 0) + 8 * TileWindow<1>::kN) * sizeof(C);
 }
 
+// K11's window: the tile with a 1-cell halo in y and a 2-cell halo in z,
+// kY rows of kZ cells, z fastest, staged as kP z-adjacent pairs (cells
+// k0 - 2 + 2p and k0 - 1 + 2p of a row), so that on an even z extent every
+// window pair starts at an even k and is one aligned vector in memory.
+// Pair e of the window sits at cells 2e and 2e + 1 of the row-major window.
+struct PairWindow {
+  static constexpr int kZ = kTZ + 4;
+  static constexpr int kY = kTY + 2;
+  static constexpr int kN = kZ * kY;
+  static constexpr int kP = kN / 2;
+  static constexpr int kR = (kP + kTileThreads - 1) / kTileThreads;
+  __device__ __forceinline__ static bool has(int r, int tid) {
+    return tid + r * kTileThreads < kP;
+  }
+};
+
+// Blocks an SM must hold, which caps the registers: KA's six (42
+// registers), or four (64) in f64, whose pairs take twice the registers.
+template <typename C>
+constexpr int colour_blocks_per_sm() {
+  return sizeof(C) == 8 ? 4 : kKaResident;
+}
+
+// K11: one colour update of the block's tile over its chunk of x planes
+// (see the header). VEC: the z extent is even and x, b and out are aligned
+// to a pair, so every pair moves as one vector; otherwise cell by cell.
+template <typename T, bool ISO, bool VEC>
+__global__ void __launch_bounds__(kTileThreads, colour_blocks_per_sm<typename Compute<T>::type>())
+colour_kernel(const T* __restrict__ x, const T* __restrict__ b, T* __restrict__ out, int nx,
+              int ny, int nz, int chunk, Coef<typename Compute<T>::type> k, int color) {
+  using C = typename Compute<T>::type;
+  using T2 = typename Vec2<T>::type;
+  using C2 = typename Vec2<C>::type;
+  using PW = PairWindow;
+  __shared__ __align__(16) C xs[3][PW::kN];
+  const int tid = threadIdx.x + kTZ * threadIdx.y;
+  const int j0 = blockIdx.y * kTY, k0 = blockIdx.x * kTZ;
+  const int i0 = blockIdx.z * chunk;
+  const int n = min(chunk, nx - i0);
+  const size_t plane = (size_t)ny * nz;
+  // the window pairs this thread stages: the offsets in a plane of their
+  // first cells (and, cell by cell, of their second)
+  int woff[PW::kR], woff1[PW::kR];
+#pragma unroll
+  for (int rr = 0; rr < PW::kR; ++rr) {
+    const int e = tid + rr * kTileThreads;
+    const int row = pmod(j0 - 1 + e / (PW::kZ / 2), ny) * nz, kz = k0 - 2 + 2 * (e % (PW::kZ / 2));
+    woff[rr] = row + pmod(kz, nz);
+    woff1[rr] = row + pmod(kz + 1, nz);
+  }
+  // the pair this thread owns in each plane: cells (oj, ok) and (oj, ok + 1)
+  // of the tile, oc the first one's place in the window. ok is even, so on
+  // an even extent the pair holds one cell of each colour; on an odd one
+  // the last pair of a row is the lone cell nz - 1.
+  const int orow = tid / (kTZ / 2), ozp = tid % (kTZ / 2);
+  const int oj = j0 + orow, ok = k0 + 2 * ozp;
+  const bool own = oj < ny && ok < nz;
+  const bool own_b = own && ok + 1 < nz;
+  const int oc = (orow + 1) * PW::kZ + 2 + 2 * ozp;
+  const size_t ooff = (size_t)oj * nz + ok;
+  const int jk = (oj + ok) & 1;
+  const T zero = cvt<T>(C(0));
+  auto next = [nx](int q) { return q + 1 == nx ? 0 : q + 1; };
+
+  // the register stages, kDepth planes ahead: the window of an x plane, b
+  // at the pair owned. bf16 stages two planes ahead, which keeps twice the
+  // bytes of a 4-byte type's one plane in flight for the same registers.
+  constexpr int kDepth = sizeof(T) == 2 ? 2 : 1;
+  T2 xr[kDepth][PW::kR], br[kDepth];
+  auto stage_x = [&](T2(&dst)[PW::kR], int q) {
+    const T* src = x + (size_t)q * plane;
+#pragma unroll
+    for (int rr = 0; rr < PW::kR; ++rr) {
+      if (!PW::has(rr, tid)) continue;
+      if constexpr (VEC) {
+        dst[rr] = *reinterpret_cast<const T2*>(src + woff[rr]);
+      } else {
+        dst[rr].x = src[woff[rr]];
+        dst[rr].y = src[woff1[rr]];
+      }
+    }
+  };
+  // the pair owned in the plane at src (a lone cell's partner reads 0)
+  auto owned = [&](const T* src) {
+    T2 v;
+    if constexpr (VEC) {
+      v = *reinterpret_cast<const T2*>(src + ooff);
+    } else {
+      v.x = src[ooff];
+      v.y = own_b ? src[ooff + 1] : zero;
+    }
+    return v;
+  };
+  auto put = [&](C* dst, const T2(&src)[PW::kR]) {
+#pragma unroll
+    for (int rr = 0; rr < PW::kR; ++rr) {
+      if (!PW::has(rr, tid)) continue;
+      C2 v;
+      v.x = cvt<C>(src[rr].x);
+      v.y = cvt<C>(src[rr].y);
+      *reinterpret_cast<C2*>(dst + 2 * (tid + rr * kTileThreads)) = v;
+    }
+  };
+  // qx, qb: the wrapped planes of the next x window and the next b to stage
+  int qx = i0, qb = i0;
+  auto stage = [&](int d) {
+    stage_x(xr[d], qx);
+    qx = next(qx);
+    if (own) br[d] = owned(b + (size_t)qb * plane);
+    qb = next(qb);
+  };
+
+  // plane i0 in slot 0; x[i0 - 1] at the pair owned; planes i0 + 1 ... and
+  // b of planes i0 ... staged
+  int qi = i0;  // the wrapped plane i of the step (i0 < nx)
+  stage_x(xr[0], qx);
+  qx = next(qx);
+  put(xs[0], xr[0]);
+  C2 um;  // x[i - 1] at the pair owned
+  um.x = um.y = C(0);
+  if (own) {
+    const T2 v = owned(x + (size_t)pmod(i0 - 1, nx) * plane);
+    um.x = cvt<C>(v.x);
+    um.y = cvt<C>(v.y);
+  }
+#pragma unroll
+  for (int d = 0; d < kDepth; ++d) {
+    br[d].x = br[d].y = zero;
+    if (d < n) stage(d);
+  }
+  int s0 = 0, s1 = 1;  // the slots of planes i and i + 1
+  // Step t (plane i = i0 + t): store the staged plane i + 1, one barrier,
+  // stage plane i + 1 + kDepth and b of plane i + kDepth, update plane i.
+  // Three slots let one barrier a step suffice: a thread still in step
+  // t - 1 reads planes i - 1 and i, never the slot step t writes.
+  for (int t = 0; t < n; ++t) {
+    put(xs[s1], xr[0]);
+    const T2 bv = br[0];
+#pragma unroll
+    for (int d = 1; d < kDepth; ++d) {
+#pragma unroll
+      for (int rr = 0; rr < PW::kR; ++rr) xr[d - 1][rr] = xr[d][rr];
+      br[d - 1] = br[d];
+    }
+    __syncthreads();
+    const int q1 = next(qi);
+    if (t + kDepth < n) stage(kDepth - 1);
+    if (own) {
+      const C* x0 = xs[s0];
+      const C2 cc = *reinterpret_cast<const C2*>(x0 + oc);
+      // the cell of the colour, chosen by its address: the first when the
+      // pair's parity at plane i is the colour, else the second
+      const bool ua = ((qi + jk) & 1) == color;
+      const int cu = oc + (ua ? 0 : 1);
+      const C zo = x0[ua ? oc - 1 : oc + 2];  // its z neighbour outside the pair
+      const C upd = sor_update<C, ISO>(ua ? cc.x : cc.y, cvt<C>(ua ? bv.x : bv.y),
+                                       ua ? um.x : um.y, xs[s1][cu], x0[cu - PW::kZ],
+                                       x0[cu + PW::kZ], ua ? zo : cc.x, ua ? cc.y : zo, k);
+      store_pair(out + (size_t)qi * plane + ooff, cvt<T>(ua ? upd : cc.x),
+                 cvt<T>(ua ? cc.y : upd), own_b, VEC);
+      um = cc;
+    }
+    const int s2 = 3 - s0 - s1;
+    s0 = s1;
+    s1 = s2;
+    qi = q1;
+  }
+}
+
 struct RbsorCoef {
   double ivx, ivy, ivz, center, six_iv, winv;
   template <typename C>
@@ -487,20 +672,30 @@ cudaError_t launch_sweep_typed(int tin, int tout, int mode, cudaStream_t s, cons
   return cudaErrorInvalidValue;
 }
 
+template <typename T, bool ISO, bool VEC>
+cudaError_t launch_colour_as(cudaStream_t s, const T* x, const T* b, T* out, int nx, int ny,
+                             int nz, const RbsorCoef& k, int color) {
+  using C = typename Compute<T>::type;
+  const int chunk = ka_chunk(nx, ny, nz);
+  colour_kernel<T, ISO, VEC><<<tile_grid(nx, ny, nz, chunk), tile_block(), 0, s>>>(
+      x, b, out, nx, ny, nz, chunk, k.as<C>(), color);
+  return cudaGetLastError();
+}
+
 template <typename T>
 cudaError_t launch_colour(int iso, cudaStream_t s, const void* x, const void* b, void* out,
                           int nx, int ny, int nz, const RbsorCoef& k, int color) {
-  using C = typename Compute<T>::type;
   const T* xx = static_cast<const T*>(x);
   const T* bb = static_cast<const T*>(b);
   T* oo = static_cast<T*>(out);
+  constexpr size_t kPair = 2 * sizeof(T);
+  const bool vec = !(nz & 1) && !(reinterpret_cast<size_t>(x) % kPair) &&
+                   !(reinterpret_cast<size_t>(b) % kPair) && !(reinterpret_cast<size_t>(out) % kPair);
   if (iso)
-    colour_kernel<T, true><<<launch_grid(nx, ny, nz), launch_block(), 0, s>>>(
-        xx, bb, oo, nx, ny, nz, k.as<C>(), color);
-  else
-    colour_kernel<T, false><<<launch_grid(nx, ny, nz), launch_block(), 0, s>>>(
-        xx, bb, oo, nx, ny, nz, k.as<C>(), color);
-  return cudaGetLastError();
+    return vec ? launch_colour_as<T, true, true>(s, xx, bb, oo, nx, ny, nz, k, color)
+               : launch_colour_as<T, true, false>(s, xx, bb, oo, nx, ny, nz, k, color);
+  return vec ? launch_colour_as<T, false, true>(s, xx, bb, oo, nx, ny, nz, k, color)
+             : launch_colour_as<T, false, false>(s, xx, bb, oo, nx, ny, nz, k, color);
 }
 
 }  // namespace poissbox

@@ -99,17 +99,8 @@ struct LoadPUpdate {
   __device__ __forceinline__ T value(Raw r) const { return (r.v - zs) + beta * r.p; }
 };
 
-// the x planes a KA block walks: the chunk halves from 128 until the grid
-// holds kKaMinBlocks blocks (or the chunk is 4); blocks an SM holds. Chosen
-// on an NVIDIA H100 80GB HBM3 at 700 W among 1024 to 8192 blocks, with and
-// without the register cap: 4096 with six blocks an SM was the fastest or
-// within noise of it for every epilogue at 256^3 and 512^3.
-constexpr long kKaMinBlocks = 4096;
-constexpr int kKaResident = 6;
-
-inline int ka_chunk(int nx, int ny, int nz) { return tile_chunk(nx, ny, nz, 128, kKaMinBlocks); }
-
-// y = star(load) over the block's tile and chunk (see the header); `pout`
+// y = star(load) over the block's tile and chunk (see the header; the chunk
+// is common.cuh's ka_chunk); `pout`
 // (K12) receives p' at the points owned, `part` one partial of the dot.
 template <typename T, int EPI, typename Load>
 __global__ void __launch_bounds__(kTileThreads, kKaResident)

@@ -25,9 +25,11 @@ The port of :mod:`poissbox_tpu.ops.stencil_pallas` for the kernels of the
   cg_fused_update_cuda        cg_fused_update                         K8
   ==========================  ======================================  ======
 
-K11, one colour update, is KB's colour kernel; a sweep (K3, K4, K5) is
-ONE launch of KB's sweep kernel, which recomputes the first colour on a
-halo of its tile instead of storing it (``csrc/rbsor.cu``). K1'/K2', the
+K11, one colour update, streams x planes through a (y, z) tile on KA's
+grid (:func:`ka_blocks`), a thread a z-adjacent pair of cells, updating
+the one of the colour; a sweep (K3, K4, K5) is ONE launch of KB's sweep
+kernel, which recomputes the first colour on a halo of its tile instead
+of storing it (``csrc/rbsor.cu``). K1'/K2', the
 TPU's streamed matvec for fields of 256 MB and more, is KA's apply and
 apply_dot out of place.
 
@@ -193,6 +195,17 @@ def colour_parity(shape, device) -> torch.Tensor:
     return (i + j + k) % 2
 
 
+def colour_mask(shape, colour: int, device) -> torch.Tensor:
+    """(i + j + k) % 2 == colour as a bool field, written once: the parity
+    of i + j on a 2-D plane broadcast against that of k, so no int64 field
+    of the whole shape is built (a face plane, with its index along the
+    face's axis fixed, takes the same call)."""
+    i = torch.arange(shape[0], device=device).view(-1, 1, 1)
+    j = torch.arange(shape[1], device=device).view(1, -1, 1)
+    k = torch.arange(shape[2], device=device).view(1, 1, -1)
+    return ((i + j) & 1) == ((k & 1) ^ int(colour))
+
+
 def _colour_weights(b: torch.Tensor, winv: float, reverse: bool):
     """(w1, w2): the masked weight fields of the first and second colour."""
     c0, c1 = _colours(reverse)
@@ -349,7 +362,7 @@ def ka_blocks(shape) -> tuple[int, int, int, int]:
     """KA's launch over a field of `shape`: (blocks along z, along y,
     along x, x planes a block walks), the chunk halved from 128 until the
     grid holds KA_MIN_BLOCKS blocks, but not below 4. One dot partial a
-    block."""
+    block. K11's colour update takes the same grid."""
     nx, ny, nz = shape
     gz, gy = -(-nz // TILE_Z), -(-ny // TILE_Y)
     chunk = 128
@@ -491,7 +504,8 @@ def sor_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas, weight: float,
                    color: int) -> torch.Tensor:
     """One red-black colour update (K11, KB's general mode): the points of
     parity `color` (0 = red, (i+j+k) even) get x + winv (b - A x), the
-    others are copied. u and b may be bf16."""
+    others are copied. u and b may be bf16. One launch on KA's grid
+    (:func:`ka_blocks`)."""
     if _on_cpu(u):
         return sor_sweep_plain(u, b, deltas, weight, color)
     _check("rbsor.general", u, b)

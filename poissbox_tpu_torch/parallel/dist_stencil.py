@@ -40,6 +40,7 @@ the halos from a global field without a process group
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -49,7 +50,7 @@ from poissbox_tpu_torch.ops.stencil_cuda import (
     apply_laplacian_cuda,
     apply_laplacian_dot_cuda,
     cg_fused_update_cuda,
-    colour_parity,
+    colour_mask,
     jacobi_sweep_cuda,
     residual_cuda,
     sor_sweep_cuda,
@@ -144,17 +145,22 @@ def _sharded(grid) -> bool:
     return bool(sharded_dims(grid.mesh))
 
 
-def _face_color_masks(shape, dims, color_local: int, dtype, device) -> dict:
+@functools.lru_cache(maxsize=64)
+def _face_color_masks(shape: tuple, dims: tuple, color_local: int, dtype,
+                      device) -> dict:
     """Red-black masks of the split face planes, from local indices: 1
     where the LOCAL parity is `color_local` (the global colour XOR the
-    box's offset parity)."""
-    par = colour_parity(shape, device)
+    box's offset parity). Each face's mask comes from its own indices: the
+    low face's parity along d is that of its two in-plane indices, the high
+    face's that XOR (n - 1) & 1. Cached by level shape (the callers only
+    read them), so a V-cycle builds each once."""
     masks = {}
     for d in dims:
-        n = shape[d]
-        lo = (par.narrow(d, 0, 1) == color_local).to(dtype)
-        hi = (par.narrow(d, n - 1, 1) == color_local).to(dtype)
-        masks[d] = (lo, hi)
+        face = list(shape)
+        face[d] = 1
+        hi_colour = color_local ^ ((shape[d] - 1) & 1)
+        masks[d] = (colour_mask(face, color_local, device).to(dtype),
+                    colour_mask(face, hi_colour, device).to(dtype))
     return masks
 
 
@@ -273,8 +279,9 @@ def sor_sweep_sharded(x: Tensor, b: Tensor, grid, weight: float, color: int,
     if impl == "cuda":
         out = sor_sweep_cuda(x, b, grid.deltas, weight, local_color)
     else:
-        mask = (colour_parity(x.shape, x.device) == local_color).to(x.dtype)
+        mask = colour_mask(x.shape, local_color, x.device).to(x.dtype)
         out = x + (winv * mask) * (b - apply_laplacian(x, grid.deltas))
     diffs = _diffs(x, wait())
-    masks = _face_color_masks(x.shape, diffs, local_color, x.dtype, x.device)
+    masks = _face_color_masks(tuple(x.shape), tuple(diffs), local_color, x.dtype,
+                              x.device)
     return _apply_corrections(out, diffs, _invs(grid), scale=-winv, masks=masks)

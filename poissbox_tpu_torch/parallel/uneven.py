@@ -26,7 +26,7 @@ from typing import Sequence
 
 import torch
 
-from poissbox_tpu_torch.ops.stencil_cuda import colour_parity
+from poissbox_tpu_torch.ops.stencil_cuda import colour_mask
 from poissbox_tpu_torch.parallel.dist_stencil import (
     apply_laplacian_sharded,
     jacobi_sweep_sharded,
@@ -74,9 +74,10 @@ def color_offset(grid) -> int:
 
 def color_mask(grid, color: int, dtype) -> Tensor:
     """Red-black mask of this rank's block from GLOBAL indices: 1 where
-    the global (i + j + k) % 2 is `color`."""
-    par = colour_parity(grid.local_shape, grid.device)
-    return (par == (color ^ color_offset(grid))).to(dtype)
+    the global (i + j + k) % 2 is `color` (one bool field, then the cast:
+    no int64 field)."""
+    return colour_mask(grid.local_shape, color ^ color_offset(grid),
+                       grid.device).to(dtype)
 
 
 # the uneven operators are the correction-form ones (any box, any offset)

@@ -32,6 +32,7 @@ from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options
 from poissbox_tpu_torch.mesh import Grid3D, ProcessGrid, make_process_grid
 from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
+from poissbox_tpu_torch.ops import stencil, stencil_cuda
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.parallel import decomp, dist_stencil as ds, halo, uneven
 from poissbox_tpu_torch.solvers.cg import cg
@@ -283,6 +284,82 @@ def test_colour_mask_is_the_global_parity(pgrid):
         for c in (0, 1):
             want = g.shard((par == c).astype(np.float64))
             assert torch.equal(uneven.color_mask(g, c, torch.float64), want)
+
+
+# the boxes of the red-black mask checks: the reference's 64^3 split
+# (offsets 0, 22, 43: an odd one), (3,2,1) and (2,2,2) (even offsets), and
+# odd y and z offsets (7) on (1,3,3)
+MASK_BOXES = [((3, 1, 1), (64, 64, 64)), ((3, 2, 1), (24, 24, 24)),
+              ((2, 2, 2), (16, 16, 16)), ((1, 3, 3), (8, 21, 21))]
+ODD_OFFSETS = {(3, 1, 1), (1, 3, 3)}
+
+
+def _full_field_face_masks(shape, dims, colour, dtype):
+    """The face masks as they were built before: a full int64 parity field
+    of the block, its face planes read."""
+    par = stencil_cuda.colour_parity(shape, "cpu")
+    return {d: ((par.narrow(d, 0, 1) == colour).to(dtype),
+                (par.narrow(d, shape[d] - 1, 1) == colour).to(dtype)) for d in dims}
+
+
+def _full_field_sor_sweep(x, b, g, weight, color, impl, faces):
+    """sor_sweep_sharded as it was formulated before, on full-field parity
+    masks: the reference the face-index masks must reproduce bit for bit."""
+    winv = ds._winv(g, weight)
+    lc = int(color) ^ ds.offset_parity(g)
+    if impl == "cuda":
+        out = stencil_cuda.sor_sweep_cuda(x, b, g.deltas, weight, lc)
+    else:
+        mask = (stencil_cuda.colour_parity(x.shape, x.device) == lc).to(x.dtype)
+        out = x + (winv * mask) * (b - stencil.apply_laplacian(x, g.deltas))
+    diffs = ds._diffs(x, faces)
+    masks = _full_field_face_masks(tuple(x.shape), tuple(diffs), lc, x.dtype)
+    return ds._apply_corrections(out, diffs, ds._invs(g), scale=-winv, masks=masks)
+
+
+@pytest.mark.parametrize("pgrid,n", MASK_BOXES)
+def test_face_masks_match_the_full_field_parity(pgrid, n):
+    """The split faces' masks from the faces' own indices, and
+    uneven.color_mask from a parity plane and k's parity, equal the
+    full-field int64 parity's on every box, odd offsets included."""
+    odd = 0
+    for r in range(int(np.prod(pgrid))):
+        g = Grid3D(n, device="cpu", mesh=ProcessGrid(pgrid, r))
+        shape, dims = tuple(g.local_shape), tuple(halo.sharded_dims(g.mesh))
+        odd += ds.offset_parity(g)
+        for c in (0, 1):
+            lc = c ^ ds.offset_parity(g)
+            for dtype in (torch.float32, torch.float64, torch.bfloat16):
+                got = ds._face_color_masks(shape, dims, lc, dtype, torch.device("cpu"))
+                want = _full_field_face_masks(shape, dims, lc, dtype)
+                assert list(got) == list(want)
+                for d in dims:
+                    for a, w in zip(got[d], want[d]):
+                        assert a.dtype == w.dtype and torch.equal(a, w)
+                old = (stencil_cuda.colour_parity(shape, "cpu") == lc).to(dtype)
+                new = uneven.color_mask(g, c, dtype)
+                assert new.dtype == old.dtype and torch.equal(new, old)
+    assert (odd > 0) == (pgrid in ODD_OFFSETS)
+
+
+@pytest.mark.parametrize("pgrid,n", MASK_BOXES)
+def test_sharded_colour_update_matches_full_field_form(pgrid, n):
+    """sor_sweep_sharded, with halos cut from the global field, is
+    bit-equal on every box to its former full-field-parity formulation,
+    through the kernel's call graph (the plain K11) and the roll form, in
+    float64 and float32."""
+    f = _inputs(n)
+    for dtype in (torch.float64, torch.float32):
+        u, bg = (torch.as_tensor(f[k]).to(dtype) for k in ("u", "b"))
+        for r in range(int(np.prod(pgrid))):
+            g = Grid3D(n, length=LENGTH, device="cpu", mesh=ProcessGrid(pgrid, r))
+            faces = halo.faces_from_global(u, g)
+            ub, bb = g.shard(u), g.shard(bg)
+            for c in (0, 1):
+                for impl in ("cuda", "roll"):
+                    got = ds.sor_sweep_sharded(ub, bb, g, W, c, local_impl=impl, faces=faces)
+                    want = _full_field_sor_sweep(ub, bb, g, W, c, impl, faces)
+                    assert torch.equal(got, want), (pgrid, r, c, impl, dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -339,3 +339,111 @@ def test_sweep_goes_through_the_colour_update():
                     stencil_cuda.pupdate_lapl_dot_plain(u, p, beta, zs, d)):
         assert torch.equal(a, c)
     assert not any(stencil_cuda.LAUNCHES.values())
+
+
+def _k11_mirror(x, b, deltas, weight, color):
+    """K11's colour kernel, mirrored: each block of ka_blocks' grid owns a
+    32 x 16 (z, y) tile and walks its chunk of x planes; the plane at hand
+    is a window with a 1-cell periodic halo in y and a 2-cell one in z, in
+    a ring of three slots; a thread owns a z-adjacent pair (ok, ok + 1), ok
+    even, and updates the cell of the colour, chosen by its address
+    ((i + j + ok) & 1), copying the other; x[i-1] at the pair is carried
+    from the step before, x[i+1] read from the next plane's slot. An owned
+    pair never straddles the z wrap (it starts at an even ok < nz): on an
+    odd extent the last one is the lone cell nz - 1, updated or copied by
+    its own parity, its z+1 neighbour the wrapped cell 0 of the window.
+    bf16 fields stage in float32 and round once at the store."""
+    nx, ny, nz = x.shape
+    tz, ty = stencil_cuda.TILE_Z, stencil_cuda.TILE_Y
+    wide = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    xw, bw = x.to(wide), b.to(wide)
+    ivx, ivy, ivz = (1.0 / float(d) ** 2 for d in deltas)
+    center, six = 2.0 * (ivx + ivy + ivz), 6.0 * ivx
+    winv = float(weight) / -center
+    iso = ivx == ivy == ivz
+    gz, gy, gx, chunk = stencil_cuda.ka_blocks(x.shape)
+    out = torch.full_like(x, float("nan"))
+    for bx in range(gx):
+        for by in range(gy):
+            for bz in range(gz):
+                i0, j0, k0 = bx * chunk, by * ty, bz * tz
+                jw = torch.arange(j0 - 1, j0 + ty + 1) % ny
+                kw = torch.arange(k0 - 2, k0 + tz + 2) % nz
+                window = lambda i: xw[i % nx][jw][:, kw]
+                oj = j0 + torch.arange(ty)
+                ok = k0 + 2 * torch.arange(tz // 2)
+                own = (oj < ny)[:, None] & (ok < nz)[None, :]
+                own_b = own & (ok + 1 < nz)[None, :]
+                a_cols, b_cols = slice(2, tz + 2, 2), slice(3, tz + 3, 2)
+                slots = [window(i0), None, None]
+                prev = window(i0 - 1)[1:-1]
+                um = (prev[:, a_cols], prev[:, b_cols])
+                staged = window(i0 + 1)
+                s0, s1 = 0, 1
+                for t in range(min(chunk, nx - i0)):
+                    slots[s1] = staged
+                    if t + 1 < min(chunk, nx - i0):
+                        staged = window(i0 + t + 2)
+                    qi = (i0 + t) % nx
+                    x0, xn = slots[s0], slots[s1]
+                    ca, cb = x0[1:-1, a_cols], x0[1:-1, b_cols]
+                    ua = ((qi + oj[:, None] + ok[None, :]) & 1) == color
+                    pick = lambda w, r=slice(1, -1): torch.where(ua, w[r, a_cols], w[r, b_cols])
+                    zo = torch.where(ua, x0[1:-1, 1:tz + 1:2], x0[1:-1, 4:tz + 4:2])
+                    bq = bw[qi][oj % ny][:, torch.stack([ok, ok + 1], 1).reshape(-1) % nz]
+                    bv = torch.where(ua, bq[:, 0::2], torch.where(own_b, bq[:, 1::2], 0.0))
+                    c = torch.where(ua, ca, cb)
+                    xm, xp = torch.where(ua, um[0], um[1]), pick(xn)
+                    ym, yp = pick(x0, slice(0, -2)), pick(x0, slice(2, None))
+                    zm, zp = torch.where(ua, zo, ca), torch.where(ua, cb, zo)
+                    if iso:
+                        s = ((xm + xp) + (ym + yp)) + (zm + zp)
+                        res = (bv - ivx * s) + six * c
+                    else:
+                        acc = (xm + xp) * ivx
+                        acc = acc + (ym + yp) * ivy
+                        acc = acc + (zm + zp) * ivz
+                        res = bv - (acc - center * c)
+                    upd = c + winv * res
+                    va, vb = torch.where(ua, upd, ca), torch.where(ua, cb, upd)
+                    for cells, keep, dk in ((va, own, 0), (vb, own_b, 1)):
+                        jj, kk = torch.nonzero(keep, as_tuple=True)
+                        out[qi, oj[jj], ok[kk] + dk] = cells[jj, kk].to(x.dtype)
+                    um = (ca, cb)
+                    s0, s1 = s1, 3 - s0 - s1
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16],
+                         ids=["f32", "f64", "bf16"])
+@pytest.mark.parametrize("aniso", [False, True], ids=["iso", "aniso"])
+@pytest.mark.parametrize("color", [0, 1])
+@pytest.mark.parametrize("shape", [(6, 5, 7), (4, 4, 8), (9, 6, 5), (40, 36, 52)],
+                         ids=["odd", "4x4x8", "odd-x", "ragged"])
+def test_colour_update_mirror_matches_plain(shape, color, aniso, dtype):
+    """K11's pair schedule, mirrored on the CPU, bit-equal to its plain
+    version (sor_sweep_plain, which the wrapper takes on a CPU tensor):
+    the cell of each pair updated by its address, the lone cell of an odd
+    z extent, the three-slot ring with x[i-1] carried, the chunks of x
+    planes of KA's grid; bf16 computed in float32 and rounded once."""
+    u, b = fields(shape, 23 + color, 2)
+    u, b = t(u).to(dtype), t(b).to(dtype)
+    length = (1.0, 0.75, 1.5) if aniso else (1.0, 1.0, 1.0)
+    d = Grid3D(shape, length if aniso else tuple(float(n) for n in shape),
+               device="cpu").deltas
+    assert (len(set(d)) > 1) == aniso
+    got = _k11_mirror(u, b, d, 1.0, color)
+    want = stencil_cuda.sor_sweep_plain(u, b, d, 1.0, color)
+    assert torch.equal(got, want)
+    assert torch.equal(stencil_cuda.sor_sweep_cuda(u, b, d, 1.0, color), want)
+
+
+@pytest.mark.parametrize("shape,chunk,blocks", [((256,) * 3, 8, 4096), ((512,) * 3, 64, 4096),
+                                                ((256, 256, 512), 16, 4096),
+                                                ((22, 64, 64), 4, 48), ((4, 4, 8), 4, 1)])
+def test_colour_update_grid_sizes(shape, chunk, blocks):
+    """K11's grid is KA's: about KA_MIN_BLOCKS blocks at 256^3, 512^3 and
+    the (2, 2, 1) block of 512^3 (the distributed fine level), the chunk
+    not below 4 on the coarse blocks."""
+    gz, gy, gx, c = stencil_cuda.ka_blocks(shape)
+    assert (c, gz * gy * gx) == (chunk, blocks)
