@@ -7,6 +7,12 @@ and fails loudly if any phase fails:
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the kernels from poissbox_tpu_torch/csrc with nvcc
      (one compiler per source, in parallel);
+  2b. native planner: builds the port's C++ library (poissbox_tpu_torch/
+     native: decomp.cpp, options.cpp) with g++ and holds decompose_3d,
+     owned_box, dof_distribution and halo_bytes to the Python planner on
+     every decomposition of paths (m) and (n) and the weak-scaling rung
+     (at the end of the run, NativeOptions to config.Options on every argv
+     list the run parsed);
   3. kernels: every stencil7 epilogue (K12's p-update prologue
      included), rbsor mode (K11's single colour update and the one-launch
      sweeps), xfer leg and the CG update against its plain PyTorch version
@@ -151,6 +157,21 @@ and fails loudly if any phase fails:
      1.01 rtol (-ksp_type fft: twice one rank's), warm walls beside one
      rank's. Phase 3 holds K15's Laplacian sweeps to their plain versions
      at the pencil block shapes (PENCIL_BLOCKS), bit for bit.
+     The census (utils.census), each path (m) case: one MG-CG iteration's
+     collectives (windows of 2 and 1 iterations, the difference) equal
+     utils.scaling.mgcg_iteration_model on every rank, record for record,
+     and the largest gather is the replicated tail's field; a case that is
+     not MG-CG is held by the MG-CG solve of its grid, dtype and MG
+     options. For 512^3 (2,2,1) MG-CG the census by level (block shape,
+     exchanges, face messages, bytes, mean bytes a message, the exchanges
+     whose messages are all under 64 KiB). With four cards over NCCL:
+     the strong-scaling prediction (scaling.predict_efficiency, LINK_BW of
+     the card) against the measured efficiency of that case, and the weak
+     rung, (1024, 1024, 512) f32 MG-CG to rtol 1e-6 on (2,2,1) (512^3 a
+     card; three warm solves; true residual <= 1.01 rtol; its census held
+     to the model too), its predicted efficiency against one card's 512^3
+     wall over the four-card wall; skipped, and saying so, with fewer
+     cards.
 
 The last two lines of standard output are a JSON object with one entry
 per kernel mode (with its launches by rank in each case of paths (m) and
@@ -158,12 +179,14 @@ per kernel mode (with its launches by rank in each case of paths (m) and
 {...}}.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --dist-only   # device, build and phase 7 alone:
-                                        # over NCCL on two cards or more
+    python3 chip_smoke.py --dist-only   # device, build, native planner and
+                                        # phase 7 alone: over NCCL on two
+                                        # cards or more
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import io
@@ -182,7 +205,9 @@ import torch
 
 from poissbox_tpu_torch import checkpoint
 from poissbox_tpu_torch.api import PoissonSolver
-from poissbox_tpu_torch.config import Options, SolverOptions
+from poissbox_tpu_torch import native
+from poissbox_tpu_torch.config import Options as _Options
+from poissbox_tpu_torch.config import SolverOptions
 from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops import _build
 from poissbox_tpu_torch.ops import compact
@@ -194,7 +219,8 @@ from poissbox_tpu_torch.ops.coefficients import compact_grad_coeffs, compact_int
 from poissbox_tpu_torch.ops.compact import make_compact_laplacian_operator
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.ops.tridiag_cuda import CudaTridiagFactor
-from poissbox_tpu_torch.parallel.decomp import dof_distribution, owned_boxes
+from poissbox_tpu_torch.parallel.decomp import (dof_distribution, owned_boxes,
+                                                python_decompose_3d)
 from poissbox_tpu_torch.parallel.pencil import block_of, pencil_ok, pencil_spec
 from poissbox_tpu_torch.solvers import fft, ksp
 from poissbox_tpu_torch.solvers import mg
@@ -203,9 +229,22 @@ from poissbox_tpu_torch.solvers.gmres import clamp_restart
 from poissbox_tpu_torch.solvers.refine import refine
 from poissbox_tpu_torch.solvers.result import ConvergedReason
 from poissbox_tpu_torch.utils import check_field, debugging, enable_nan_checks, profiling
+from poissbox_tpu_torch.utils import census, scaling
+from poissbox_tpu_torch.utils.census import (exchange_bytes_model, krylov_work,
+                                             pencil_bytes_model)
 
 BF16 = torch.bfloat16
 DEVICE = "cuda"   # every field and solver of the script lives on the card
+# every argv list this process parses, for the native options database's
+# check (native_options_phase)
+ARGVS: list = []
+
+
+def Options(argv):
+    """config.Options of `argv`, the list kept in ARGVS."""
+    ARGVS.append(list(argv))
+    return _Options(argv)
+
 # fields: max|kernel - plain| <= FIELD_TOL * max|plain|; reductions:
 # |kernel - plain| <= RED_TOL * |plain|. The kernels keep the plain
 # versions' grouping and are built without FMA contraction, so the only
@@ -1785,6 +1824,23 @@ DIST_BLOCKS = [((256, 256, 512), 512, torch.float32), ((22, 64, 64), 64, torch.f
 DIST_MODES = ("stencil7.apply", "stencil7.apply_dot", "cgupd", "stencil7.residual",
               "stencil7.jacobi", "rbsor.general")
 DIST_TIMEOUT = 240.0   # s: a rank's collectives, and the wait for a group
+# the census of one MG-CG iteration, each path (m) case's: windows around
+# solves of CENSUS_ITS[0] and CENSUS_ITS[1] iterations, the difference held
+# to scaling.mgcg_iteration_model on every rank. A case that is not MG-CG
+# is held by the MG-CG solve of its grid, dtype (a refinement's float32
+# inner one) and MG options, run once a group.
+CENSUS_ITS = (1, 2)
+SMALL_MESSAGE = 64 * 1024   # bytes: "small" in the census by level
+# the weak-scaling rung of the JAX package's model (512^3 a card,
+# tests/test_scaling_model.py:90-101): four cards over NCCL only, no
+# one-rank reference (the whole field would sit on one card). The box is
+# (2, 2, 1) long, so each card holds the one-card 512^3 problem's block at
+# its cell size (a unit box would make the cells 2:1 anisotropic)
+WEAK_PGRID = (2, 2, 1)
+WEAK_SHAPE = (1024, 1024, 512)
+WEAK_LENGTH = (2.0, 2.0, 1.0)
+WEAK_ARGV = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-6", "-ksp_max_it", "50"]
+WEAK_SEED = 1000
 
 # path (n), order 6 and the FFT across ranks: cases run inside phase 7's
 # groups (the world of a group may take another process grid of its size:
@@ -2026,7 +2082,7 @@ def dist_worker(spec_path: str, rank: int) -> int:
     mesh.init_process_group(f"tcp://127.0.0.1:{spec['port']}", world, rank,
                             backend=spec["backend"], device=DEVICE,
                             timeout=DIST_TIMEOUT)
-    results = []
+    results, censused = [], {}
     for idx, (case, ref) in enumerate(zip(spec["cases"], spec["refs"])):
         n, dtype_name, rtol, extra, _, _, kind = case
         dtype = getattr(torch, dtype_name)
@@ -2115,15 +2171,134 @@ def dist_worker(spec_path: str, rank: int) -> int:
             "first_ms": first_ms,
             "warm_ms": statistics.median(float(w) for w in walls),
             "warm_reps": len(walls), **extra_out})
-        del solver, u, b1, x1, b, res
+        del solver, u, b1, x1, res
+        torch.cuda.empty_cache()
+        key = census_key(case)
+        if key in censused:
+            results[-1]["census_of"] = censused[key]
+        else:
+            # the case's MG-CG solve (the case's own method where it is CG)
+            censused[key] = idx
+            _, dtype_c, mg_opts = key
+            argv_c = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
+                      *mg_opts]
+            results[-1]["census"] = census_iteration((n,) * 3, getattr(torch, dtype_c),
+                                                     argv_c, b, g, dist)
+            results[-1]["census_of"] = idx
+        del b
         torch.cuda.empty_cache()
     results_n = [pencil_worker_case(case, halo, dist) for case in spec["cases_n"]]
+    weak = weak_case(pgrid, halo, dist) if spec.get("weak") else None
     if rank == 0:
         with open(spec["out"], "w") as fh:
-            json.dump({"m": results, "n": results_n}, fh)
+            json.dump({"m": results, "n": results_n, "weak": weak}, fh)
     dist.barrier()
     dist.destroy_process_group()
     return 0
+
+
+def census_key(case) -> tuple:
+    """The MG-CG solve that holds `case`'s census: grid, dtype (float32
+    for solve_refined's inner solves) and the MG options."""
+    n, dtype_name, rtol, extra, _, _, kind = case
+    mg_opts = tuple(t for k, v in zip(extra[::2], extra[1::2]) if k.startswith("-mg_")
+                    for t in (k, v))
+    return (n, "float32" if kind == "refine" else dtype_name, mg_opts)
+
+
+def census_iteration(shape, dtype, argv, b, g, dist, length=(1.0, 1.0, 1.0)) -> dict:
+    """One MG-CG iteration's census on this rank against the model:
+    windows around solves of CENSUS_ITS iterations of `argv` (an MG-CG
+    solver built for each) on `b`, their difference against
+    scaling.mgcg_iteration_model(rank=r) record for record; the largest
+    gather of the longer window against the field where the replicated
+    tail starts; rank 0's census by level. Every rank's verdict is
+    gathered."""
+    pgrid, rank = g.pgrid, g.mesh.rank
+    windows, cfg = [], None
+    for its in CENSUS_ITS:
+        s = PoissonSolver(shape, length, options=Options(list(argv) + ["-ksp_max_it", str(its)]),
+                          dtype=dtype, device=DEVICE, shard=pgrid)
+        bb = b.to(dtype)
+        dist.barrier()
+        with census.recording() as rec:
+            res = s.solve(bb)
+        if int(res.iterations) != its:
+            raise AssertionError(f"census window: {int(res.iterations)} iterations, "
+                                 f"asked for {its}")
+        windows.append(rec)
+        cfg = s._solver.M.config
+        del s, bb, res
+    one = census.subtract(windows[1], windows[0])
+    esize = torch.tensor([], dtype=dtype).element_size()
+    model = scaling.mgcg_iteration_model(shape, pgrid, cfg, itemsize=esize, rank=rank)
+    got, want = collections.Counter(one), collections.Counter(model.records)
+    diff = ([str(c) for c in (got - want).elements()][:6],
+            [str(c) for c in (want - got).elements()][:6])
+    if any(nd % p for nd, p in zip(shape, pgrid)):
+        bound = esize * math.prod(pgrid) * math.prod(-(-nd // p) for nd, p in zip(shape, pgrid))
+    else:
+        field = next((sh for sh, d in model.levels if not d), model.levels[-1][0])
+        bound = esize * math.prod(field)
+    msgs = collections.Counter(census.exchange_messages(windows[1]))
+    msgs.subtract(census.exchange_messages(windows[0]))
+    verdict = {"equal": got == want, "diff": diff,
+               "max_gather": census.max_gather_bytes(windows[1]), "gather_bound": bound}
+    by_rank = [None] * g.mesh.size
+    dist.all_gather_object(by_rank, verdict)
+    return {"by_rank": by_rank, "config": dataclasses.asdict(cfg),
+            "by_shape": [[list(sh), v.get("exchange", {}).get("count", 0),
+                          v.get("face", {}).get("count", 0), v.get("face", {}).get("bytes", 0)]
+                         for sh, v in census.census_by_shape(one).items()],
+            "messages": [[list(sh), m, big, k] for (sh, m, big), k in msgs.items() if k],
+            "model": {"permute_count": model.permute_count,
+                      "permute_bytes": model.permute_bytes,
+                      "exchange_count": model.exchange_count,
+                      "allreduce_count": model.allreduce_count,
+                      "gather_bytes": model.gather_bytes}}
+
+
+def weak_case(pgrid, halo, dist) -> dict:
+    """The weak-scaling rung: WEAK_SHAPE f32 on `pgrid` (a 512^3 block a
+    rank, the box WEAK_LENGTH), MG-CG to rtol 1e-6 with the default cycle, b = A u for u
+    uniform (-1, 1) drawn on each rank's card (seed WEAK_SEED + rank): the
+    first solve's iterations and true residual, three warm solves (the
+    slowest rank's median), and one iteration's census."""
+    dtype = torch.float32
+    solver = PoissonSolver(WEAK_SHAPE, WEAK_LENGTH, options=Options(WEAK_ARGV), dtype=dtype,
+                           device=DEVICE, shard=pgrid)
+    g = solver.grid
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(WEAK_SEED + g.mesh.rank)
+    u = torch.rand(g.local_shape, generator=gen, device=g.device, dtype=dtype) * 2.0 - 1.0
+    b = solver.rhs_for(u)
+    del u
+    dist.barrier()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solver.solve(b)
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    its, reason = int(res.iterations), int(res.reason)
+    rel = solver.residual_norm(res.x, b)
+    finite = bool(torch.isfinite(res.x).all())
+    del res
+    walls = []
+    for _ in range(3):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        solver.solve(b)
+        torch.cuda.synchronize()
+        walls.append(float(halo.allreduce_max(torch.tensor(
+            [(time.perf_counter() - t0) * 1e3], dtype=torch.float64, device=g.device),
+            g.mesh)))
+    cen = census_iteration(WEAK_SHAPE, dtype, WEAK_ARGV, b, g, dist, WEAK_LENGTH)
+    del solver, b
+    torch.cuda.empty_cache()
+    return {"its": its, "reason": reason, "rel": rel, "finite": finite,
+            "first_ms": first_ms, "walls": walls, "warm_ms": statistics.median(walls),
+            "local_shape": list(g.local_shape), "census": cen}
 
 
 def checkpoint_checks(solver, b, ck, full, total, halo) -> dict:
@@ -2382,7 +2557,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp) -> dict:
+def _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp, weak=False) -> dict:
     """Run one group of ranks to its end (each with a time limit); any rank
     that fails or hangs fails the phase, and every rank is stopped. Returns
     rank 0's results: path (m)'s cases under "m", path (n)'s under "n"."""
@@ -2392,7 +2567,7 @@ def _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp) -> dict:
     with open(spec, "w") as fh:
         json.dump({"world": world, "pgrid": list(pgrid), "port": _free_port(),
                    "backend": backend, "cases": cases, "refs": refs,
-                   "cases_n": cases_n, "out": out, "tmp": tmp}, fh)
+                   "cases_n": cases_n, "weak": weak, "out": out, "tmp": tmp}, fh)
     here = os.path.dirname(os.path.abspath(__file__))
     logs = [open(os.path.join(tmp, f"rank{r}_{world}_{backend}.log"), "w+")
             for r in range(world)]
@@ -2427,8 +2602,9 @@ def dist_phase(smi: str, totals: dict, backends) -> None:
     pinned host buffers; nccl: one rank a card, groups of more ranks than
     cards skipped): path (m)'s cases, each against the one-rank solve of
     the parent, then in the same group path (n)'s (PENCIL_CASES)."""
-    if "nccl" not in backends:
-        print(f"-- path (n) over nccl (the 512^3 cases): skipped, "
+    if "nccl" not in backends or torch.cuda.device_count() < math.prod(WEAK_PGRID):
+        print(f"-- path (n) over nccl (the 512^3 cases), and the strong- and weak-scaling "
+              f"predictions against measurement (four cards over NCCL): skipped, "
               f"{torch.cuda.device_count()} card(s)", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         for label, pgrid, cases in DIST_GROUPS:
@@ -2448,35 +2624,23 @@ def dist_phase(smi: str, totals: dict, backends) -> None:
                       f"{backend}" + (f"; then path (n), {len(cases_n)} cases of order 6 "
                                       "and the FFT" if cases_n else ""), flush=True)
                 t0 = time.perf_counter()
-                results = _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp)
+                # the weak-scaling rung rides the (2,2,1) group over NCCL
+                weak = backend == "nccl" and pgrid == WEAK_PGRID
+                results = _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp,
+                                       weak)
                 print(f"  group wall {time.perf_counter() - t0:.1f} s (spawn, imports "
                       "and all cases)", flush=True)
                 cards = smi.replace("\n", "; ")     # one line a card
-                for case, ref, r in zip(cases, refs, results["m"]):
+                for idx, (case, ref, r) in enumerate(zip(cases, refs, results["m"])):
                     _check_dist_case(label, pgrid, case, ref, r, backend, cards, totals)
+                    check_census(label, pgrid, case, r, cases[r["census_of"]], cards)
+                if weak:
+                    scaling_report(pgrid, cases, refs, results, cards)
                 if cases_n:
                     print(f"-- path (n) order 6 and the FFT across ranks over {backend}",
                           flush=True)
                 for case, ref, r in zip(cases_n, refs_n, results["n"]):
                     _check_pencil_case(case, ref, r, backend, cards, totals)
-
-
-def krylov_work(argv, its: int, restart: int = 30) -> tuple[int, int]:
-    """(matvecs, V-cycles) of rhs_for + solve + residual_norm for the
-    method `argv` names, from its recurrence (x0 = 0): CG one matvec and
-    one V-cycle an iteration and a V-cycle first; PIPECG a V-cycle and a
-    matvec first; Richardson a matvec first, one of each an iteration;
-    GMRES a matvec and two V-cycles first (r0 and M b), one of each a step
-    and a restart (no V-cycle without a preconditioner)."""
-    opts = SolverOptions.from_options(Options(list(argv)))
-    if opts.ksp_type == "cg":
-        return its + 2, its + 1
-    if opts.ksp_type == "pipecg":
-        return its + 3, its + 1
-    if opts.ksp_type == "richardson":
-        return its + 3, its
-    cycles = max(1, -(-its // restart))
-    return its + cycles + 2, (0 if opts.pc_type == "none" else its + cycles + 1)
 
 
 def _check_dist_case(label, pgrid, case, ref, r, backend, smi, totals) -> None:
@@ -2585,6 +2749,106 @@ def _check_dist_case(label, pgrid, case, ref, r, backend, smi, totals) -> None:
         totals[k] = totals.get(k, 0) + v
 
 
+def check_census(label, pgrid, case, r, held_by, smi) -> None:
+    """One MG-CG iteration's census against scaling.mgcg_iteration_model
+    on every rank (the case's own, or the MG-CG solve that holds it), the
+    largest gather against the replicated tail's field; for the 512^3
+    (2,2,1) CG case the census by level."""
+    n, dtype_name, rtol, extra, _, _, kind = case
+    if "census" not in r:
+        print(f"  census: held by the MG-CG census of case {r['census_of']} (the same "
+              f"grid, {census_key(held_by)}: size, dtype, MG options)", flush=True)
+        return
+    c = r["census"]
+    bad = [rk for rk, v in enumerate(c["by_rank"]) if not v["equal"]]
+    over = [rk for rk, v in enumerate(c["by_rank"]) if v["max_gather"] > v["gather_bound"]]
+    if bad or over:
+        raise AssertionError(
+            f"distributed {label} {kind} {' '.join(extra)}: one iteration's census differs "
+            f"from the model on ranks {bad} (rank {bad[0] if bad else '-'}: census has "
+            f"{c['by_rank'][bad[0]]['diff'][0] if bad else []}, the model "
+            f"{c['by_rank'][bad[0]]['diff'][1] if bad else []}); gathers over the "
+            f"replicated field on ranks {over}")
+    m = c["model"]
+    print(f"  census of one MG-CG iteration ({CENSUS_ITS[1]} iterations less "
+          f"{CENSUS_ITS[0]}) equals mgcg_iteration_model on all {len(c['by_rank'])} ranks: "
+          f"rank 0 {m['exchange_count']} exchanges, {m['permute_count']} face messages, "
+          f"{m['permute_bytes']} B, {m['allreduce_count']} all-reduces, gathers "
+          f"{m['gather_bytes']} B; largest gather of the solve {c['by_rank'][0]['max_gather']}"
+          f" B (the replicated field: {c['by_rank'][0]['gather_bound']} B)", flush=True)
+    if not (n == 512 and tuple(pgrid) == (2, 2, 1) and kind == "solve" and not extra):
+        return
+    print(f"  census by level, rank 0, one iteration of {n}^3 {dtype_name} MG-CG on "
+          f"{tuple(pgrid)} ({smi}):", flush=True)
+    print("    block shape      exchanges  face messages       bytes  mean B a message",
+          flush=True)
+    for sh, ex, faces, nbytes in c["by_shape"]:
+        print(f"    {str(tuple(sh)):16s} {ex:9d} {faces:14d} {nbytes:11d} "
+              f"{nbytes / max(faces, 1):17.1f}", flush=True)
+    total = sum(k for *_, k in c["messages"])
+    small = sum(k for _, _, big, k in c["messages"] if big < SMALL_MESSAGE)
+    print(f"    {total} exchanges an iteration (1 the matvec's), {small} of them with every "
+          f"message under {SMALL_MESSAGE // 1024} KiB", flush=True)
+
+
+def scaling_report(pgrid, cases, refs, results, smi) -> None:
+    """The strong- and weak-scaling predictions (scaling.predict_efficiency
+    on this card's LINK_BW, fed the census-checked model) beside the
+    measured efficiencies over NCCL: strong on the 512^3 f32 MG-CG case
+    (compute an iteration: one card's warm wall / iterations / ranks;
+    measured: one card's wall / (ranks x the slowest rank's wall)); weak on
+    WEAK_SHAPE (compute: one card's 512^3 wall / its iterations;
+    measured: one card's 512^3 wall / the four-card wall). Checks the weak
+    solve: finite, converged, true residual <= 1.01 rtol."""
+    card = torch.cuda.get_device_name(0)
+    world = math.prod(pgrid)
+    idx = next(i for i, c in enumerate(cases)
+               if c[0] == 512 and c[1] == "float32" and c[6] == "solve" and not c[3])
+    case, ref, r = cases[idx], refs[idx], results["m"][idx]
+    cfg = mg.MGConfig(**r["census"]["config"])
+    n3 = (512,) * 3
+    t_it = ref["wall_ms"] / 1e3 / ref["its"]
+    strong = scaling.predict_efficiency(n3, pgrid, t_it / world, card, cfg=cfg, itemsize=4)
+    measured = ref["wall_ms"] / (world * r["warm_ms"])
+    print(f"-- strong scaling, 512^3 f32 MG-CG on {tuple(pgrid)} over NCCL ({smi}): "
+          f"predicted {strong.efficiency_overlapped!r} overlapped, "
+          f"{strong.efficiency_serial!r} serial (compute {strong.compute_s * 1e3:.4f} ms "
+          f"an iteration = one card's {ref['wall_ms']:.2f} ms / {ref['its']} its / {world}, "
+          f"wire {strong.comm_s * 1e3:.5f} ms, gather {strong.gather_s * 1e3:.7f} ms at "
+          f"{scaling.link_bandwidth(card):.3g} B/s); measured {measured!r} = "
+          f"{ref['wall_ms']:.2f} / ({world} x {r['warm_ms']:.2f} ms, the slowest rank's "
+          f"warm solve)", flush=True)
+    w = results["weak"]
+    limit = 1.01 * 1e-6
+    if not (w["finite"] and w["reason"] > 0 and w["rel"] <= limit):
+        raise AssertionError(f"weak-scaling solve {WEAK_SHAPE}: {w['its']} iterations, "
+                             f"reason {w['reason']}, true residual {w['rel']:.3e} "
+                             f"(limit {limit:.3e}), finite {w['finite']}")
+    wc = w["census"]
+    bad = [rk for rk, v in enumerate(wc["by_rank"]) if not v["equal"]]
+    if bad:
+        raise AssertionError(f"weak-scaling solve: one iteration's census differs from the "
+                             f"model on ranks {bad}: {wc['by_rank'][bad[0]]['diff']}")
+    wcfg = mg.MGConfig(**wc["config"])
+    weak = scaling.predict_efficiency(WEAK_SHAPE, pgrid, t_it, card, cfg=wcfg, itemsize=4)
+    measured_w = ref["wall_ms"] / w["warm_ms"]
+    per_it = (ref["wall_ms"] / ref["its"]) / (w["warm_ms"] / w["its"])
+    print(f"-- weak scaling, {WEAK_SHAPE} f32 MG-CG on {tuple(pgrid)} over NCCL (box "
+          f"{WEAK_LENGTH}, a "
+          f"{tuple(w['local_shape'])} block a card; {smi}): {w['its']} iterations, true "
+          f"relative residual {w['rel']:.3e}, first solve {w['first_ms']:.1f} ms, warm "
+          f"{w['warm_ms']:.2f} ms (the slowest rank, median of {len(w['walls'])}: "
+          f"{[round(x, 2) for x in w['walls']]}); census equals the model on every rank "
+          f"({wc['model']['exchange_count']} exchanges, {wc['model']['permute_bytes']} B an "
+          f"iteration on rank 0)", flush=True)
+    print(f"   predicted {weak.efficiency_overlapped!r} overlapped, "
+          f"{weak.efficiency_serial!r} serial (compute {weak.compute_s * 1e3:.4f} ms an "
+          f"iteration = one card's 512^3 {ref['wall_ms']:.2f} ms / {ref['its']} its, wire "
+          f"{weak.comm_s * 1e3:.5f} ms, gather {weak.gather_s * 1e3:.7f} ms); measured "
+          f"{measured_w!r} = {ref['wall_ms']:.2f} / {w['warm_ms']:.2f} ms "
+          f"({per_it!r} an iteration)", flush=True)
+
+
 def gdofs_check(lines, n: int):
     """None when the table's GDoF/s is the global DoF count's (n^3 times
     the iterations over the solve's seconds, to the printed digits), else
@@ -2603,91 +2867,59 @@ def gdofs_check(lines, n: int):
     return None
 
 
-def exchange_bytes_model(n: int, pgrid, esize: int, pre_esize: int, pre: int,
-                         post: int, smoother: str = "sor") -> tuple[int, int]:
-    """Rank 0's face bytes sent, from the shapes alone: (one matvec, one
-    V-cycle). A face exchange sends two planes a split axis; a halo pad
-    (the transfers) pads the axes in turn, each on the block the earlier
-    axes grew. On a distributed level the pre-smooth sends 2 pre - 1 faces
-    sets (SOR: the first colour is closed form) or pre - 1 (Jacobi), the
-    residual one, the post-smooth 2 post (SOR) or post; the restriction
-    pads the fine block, the prolongation the coarse one where the coarse
-    level is distributed too. The coarsest level and replicated levels
-    send no faces (they gather)."""
-    split = [d for d in range(3) if pgrid[d] > 1]
-
-    def block(m):
-        return owned_boxes((m,) * 3, pgrid)[(0, 0, 0)][1]
-
-    def faces(shape, e):
-        return sum(2 * e * math.prod(shape[k] for k in range(3) if k != d) for d in split)
-
-    def pad(shape, e):
-        return sum(2 * e * math.prod((shape[k] + 2) if k < d else shape[k]
-                                     for k in range(3) if k != d) for d in split)
-
-    def dist(m):   # mg._level_shardable
-        return all(m % p == 0 and (m // p) % 2 == 0 for p in pgrid if p > 1)
-
-    uneven = any(n % p for p in pgrid)
-    sizes = [n]
-    while sizes[-1] > 4 and sizes[-1] % 2 == 0:
-        sizes.append(sizes[-1] // 2)
-    v = 0
-    for i, m in enumerate(sizes[:-1]):
-        if not (dist(m) or (uneven and i == 0)):
-            break
-        sh = block(m)
-        npre = 2 * pre - 1 if smoother == "sor" else pre - 1
-        npost = 2 * post if smoother == "sor" else post
-        v += npre * faces(sh, pre_esize) + (1 + npost) * faces(sh, esize)
-        if not uneven:
-            v += pad(sh, esize)
-            if dist(sizes[i + 1]):
-                v += pad(block(sizes[i + 1]), esize)
-    return faces(block(n), esize), v
+def python_halo_bytes(shape, pgrid, width: int, itemsize: int) -> list:
+    """native.halo_bytes from the Python planner's boxes: both faces of
+    the largest owned box along each split axis."""
+    big = [max(c[d] for _, c in owned_boxes(shape, pgrid).values()) for d in range(3)]
+    return [2 * width * itemsize * math.prod(big[k] for k in range(3) if k != d)
+            if pgrid[d] > 1 else 0 for d in range(3)]
 
 
-# the layout changes of each pencil route: (from, to, fields, shape) with
-# the pencil's local dim (None: home); shape "body" is the packed FFT's
-# half spectrum (nx, ny, nz/2) and "cfull" the full complex field
-PENCIL_ROUTES = {
-    "lapl": [(None, 2, 1, "real"), (2, 1, 2, "real"), (1, 0, 2, "real"),
-             (0, None, 1, "real")],
-    "grad": [(None, 2, 1, "real"), (2, 1, 2, "real"), (1, 0, 3, "real"),
-             (0, None, 3, "real")],
-    "div": [(None, 0, 3, "real"), (0, 1, 3, "real"), (1, 2, 2, "real"),
-            (2, None, 1, "real")],
-    "interp": [(None, 2, 1, "real"), (2, 1, 1, "real"), (1, 0, 1, "real"),
-               (0, None, 1, "real")],
-    "packed": [(None, 2, 1, "real"), (2, 1, 1, "body"), (1, 0, 1, "body"),
-               (0, 1, 1, "body"), (1, 2, 1, "body"), (2, None, 1, "real")],
-    "complex": [(None, 2, 1, "real"), (2, 1, 1, "cfull"), (1, 0, 1, "cfull"),
-                (0, 1, 1, "cfull"), (1, 2, 1, "cfull"), (2, None, 1, "real")],
-    "gather": [],
-}
+def native_planner_phase() -> None:
+    """Build the port's native library (decomp.cpp, options.cpp) here and
+    hold its planner to the Python one on every decomposition of paths
+    (m) and (n) and the weak-scaling case: the process grid decompose_3d
+    picks for the rank count, every owned box, the DoF counts and the
+    halo bytes (f32 and f64)."""
+    t0 = time.perf_counter()
+    path = native.build()
+    print(f"  {path.name}: built in "
+          f"{native.build_seconds if native.build_seconds is not None else 'cached'} s "
+          f"({time.perf_counter() - t0:.2f} s with the hash)", flush=True)
+    decomps = {(pgrid, (n,) * 3) for _, pgrid, cases in DIST_GROUPS for n, *_ in cases}
+    decomps |= {(c[1], tuple(c[2])) for cases in PENCIL_CASES.values() for c in cases}
+    decomps.add((WEAK_PGRID, WEAK_SHAPE))
+    bad = []
+    for pgrid, shape in sorted(decomps):
+        world = math.prod(pgrid)
+        if native.decompose_3d(world, shape) != python_decompose_3d(world, shape):
+            bad.append(f"decompose_3d({world}, {shape})")
+        py = owned_boxes(shape, pgrid)
+        for coord in itertools.product(*(range(p) for p in pgrid)):
+            if native.owned_box(shape, pgrid, coord) != py[coord]:
+                bad.append(f"owned_box({shape}, {pgrid}, {coord})")
+        if native.dof_distribution(shape, pgrid) != dof_distribution(shape, pgrid):
+            bad.append(f"dof_distribution({shape}, {pgrid})")
+        for e in (4, 8):
+            if native.halo_bytes(shape, pgrid, 1, e) != python_halo_bytes(shape, pgrid, 1, e):
+                bad.append(f"halo_bytes({shape}, {pgrid}, 1, {e})")
+    if bad:
+        raise AssertionError(f"the native planner differs from the Python one: {bad}")
+    print(f"  the native planner equals the Python one on {len(decomps)} decompositions "
+          f"(decompose_3d, every owned box, DoF counts, halo bytes f32 and f64): "
+          f"{sorted(decomps)}", flush=True)
 
 
-def pencil_bytes_model(n, pgrid, esize: int, route: str) -> tuple[int, int]:
-    """Rank 0's all-to-alls and the bytes it sends in them for one pass of
-    a pencil route (PENCIL_ROUTES: an operator, or an FFT solve by its
-    route), from the shapes alone: a change whose layouts differ is one
-    call, and rank 0 sends every field's block but the part of it that
-    its own block in the new layout holds."""
-    n = tuple(n)
-    calls = nbytes = 0
-    for src, dst, nf, kind in PENCIL_ROUTES[route]:
-        a, b = pencil_spec(pgrid, src), pencil_spec(pgrid, dst)
-        if a == b:
-            continue
-        shape = (n[0], n[1], n[2] // 2) if kind == "body" else n
-        e = esize if kind == "real" else 2 * esize
-        (s0, c0), (s1, c1) = block_of(shape, pgrid, a, 0), block_of(shape, pgrid, b, 0)
-        keep = math.prod(max(0, min(p + c, q + d) - max(p, q))
-                         for p, c, q, d in zip(s0, c0, s1, c1))
-        calls += 1
-        nbytes += nf * e * (math.prod(c0) - keep)
-    return calls, nbytes
+def native_options_phase() -> None:
+    """Hold the native options database to config.Options on every argv
+    list this process parsed (ARGVS)."""
+    seen = {tuple(a) for a in ARGVS}
+    bad = [a for a in sorted(seen)
+           if native.NativeOptions(list(a)).as_dict() != _Options(list(a)).as_dict()]
+    if bad:
+        raise AssertionError(f"NativeOptions differs from config.Options on {bad}")
+    print(f"  NativeOptions equals config.Options on all {len(seen)} distinct argv lists "
+          f"this run parsed ({len(ARGVS)} parses)", flush=True)
 
 
 def main() -> int:
@@ -2722,11 +2954,16 @@ def main() -> int:
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print("  ptxas:", line.strip())
 
+    phase("native planner")
+    native_planner_phase()
+
     if dist_only:
         # phase 7 alone: over NCCL, one rank a card, where there are cards
         # for it, against the one-card solve
         phase("distributed MG-CG, order 6 and the FFT (alone)")
         dist_phase(smi, {}, ["nccl"] if torch.cuda.device_count() >= 2 else ["gloo"])
+        phase("native options database")
+        native_options_phase()
         print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -2892,6 +3129,8 @@ def main() -> int:
     idle = [k for k in KERNELS if totals[k] == 0 and k not in OFF_PATH]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")
+    phase("native options database")
+    native_options_phase()
     print(f"  chip_smoke wall so far {time.perf_counter() - t_start:.1f} s")
 
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

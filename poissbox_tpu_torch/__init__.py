@@ -25,6 +25,8 @@ mirror the JAX package's paths:
   - checkpointing ........ poissbox_tpu_torch.checkpoint
   - facade ............... poissbox_tpu_torch.api.PoissonSolver
   - options database ..... poissbox_tpu_torch.config
+  - native planner, options  poissbox_tpu_torch.native (C++ by ctypes, built at first use)
+  - census, scaling model  poissbox_tpu_torch.utils.{census,scaling}
 
 Dtype is an explicit argument (float32 or float64) and every constructor
 takes a ``device``. What is not ported yet (ROADMAP.md lists it) is

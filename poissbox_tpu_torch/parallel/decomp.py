@@ -2,9 +2,10 @@
 :mod:`poissbox_tpu.parallel.decomp`'s pure-Python planner).
 
 The JAX package's module is copied, not imported: importing any module of
-``poissbox_tpu`` imports jax. The JAX package's optional native planner
-(``poissbox_tpu/native``, identical semantics) is not loaded here; the
-Python implementation below is its reference.
+``poissbox_tpu`` imports jax. As there, :func:`decompose_3d` runs the
+native C++ planner (:mod:`poissbox_tpu_torch.native`, the port's own copy,
+identical semantics) once its library is built; the Python implementation
+below is its reference and runs otherwise.
 
 Given `ndev` ranks and a global grid (nx, ny, nz), :func:`decompose_3d`
 returns the (px, py, pz) factorisation of least halo surface, preferring
@@ -34,7 +35,17 @@ def _factor_triples(n: int):
 def decompose_3d(ndev: int, shape: Sequence[int]) -> tuple[int, int, int]:
     """Choose a process grid (px, py, pz) for `ndev` ranks on grid `shape`:
     least surface 2*(sx*sy + sy*sz + sz*sx) of the per-rank box, exact
-    division preferred, then splitting x, then y, z kept whole."""
+    division preferred, then splitting x, then y, z kept whole. The native
+    planner answers where its library is built (a built library that
+    fails raises: nothing falls back)."""
+    from poissbox_tpu_torch import native
+    if native.available():
+        return native.decompose_3d(ndev, shape)
+    return python_decompose_3d(ndev, shape)
+
+
+def python_decompose_3d(ndev: int, shape: Sequence[int]) -> tuple[int, int, int]:
+    """:func:`decompose_3d` in Python: the native planner's reference."""
     nx, ny, nz = shape
     best = None
     for (px, py, pz) in _factor_triples(ndev):

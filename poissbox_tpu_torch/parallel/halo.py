@@ -24,7 +24,9 @@ Anything else raises. The kernels run on the card in every case.
 this rank contributed), and the pencil transposes of
 :mod:`~poissbox_tpu_torch.parallel.pencil` (``alltoalls``, with
 ``alltoall_bytes`` this rank sent to other ranks; their chunks staged
-through the host count in ``staged``).
+through the host count in ``staged``). Every collective here is counted
+by :func:`poissbox_tpu_torch.utils.census.record`, which also records it
+in the open census windows (``census.recording()``).
 """
 
 from __future__ import annotations
@@ -34,11 +36,10 @@ from typing import Optional, Sequence
 import torch
 import torch.distributed as dist
 
-Tensor = torch.Tensor
+from poissbox_tpu_torch.utils import census
+from poissbox_tpu_torch.utils.census import COUNTS
 
-COUNTS: dict[str, int] = {k: 0 for k in (
-    "exchanges", "bytes", "staged", "allreduces", "gathers", "gather_bytes",
-    "alltoalls", "alltoall_bytes")}
+Tensor = torch.Tensor
 
 
 def reset_counts() -> None:
@@ -99,7 +100,7 @@ def start_face_exchange(block: Tensor, mesh, width: int = 1,
     dims = sharded_dims(mesh, dims)
     route = transport(block) if dims else "local"
     staged = route == "gloo-staged"
-    ops, recvs = [], {}
+    ops, recvs, faces = [], {}, {}
     for d in dims:
         n = block.shape[d]
         if width > n:
@@ -114,7 +115,6 @@ def start_face_exchange(block: Tensor, mesh, width: int = 1,
             hi = torch.empty(hi.shape, dtype=hi.dtype, pin_memory=True).copy_(hi)
             left = torch.empty(hi.shape, dtype=hi.dtype, pin_memory=True)
             right = torch.empty(lo.shape, dtype=lo.dtype, pin_memory=True)
-            COUNTS["staged"] += 2
         else:
             left, right = torch.empty_like(hi), torch.empty_like(lo)
         # tags tell the two messages between one pair of ranks apart (two
@@ -124,10 +124,11 @@ def start_face_exchange(block: Tensor, mesh, width: int = 1,
                 dist.P2POp(dist.irecv, left, prev, tag=2 * d),
                 dist.P2POp(dist.irecv, right, nxt, tag=2 * d + 1)]
         recvs[d] = (left, right)
-        COUNTS["bytes"] += (lo.numel() + hi.numel()) * lo.element_size()
+        faces[d] = lo.numel() * lo.element_size()
     works = dist.batch_isend_irecv(ops) if ops else []
     if ops:
-        COUNTS["exchanges"] += 1
+        census.record("exchange", 2 * sum(faces.values()), shape=block.shape, faces=faces,
+                      staged=2 * len(faces) if staged else 0)
     return FaceExchange(works, recvs, block.device, staged)
 
 
@@ -169,7 +170,7 @@ def allreduce_sum(t: Tensor, mesh=None) -> Tensor:
     if mesh is None or mesh.size == 1:
         return t
     route = transport(t)
-    COUNTS["allreduces"] += 1
+    census.record("all_reduce", t.numel() * t.element_size(), ranks=mesh.size)
     if route == "gloo-staged":
         h = t.detach().to("cpu")
         dist.all_reduce(h)
@@ -184,7 +185,7 @@ def allreduce_max(t: Tensor, mesh=None) -> Tensor:
     if mesh is None or mesh.size == 1:
         return t
     h = t.detach().to("cpu") if transport(t) == "gloo-staged" else t.detach().clone()
-    COUNTS["allreduces"] += 1
+    census.record("all_reduce", t.numel() * t.element_size(), ranks=mesh.size)
     dist.all_reduce(h, op=dist.ReduceOp.MAX)
     return h.to(t.device)
 
@@ -205,8 +206,7 @@ def allgather_field(block: Tensor, grid) -> Tensor:
     buf[:sx, :sy, :sz] = block
     parts = [torch.empty_like(buf) for _ in range(mesh.size)]
     dist.all_gather(parts, buf)
-    COUNTS["gathers"] += 1
-    COUNTS["gather_bytes"] += buf.numel() * buf.element_size()
+    census.record("gather", buf.numel() * buf.element_size(), shape=big, ranks=mesh.size)
     full = torch.empty(grid.n, dtype=block.dtype, device=dev)
     for part, ((xs, ys, zs), (xn, yn, zn)) in zip(parts, boxes):
         full[xs:xs + xn, ys:ys + yn, zs:zs + zn] = part[:xn, :yn, :zn]

@@ -51,7 +51,8 @@ import torch
 import torch.distributed as dist
 
 from poissbox_tpu_torch.parallel.decomp import axis_boxes
-from poissbox_tpu_torch.parallel.halo import COUNTS, transport
+from poissbox_tpu_torch.parallel.halo import transport
+from poissbox_tpu_torch.utils import census
 
 Tensor = torch.Tensor
 Layout = tuple[tuple[int, ...], tuple[int, ...], tuple[int, ...]]
@@ -269,12 +270,11 @@ def transpose(blocks: Sequence[Tensor], mesh, shape: Sequence[int],
     if staged:
         send = torch.empty(send.shape, dtype=send.dtype, pin_memory=True).copy_(send)
         recv = torch.empty(sum(sizes), dtype=f0.dtype, pin_memory=True)
-        COUNTS["staged"] += sum(1 for n in send_sizes if n)
     else:
         recv = torch.empty(sum(sizes), dtype=f0.dtype, device=f0.device)
     dist.all_to_all_single(recv, send, sizes, send_sizes, group=group)
-    COUNTS["alltoalls"] += 1
-    COUNTS["alltoall_bytes"] += sum(send_sizes) * f0.element_size()
+    census.record("all_to_all", sum(send_sizes) * f0.element_size(), ranks=len(sizes),
+                  staged=sum(1 for n in send_sizes if n) if staged else 0)
     unpack(recv.to(f0.device), sizes, outs, p)
     return [torch.view_as_complex(o) for o in outs] if cplx else outs
 
@@ -319,8 +319,8 @@ def allgather_blocks(block: Tensor, grid, spec: Layout,
         buf = torch.empty(buf.shape, dtype=buf.dtype, pin_memory=True).copy_(buf)
     parts = [torch.empty_like(buf) for _ in range(mesh.size)]
     dist.all_gather(parts, buf)
-    COUNTS["gathers"] += 1
-    COUNTS["gather_bytes"] += buf.numel() * buf.element_size()
+    census.record("gather", buf.numel() * buf.element_size(), shape=buf.shape,
+                  ranks=mesh.size)
     full = torch.empty(tuple(shape) + tuple(b.shape[3:]), dtype=b.dtype, device=buf.device)
     for r, part in enumerate(parts):
         box = block_of(shape, mesh.pgrid, spec, r)

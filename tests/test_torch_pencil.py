@@ -10,8 +10,6 @@ ranks run in tests/test_torch_dist*.py.
 """
 
 import math
-import sys
-from pathlib import Path
 
 import numpy as np
 import pytest
@@ -24,9 +22,7 @@ from poissbox_tpu.parallel.pencil import pencil_spec as j_pencil_spec
 from poissbox_tpu_torch.mesh import Grid3D, ProcessGrid, make_process_grid
 from poissbox_tpu_torch.parallel import pencil
 from poissbox_tpu_torch.solvers import fft
-
-sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
-import chip_smoke  # noqa: E402  (pencil_bytes_model, the shape model)
+from poissbox_tpu_torch.utils import census
 
 # (process grid, a global shape every layout divides)
 CASES = [((4, 2, 1), (16, 8, 12)), ((2, 2, 2), (8, 12, 16)), ((2, 1, 2), (16, 16, 18)),
@@ -183,5 +179,5 @@ def test_bytes_model_of_the_headline_laplacian():
     (Z->Y), 2 x 96 MiB (Y->X) and 64 MiB (X->home) in 3 calls; the packed
     FFT's four body changes 64 + 96 + 96 + 64 MiB."""
     mib = 2 ** 20
-    assert chip_smoke.pencil_bytes_model((512,) * 3, (2, 2, 1), 4, "lapl") == (3, 384 * mib)
-    assert chip_smoke.pencil_bytes_model((512,) * 3, (2, 2, 1), 4, "packed") == (4, 320 * mib)
+    assert census.pencil_bytes_model((512,) * 3, (2, 2, 1), 4, "lapl") == (3, 384 * mib)
+    assert census.pencil_bytes_model((512,) * 3, (2, 2, 1), 4, "packed") == (4, 320 * mib)

@@ -17,7 +17,9 @@ solver's loop: ``fft_thunk.cc:167`` RET_CHECK).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
+import json
 import os
 import socket
 import subprocess
@@ -50,13 +52,14 @@ from poissbox_tpu.solvers.mg import make_mg_preconditioner as jmake_mg
 from poissbox_tpu.solvers.refine import refine as jrefine
 from poissbox_tpu_torch.parallel.decomp import owned_boxes
 from poissbox_tpu_torch.parallel.pencil import pencil_ok
+from poissbox_tpu_torch.solvers.mg import MGConfig
+from poissbox_tpu_torch.utils.census import (Collective, census_by_shape,
+                                             pencil_bytes_model)
+from poissbox_tpu_torch.utils.scaling import mgcg_iteration_model
 
 HERE = Path(__file__).resolve().parent
 sys.path.insert(0, str(HERE))
 import torch_dist_worker as worker  # noqa: E402
-
-sys.path.insert(0, str(HERE.parent))
-from chip_smoke import pencil_bytes_model  # noqa: E402
 
 RANK_TIMEOUT = 150.0   # s for the whole group; each collective has 120 s
 # what a test file takes with `from torch_dist_common import *`: the
@@ -71,7 +74,8 @@ __all__ = ["run_case", "blocks", "test_dof_counts",
            "test_fft_dist_matches_one_rank", "test_pencil_counts_equal_the_model",
            "test_order6_mgcg_iterations_equal_jax", "test_order6_mgcg_true_residual",
            "test_order6_mgcg_x_matches_jax", "test_order6_fcg_fft_matches_jax",
-           "test_ksp_fft_residual_within_twice_one_rank", "test_pipecg_matches_jax"]
+           "test_ksp_fft_residual_within_twice_one_rank", "test_pipecg_matches_jax",
+           "test_census_equals_the_iteration_model", "test_max_gather_is_the_coarse_level"]
 OPS = ("apply", "apply_padded", "apply_dot", "residual", "jacobi", "sor0", "sor1",
        "cgupd.x", "cgupd.r")
 
@@ -361,6 +365,50 @@ def test_mgcg_x_matches_jax(dist_run):
     assert np.linalg.norm(got - want) <= 1e-6 * np.linalg.norm(want)
 
 
+def _records(text: str) -> collections.Counter:
+    """A rank's census records as the worker wrote them (JSON), as a
+    multiset."""
+    return collections.Counter(
+        Collective(op, nbytes, dim, None if shape is None else tuple(shape), ranks)
+        for op, nbytes, dim, shape, ranks in json.loads(str(text)))
+
+
+@pytest.mark.parametrize("cfg", tuple(worker.CENSUS_MG))
+def test_census_equals_the_iteration_model(dist_run, cfg):
+    """Every rank's census of one MG-CG iteration (a window of 2
+    iterations less one of 1) is utils.scaling.mgcg_iteration_model's
+    replay for that rank and the solver's MGConfig, record for record:
+    every exchange, face, gather and all-reduce with its bytes, dim and
+    block shape (V- and W-cycles; SOR, Jacobi and Chebyshev smoothing)."""
+    pgrid, n, ranks, _ = dist_run
+    for r, rk in enumerate(ranks):
+        got = _records(rk[f"census.{cfg}.iteration"])
+        mg_cfg = MGConfig(**json.loads(str(rk[f"census.{cfg}.config"])))
+        model = mgcg_iteration_model((n,) * 3, pgrid, mg_cfg, itemsize=8, rank=r)
+        want = collections.Counter(model.records)
+        assert got == want, (r, census_by_shape(got.elements()),
+                             census_by_shape(want.elements()))
+
+
+def test_max_gather_is_the_coarse_level(dist_run):
+    """The largest gather of a whole MG-CG solve (the replication
+    tripwire) is the field where the replicated tail starts: the first
+    level that does not split evenly, or the coarsest (its coarse solve
+    gathers); on an uneven grid the fine residual, in buffers of the
+    largest box."""
+    pgrid, n, ranks, _ = dist_run
+    levels = mgcg_iteration_model((n,) * 3, pgrid).levels
+    if any(n % p for p in pgrid):
+        big = [-(-n // p) for p in pgrid]
+        want = 8 * int(np.prod(pgrid)) * int(np.prod(big))
+    else:
+        shape = next((s for s, dist in levels if not dist), levels[-1][0])
+        assert shape != levels[0][0]
+        want = 8 * int(np.prod(shape))
+    for rk in ranks:
+        assert int(rk["census.max_gather"]) == want
+
+
 # ---------------------------------------------------------------------------
 # order 6 and the FFT across ranks (the worker's `n6` cases)
 # ---------------------------------------------------------------------------
@@ -412,7 +460,7 @@ def test_fft_dist_matches_one_rank(dist_run, op):
 @pytest.mark.parametrize("op", OPS6)
 def test_pencil_counts_equal_the_model(dist_run, op):
     """Rank 0's all-to-alls, their bytes and its gathers against the shape
-    model (chip_smoke.pencil_bytes_model) of the route the call takes on
+    model (census.pencil_bytes_model) of the route the call takes on
     this decomposition, f64 fields: a compact operator transposes where
     every layout divides the grid, else gathers its inputs (div: three
     components); an FFT solve takes fft.fft_route's route (the packed one

@@ -18,12 +18,17 @@ agreed over uneven boxes). With `n6=M`, at M^3: the compact operators across ran
 rank's error from the one-rank operator), the FFT solves of both orders,
 order 6 by CG + GMG, FCG + `-pc_type fft` and `-ksp_type fft`, order 2 by
 `-ksp_type fft`, with the pencil counters of each operator and solve.
+Always: the census of one MG-CG iteration (a window of 2 iterations less
+one of 1) for each MG configuration of CENSUS_MG, and the largest gather
+of the default one's 2-iteration solve.
 The fields come from numpy seeds, so the test hands the same ones to the
 JAX package. Every collective has a 120 s limit; a failure exits nonzero.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
 import os
 import sys
@@ -42,6 +47,7 @@ from poissbox_tpu_torch.parallel import dist_stencil as ds  # noqa: E402
 from poissbox_tpu_torch.parallel import halo  # noqa: E402
 from poissbox_tpu_torch.solvers import fft  # noqa: E402
 from poissbox_tpu_torch.solvers.mg import MGConfig, make_mg_preconditioner  # noqa: E402
+from poissbox_tpu_torch.utils import census  # noqa: E402
 
 W, WJ, ALPHA = 1.0, 0.8, 0.37
 SOLVE = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-8", "-ksp_max_it", "50"]
@@ -59,6 +65,9 @@ KRYLOV = {"pipecg": (["-ksp_type", "pipecg"] + MG, 1.01e-8),
           "richardson": (["-ksp_type", "richardson"] + MG, 1.01e-8)}
 OTHER_PGRID = {(2, 2, 1): (4, 1, 1), (3, 1, 1): (1, 3, 1)}   # same world, other boxes
 EVERY = 2
+# the MG configurations whose one-iteration census is held to the model
+CENSUS_MG = {"v": [], "w": ["-mg_cycle", "w"], "jacobi": ["-mg_levels_pc_type", "jacobi"],
+             "chebyshev": ["-mg_levels_ksp_type", "chebyshev"]}
 # order 6 and the FFT: the Krylov solves to rtol 1e-8
 SOLVES6 = {"cg6": (6, ["-ksp_type", "cg", "-pc_type", "mg"]),
            "fcg6": (6, ["-ksp_type", "fcg", "-pc_type", "fft"]),
@@ -138,6 +147,34 @@ def order6(pgrid, n: int, out: dict) -> None:
             r1 = s1.solve(b1)
             out[f"{tag}1.x"], out[f"{tag}1.its"] = r1.x.numpy(), int(r1.iterations)
             out[f"{tag}1.rel"] = s1.residual_norm(r1.x, b1)
+
+
+def census_iteration(pgrid, n: int, f: dict, out: dict) -> None:
+    """One MG-CG iteration's collectives on this rank, for each MG
+    configuration of CENSUS_MG: census windows around solves of 1 and 2
+    iterations (SOLVE's options), their difference as JSON records [op,
+    bytes, dim, shape, ranks] beside the solver's resolved MGConfig; and
+    the largest gather of the default configuration's 2-iteration solve."""
+    for tag, opts in CENSUS_MG.items():
+        windows = []
+        for its in (1, 2):
+            s = PoissonSolver((n,) * 3,
+                              options=Options(SOLVE + opts + ["-ksp_max_it", str(its)]),
+                              dtype=torch.float64, device="cpu", shard=pgrid)
+            b = s.rhs_for(f["x_exact"])
+            with census.recording() as rec:
+                res = s.solve(b)
+            if int(res.iterations) != its:
+                raise AssertionError(f"census window: {int(res.iterations)} iterations, "
+                                     f"asked for {its}")
+            windows.append(rec)
+        one = census.subtract(windows[1], windows[0])
+        out[f"census.{tag}.iteration"] = json.dumps(
+            [[c.op, c.bytes, c.dim, None if c.shape is None else list(c.shape), c.ranks]
+             for c in one])
+        out[f"census.{tag}.config"] = json.dumps(dataclasses.asdict(s._solver.M.config))
+        if tag == "v":
+            out["census.max_gather"] = census.max_gather_bytes(windows[1])
 
 
 class Killed(Exception):
@@ -296,6 +333,7 @@ def main(argv) -> int:
                 r1 = s1.solve(s1.rhs_for(torch.as_tensor(fields(n)["x_exact"])))
                 out[f"mg1.{tag}.x"], out[f"mg1.{tag}.its"] = r1.x.numpy(), int(r1.iterations)
     krylov(pgrid, n, f, out_dir, extra, out)
+    census_iteration(pgrid, n, f, out)
     n6 = next((int(a[3:]) for a in extra if a.startswith("n6=")), None)
     if n6:
         order6(pgrid, n6, out)
