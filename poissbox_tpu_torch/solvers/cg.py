@@ -28,6 +28,7 @@ from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
 from poissbox_tpu_torch.utils.logging import is_process0
+from poissbox_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -87,7 +88,8 @@ def cg(
         r = b
     else:
         x = A.project(x0)
-        r = b - A(x)
+        with span("MatMult"):
+            r = b - A(x)
     z = A.project(precond(r))
     p = z
     reduce = getattr(A, "allreduce", None)
@@ -151,77 +153,79 @@ def cg(
               & torch.isfinite(resnorm))
         if not debugging.proceed(go, resnorm, "fcg" if flexible else "cg", k):
             break
-        if defer_p:
-            p, Ap, pAp = A.pupdate_apply_dot(v_def, p, beta, zshift)
-        elif A.apply_dot is not None:
-            Ap, pAp = A.apply_dot(p)
-        else:
-            Ap = A(p)
-            pAp = _dot(p, Ap)
-        pAp, = _sums(reduce, pAp)
-        # breakdown guard: pAp (or rz) vanishes once the residual is
-        # rounding noise of the projected null space — stop with the
-        # current iterate instead of dividing 0/0
-        ok = (pAp != 0.0) & (rz != 0.0)
-        alpha = torch.where(ok, rz / torch.where(ok, pAp, one), zero)
-        if apply_upd_dots is not None:
-            v, r, rr_k, sr, rv, sv = apply_upd_dots(r, Ap, alpha)
-            rr = None if natural else rr_k
-        else:
-            if fuse_upd:
-                x, r, rr_k, sr_k = A.fused_update(alpha, x, p, r, Ap)
-            else:
-                x = x + alpha * p
-                r = r - alpha * Ap
-                rr_k = sr_k = None
-            # ||r||^2 and sum(r) from the fused update where it took them
-            if apply_dots is not None:
-                v, rv, sv = apply_dots(r)
-                sr = torch.sum(r) if sr_k is None else sr_k
-                rr = None if natural else (_dot(r, r) if rr_k is None else rr_k)
-            else:
-                v = precond(r)
-                if explicit_proj:
-                    v = A.project(v)
-                if M is None and not explicit_proj:
-                    rr = _dot(r, r) if rr_k is None else rr_k
-                    rv, sv, sr = rr, (torch.sum(r) if sr_k is None else sr_k), None
+        with span("KSPIteration"):
+            with span("MatMult"):
+                if defer_p:
+                    p, Ap, pAp = A.pupdate_apply_dot(v_def, p, beta, zshift)
+                elif A.apply_dot is not None:
+                    Ap, pAp = A.apply_dot(p)
                 else:
-                    rv = _dot(r, v)
-                    sv = torch.sum(v)
+                    Ap = A(p)
+                    pAp = _dot(p, Ap)
+            pAp, = _sums(reduce, pAp)
+            # breakdown guard: pAp (or rz) vanishes once the residual is
+            # rounding noise of the projected null space — stop with the
+            # current iterate instead of dividing 0/0
+            ok = (pAp != 0.0) & (rz != 0.0)
+            alpha = torch.where(ok, rz / torch.where(ok, pAp, one), zero)
+            if apply_upd_dots is not None:
+                v, r, rr_k, sr, rv, sv = apply_upd_dots(r, Ap, alpha)
+                rr = None if natural else rr_k
+            else:
+                if fuse_upd:
+                    x, r, rr_k, sr_k = A.fused_update(alpha, x, p, r, Ap)
+                else:
+                    x = x + alpha * p
+                    r = r - alpha * Ap
+                    rr_k = sr_k = None
+                # ||r||^2 and sum(r) from the fused update where it took them
+                if apply_dots is not None:
+                    v, rv, sv = apply_dots(r)
                     sr = torch.sum(r) if sr_k is None else sr_k
                     rr = None if natural else (_dot(r, r) if rr_k is None else rr_k)
-        # beta_PR = <r_{k+1} - r_k, z_{k+1}> / rz_k = -alpha <Ap, z> / rz_k
-        apz = _dot(Ap, v) if flexible else None
-        sap = torch.sum(Ap) if flexible and project_z else None
-        # the second reduction point: every partial of the step at once
-        rr, sr, rv, sv, apz, sap = _sums(reduce, rr, sr, rv, sv, apz, sap)
-        if project_z:
-            rz_new = rv - sv * ((sv if sr is None else sr) * inv_n)
-            zshift = sv * inv_n
-        else:
-            rz_new = rv
-            zshift = zero
-        if flexible:
+                else:
+                    v = precond(r)
+                    if explicit_proj:
+                        v = A.project(v)
+                    if M is None and not explicit_proj:
+                        rr = _dot(r, r) if rr_k is None else rr_k
+                        rv, sv, sr = rr, (torch.sum(r) if sr_k is None else sr_k), None
+                    else:
+                        rv = _dot(r, v)
+                        sv = torch.sum(v)
+                        sr = torch.sum(r) if sr_k is None else sr_k
+                        rr = None if natural else (_dot(r, r) if rr_k is None else rr_k)
+            # beta_PR = <r_{k+1} - r_k, z_{k+1}> / rz_k = -alpha <Ap, z> / rz_k
+            apz = _dot(Ap, v) if flexible else None
+            sap = torch.sum(Ap) if flexible and project_z else None
+            # the second reduction point: every partial of the step at once
+            rr, sr, rv, sv, apz, sap = _sums(reduce, rr, sr, rv, sv, apz, sap)
             if project_z:
-                apz = apz - zshift * sap
-            numer = -alpha * apz
-        else:
-            numer = rz_new
-        beta = torch.where(ok, numer / torch.where(ok, rz, one), zero)
-        norm = torch.sqrt(torch.abs(rz_new)) if natural else torch.sqrt(rr)
-        resnorm = torch.where(ok, norm, zero)
-        k += 1
-        hist[k] = resnorm
-        if monitor:
-            _monitor_print(k, resnorm)
-        if apply_upd_dots is not None:
-            x = x + alpha * p
-        if defer_p:
-            v_def = v
-        else:
-            p = (v - zshift) + beta * p
-        rz = rz_new
+                rz_new = rv - sv * ((sv if sr is None else sr) * inv_n)
+                zshift = sv * inv_n
+            else:
+                rz_new = rv
+                zshift = zero
+            if flexible:
+                if project_z:
+                    apz = apz - zshift * sap
+                numer = -alpha * apz
+            else:
+                numer = rz_new
+            beta = torch.where(ok, numer / torch.where(ok, rz, one), zero)
+            norm = torch.sqrt(torch.abs(rz_new)) if natural else torch.sqrt(rr)
+            resnorm = torch.where(ok, norm, zero)
+            k += 1
+            hist[k] = resnorm
+            if monitor:
+                _monitor_print(k, resnorm)
+            if apply_upd_dots is not None:
+                x = x + alpha * p
+            if defer_p:
+                v_def = v
+            else:
+                p = (v - zshift) + beta * p
+            rz = rz_new
 
     reason = classify(resnorm, k, bnorm, rtol_, atol_, max_it)
     return SolveResult(

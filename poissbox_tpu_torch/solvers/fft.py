@@ -58,6 +58,7 @@ from poissbox_tpu_torch.ops.coefficients import (
 from poissbox_tpu_torch.parallel import pencil
 from poissbox_tpu_torch.parallel.halo import allgather_field, allreduce_max
 from poissbox_tpu_torch.solvers.result import ConvergedReason, SolveResult
+from poissbox_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -99,8 +100,9 @@ def poisson_solve_fft(b: Tensor, deltas: Sequence[float]) -> Tensor:
     any RHS; the null-space component of b is annihilated, so x is the
     minimal-norm solution."""
     shape = tuple(b.shape)
-    inv = _inv_eigenvalues(shape, tuple(float(d) for d in deltas), b.dtype,
-                           rfft=True, device=b.device)
+    with span("FFTSymbol"):
+        inv = _inv_eigenvalues(shape, tuple(float(d) for d in deltas), b.dtype,
+                               rfft=True, device=b.device)
     xhat = torch.fft.rfftn(b) * inv
     return torch.fft.irfftn(xhat, s=shape).to(b.dtype)
 
@@ -112,9 +114,12 @@ def make_fft_preconditioner(deltas: Sequence[float], grid=None):
     iterations. On a `grid` over several ranks it takes and returns rank
     blocks (:func:`poisson_solve_fft_dist`)."""
     deltas = tuple(float(d) for d in deltas)
-    if grid is not None and grid.distributed:
-        return lambda r: poisson_solve_fft_dist(r, grid)
-    return lambda r: poisson_solve_fft(r, deltas)
+    dist = grid is not None and grid.distributed
+
+    def M(r: Tensor) -> Tensor:
+        with span("PCApply", r):
+            return poisson_solve_fft_dist(r, grid) if dist else poisson_solve_fft(r, deltas)
+    return M
 
 
 def fft_solver_result(A, b: Tensor, deltas: Sequence[float],
@@ -130,7 +135,8 @@ def fft_solver_result(A, b: Tensor, deltas: Sequence[float],
         x = poisson_solve_fft_dist(b, grid)
     else:
         x = poisson_solve_fft(b, deltas)
-    r = A.project(b) - A(x)
+    with span("MatMult"):
+        r = A.project(b) - A(x)
     sums = torch.stack([torch.sum(r * r), torch.sum(b * b)])
     if getattr(A, "allreduce", None) is not None:
         sums = A.allreduce(sums)
@@ -215,8 +221,9 @@ def compact_poisson_solve_fft(b: Tensor, deltas: Sequence[float]) -> Tensor:
     product), so the real-input transforms and the half spectrum
     serve."""
     shape = tuple(b.shape)
-    inv = compact_inv_eigenvalues(shape, tuple(float(d) for d in deltas),
-                                  b.dtype, device=b.device)
+    with span("FFTSymbol"):
+        inv = compact_inv_eigenvalues(shape, tuple(float(d) for d in deltas),
+                                      b.dtype, device=b.device)
     xhat = torch.fft.rfftn(b) * inv.real[..., : shape[-1] // 2 + 1]
     return torch.fft.irfftn(xhat, s=shape).to(b.dtype)
 

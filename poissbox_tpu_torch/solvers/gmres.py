@@ -35,6 +35,7 @@ from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print, _sums
 from poissbox_tpu_torch.solvers.mg import _full_fp32_matmul
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
+from poissbox_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -111,11 +112,14 @@ def gmres(
     def pres(v: Tensor) -> Tensor:
         return A.project(precond(v))
 
-    r0 = pres(b - A(x))
+    with span("MatMult"):
+        r0 = b - A(x)
+    r0 = pres(r0)
     pb = pres(b)
     rr0, pbb = _sums(reduce, _dot(r0, r0), _dot(pb, pb))
     rnorm0_t, bnorm_t = torch.sqrt(rr0), torch.sqrt(pbb)
-    rnorm0, bnorm = ft(rnorm0_t.item()), ft(bnorm_t.item())
+    with span("KSPSync"):
+        rnorm0, bnorm = ft(rnorm0_t.item()), ft(bnorm_t.item())
     debugging.check_norm(rnorm0, "gmres", 0)
     hist = [rnorm0]
     if monitor:
@@ -133,12 +137,15 @@ def gmres(
     while resnorm > target and np.isfinite(resnorm) and k < max_it:
         if r is None:
             # a restart: the true preconditioned residual, a clean basis
-            r = pres(b - A(x))
+            with span("MatMult"):
+                r = b - A(x)
+            r = pres(r)
             rr, = _sums(reduce, _dot(r, r))
             beta_t = torch.sqrt(rr)
             V.zero_()
         torch.div(r, torch.clamp(beta_t, min=float(tiny)), out=V[0])
-        beta = ft(beta_t.item())
+        with span("KSPSync"):
+            beta = ft(beta_t.item())
         H = np.zeros((m + 1, m), dtype=ft)
         cs = np.zeros(m, dtype=ft)
         sn = np.zeros(m, dtype=ft)
@@ -149,53 +156,58 @@ def gmres(
         for j in range(m):
             if not resnorm > target:
                 break            # the JAX package's masked steps
-            if use_fused:
-                # unpreconditioned: K2 returns <V_j, A V_j>, the j-th
-                # Gram-Schmidt coefficient (V_j is mean-free, so the
-                # projection does not change it)
-                Av, vAv = A.apply_dot(V[j])
-                w = A.project(Av)
-            else:
-                w = pres(A(V[j]))
-            with _full_fp32_matmul():
-                h = Vf @ w.reshape(-1)
-                if reduce is not None:
-                    # this rank's coefficients (and K2's partial) summed
-                    # over every rank in one all-reduce
-                    h = reduce(torch.cat([h, vAv.reshape(1)]) if use_fused else h)
-                    if use_fused:
-                        h, vAv = h[:-1], h[-1]
+            with span("KSPIteration"):
                 if use_fused:
-                    h[j] = vAv
-                w = w - (h @ Vf).view(b.shape)
-            ww, = _sums(reduce, _dot(w, w))
-            hnext_t = torch.sqrt(ww)
-            torch.div(w, torch.clamp(hnext_t, min=float(tiny)), out=V[j + 1])
-            col = torch.cat([h, hnext_t.reshape(1)]).cpu().numpy().astype(ft)
-            hcol = col[:m + 1].copy()
-            hcol[j + 1] = col[m + 1]
-            # the accumulated rotations on the new column
-            for i in range(j):
-                hi = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
-                hip = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
-                hcol[i], hcol[i + 1] = hi, hip
-            denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
-            cs[j] = hcol[j] / max(denom, tiny)
-            sn[j] = hcol[j + 1] / max(denom, tiny)
-            hcol[j] = cs[j] * hcol[j] + sn[j] * hcol[j + 1]
-            hcol[j + 1] = 0.0
-            gj = g[j]
-            g[j] = cs[j] * gj
-            g[j + 1] = -sn[j] * gj
-            resnorm = abs(g[j + 1])
-            H[:, j] = hcol
-            jdone = j + 1
-            k += 1
-            debugging.check_norm(resnorm, "gmres", k)
-            if k <= max_it:
-                hist.append(resnorm)
-            if monitor:
-                _monitor_print(k, resnorm)
+                    # unpreconditioned: K2 returns <V_j, A V_j>, the j-th
+                    # Gram-Schmidt coefficient (V_j is mean-free, so the
+                    # projection does not change it)
+                    with span("MatMult"):
+                        Av, vAv = A.apply_dot(V[j])
+                    w = A.project(Av)
+                else:
+                    with span("MatMult"):
+                        w = A(V[j])
+                    w = pres(w)
+                with _full_fp32_matmul():
+                    h = Vf @ w.reshape(-1)
+                    if reduce is not None:
+                        # this rank's coefficients (and K2's partial) summed
+                        # over every rank in one all-reduce
+                        h = reduce(torch.cat([h, vAv.reshape(1)]) if use_fused else h)
+                        if use_fused:
+                            h, vAv = h[:-1], h[-1]
+                    if use_fused:
+                        h[j] = vAv
+                    w = w - (h @ Vf).view(b.shape)
+                ww, = _sums(reduce, _dot(w, w))
+                hnext_t = torch.sqrt(ww)
+                torch.div(w, torch.clamp(hnext_t, min=float(tiny)), out=V[j + 1])
+                with span("KSPSync"):
+                    col = torch.cat([h, hnext_t.reshape(1)]).cpu().numpy().astype(ft)
+                hcol = col[:m + 1].copy()
+                hcol[j + 1] = col[m + 1]
+                # the accumulated rotations on the new column
+                for i in range(j):
+                    hi = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
+                    hip = -sn[i] * hcol[i] + cs[i] * hcol[i + 1]
+                    hcol[i], hcol[i + 1] = hi, hip
+                denom = np.sqrt(hcol[j] ** 2 + hcol[j + 1] ** 2)
+                cs[j] = hcol[j] / max(denom, tiny)
+                sn[j] = hcol[j + 1] / max(denom, tiny)
+                hcol[j] = cs[j] * hcol[j] + sn[j] * hcol[j + 1]
+                hcol[j + 1] = 0.0
+                gj = g[j]
+                g[j] = cs[j] * gj
+                g[j + 1] = -sn[j] * gj
+                resnorm = abs(g[j + 1])
+                H[:, j] = hcol
+                jdone = j + 1
+                k += 1
+                debugging.check_norm(resnorm, "gmres", k)
+                if k <= max_it:
+                    hist.append(resnorm)
+                if monitor:
+                    _monitor_print(k, resnorm)
         # the upper-triangular system H[:j, :j] y = g[:j] of the steps taken
         y = np.zeros(m, dtype=ft)
         if jdone:

@@ -14,6 +14,7 @@ slowest rank's times and the global DoF count, and process 0 prints it.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import io
 import time
@@ -38,7 +39,8 @@ from poissbox_tpu_torch.solvers.pipecg import pipecg
 from poissbox_tpu_torch.solvers.result import SolveResult
 from poissbox_tpu_torch.solvers.richardson import richardson
 from poissbox_tpu_torch.utils.logging import is_process0
-from poissbox_tpu_torch.utils.profiling import kernel_time
+from poissbox_tpu_torch.utils import profiling
+from poissbox_tpu_torch.utils.profiling import kernel_time, span
 
 Tensor = torch.Tensor
 
@@ -61,7 +63,11 @@ def make_preconditioner(
         if A.diagonal is None:
             raise ValueError("jacobi preconditioning needs an operator diagonal")
         inv_diag = 1.0 / A.diagonal()
-        return lambda r: inv_diag * r
+
+        def jacobi(r):
+            with span("PCApply", r):
+                return inv_diag * r
+        return jacobi
     if opts.pc_type == "fft":
         # the exact periodic 7-point inverse as a spectrally equivalent
         # preconditioner (for the compact 6th-order system)
@@ -164,25 +170,29 @@ def make_solver(
             raise ValueError("fft direct solve needs the grid deltas")
         M = None
 
-        def solver(b, x0=None):
+        def method(b, x0=None):
             return fft_solver_result(A, b, deltas, grid)
     else:
         M = make_preconditioner(A, opts, shape, deltas, dtype, device, grid)
 
         if opts.ksp_type in ("cg", "fcg"):
-            def solver(b, x0=None):
+            def method(b, x0=None):
                 return cg(A, b, x0, M=M, norm_type=opts.ksp_norm_type,
                           flexible=opts.ksp_type == "fcg", **common)
         elif opts.ksp_type == "pipecg":
-            def solver(b, x0=None):
+            def method(b, x0=None):
                 return pipecg(A, b, x0, M=M, norm_type=opts.ksp_norm_type,
                               **common)
         elif opts.ksp_type == "gmres":
-            def solver(b, x0=None):
+            def method(b, x0=None):
                 return gmres(A, b, x0, M=M, restart=opts.gmres_restart, **common)
         else:
-            def solver(b, x0=None):
+            def method(b, x0=None):
                 return richardson(A, b, x0, M=M, **common)
+
+    def solver(b, x0=None):
+        with span("KSPSolve", b):
+            return method(b, x0)
 
     # the built preconditioner and configuration, for `-ksp_view`
     solver.M = M
@@ -231,17 +241,24 @@ def view(opts: SolverOptions, shape=None, M=None) -> str:
 
 
 def _print_log_view(A: LinearOperator, b: Tensor, M, result,
-                    t_setup: float, t_solve: float) -> None:
+                    t_setup: float, t_solve: float, logged: list) -> None:
     """`-log_view` analogue: PETSc's per-event performance summary
-    (count, time/call, total, fraction), as the JAX package prints it.
+    (count, time/call, total, fraction), as the JAX package prints it,
+    then the logged solve's spans.
 
     The events are not timed inside the solve: each event's time/call is
     measured standalone by the differenced protocol
     (:func:`poissbox_tpu_torch.utils.profiling.kernel_time`, chained
     applications decayed by 1e-3 so the values stay finite) and multiplied
-    by its count, MatMult it+1 and PCApply it. The rest of the warm solve
-    wall ("other") is the vector algebra, the reductions, the host loop and
-    the fused hooks' gain or loss against the standalone events.
+    by its count, the number of its spans in the logged solve (`logged`,
+    its span records): the operator applications the Krylov loop made, and
+    the preconditioner applications (CG applies M once more than it
+    iterates: its last iteration applies M before the stopping test reads
+    the norm). The rest of the warm solve wall ("other") is the vector
+    algebra, the reductions, the host loop and the fused hooks' gain or
+    loss against the standalone events. Under the table, the logged
+    solve's spans by name: count, host ms, self host ms and device ms
+    (process 0's; "-" off the card).
 
     Over a process grid every rank runs this together (MatMult and PCApply
     exchange faces): each time is the slowest rank's (``A.allreduce_max``),
@@ -270,14 +287,15 @@ def _print_log_view(A: LinearOperator, b: Tensor, M, result,
         return t
 
     it = max(int(result.iterations), 1)
+    counts = collections.Counter(s["name"] for s in logged)
     events = []
     t_mat = _warm_time("MatMult", A.apply)
     if t_mat is not None:
-        events.append(("MatMult", it + 1, t_mat))
+        events.append(("MatMult", counts["MatMult"], t_mat))
     if M is not None:
         t_pc = _warm_time("PCApply", M)
         if t_pc is not None:
-            events.append(("PCApply", it, t_pc))
+            events.append(("PCApply", counts["PCApply"], t_pc))
     t_setup, t_solve = slowest(t_setup, t_solve)
     if not is_process0():
         return
@@ -299,6 +317,20 @@ def _print_log_view(A: LinearOperator, b: Tensor, M, result,
           f"   ({int(result.iterations)} iterations, "
           f"{t_solve / it * 1e3:.3f} ms/it, "
           f"{ndof * it / max(t_solve, 1e-12) / 1e9:.2f} GDoF/s of {ndof} DoF)")
+    by_name = {}
+    for s in sorted(logged, key=lambda s: s["id"]):
+        row = by_name.setdefault(s["name"], [0, 0.0, 0.0, None])
+        row[0] += 1
+        row[1] += s["host_ms"]
+        row[2] += s["self_host_ms"]
+        if s["device_ms"] is not None:
+            row[3] = (row[3] or 0.0) + s["device_ms"]
+    print(f"log_view: span {'name':<13} {'count':>5} {'host ms':>12} "
+          f"{'self host ms':>12} {'device ms':>12}")
+    for name, (count, host, self_host, dev) in by_name.items():
+        dev_s = "-" if dev is None else f"{dev:.3f}"
+        print(f"log_view: span {name:<13} {count:5d} {host:12.3f} "
+              f"{self_host:12.3f} {dev_s:>12}")
 
 
 def _sync(t: Tensor) -> None:
@@ -318,8 +350,9 @@ def solve(
     """One-shot options-driven solve (KSPSolve analogue). Prints
     `-ksp_view`, `-ksp_monitor`, `-ksp_converged_reason` and `-log_view`
     output when those flags are set. With `-log_view` the solve runs a
-    second time, warm (kernels built, caches filled), and that solve's wall
-    is the table's; the result returned is the first solve's."""
+    second time, warm (kernels built, caches filled), its spans recorded,
+    and that solve's wall and spans are the table's; the result returned
+    is the first solve's."""
     db = opts if isinstance(opts, Options) else None
     if isinstance(opts, Options):
         opts = SolverOptions.from_options(opts)
@@ -333,13 +366,16 @@ def solve(
     result = solver(b, x0)
     _sync(b)
     if log_view:
-        # the same solver again, its monitor's second history discarded
-        with contextlib.redirect_stdout(io.StringIO()):
+        # the same solver again, its spans recorded and its monitor's
+        # second history discarded
+        with contextlib.redirect_stdout(io.StringIO()), profiling.recording():
             t0 = time.perf_counter()
             solver(b, x0)
             _sync(b)
         t_solve = time.perf_counter() - t0
-        _print_log_view(A, b, solver.M, result, t_setup, t_solve)
+        recs = profiling.spans()      # the logged solve's root closed last
+        logged = [s for s in recs if s["solve"] == recs[-1]["id"]]
+        _print_log_view(A, b, solver.M, result, t_setup, t_solve, logged)
     if db is not None and (db.get_bool("options_left")
                            or db.get_bool("options_error_if_unused")):
         db.check_unused()

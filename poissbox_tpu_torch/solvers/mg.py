@@ -70,6 +70,7 @@ from poissbox_tpu_torch.ops.transfer_cuda import (
 from poissbox_tpu_torch.parallel import dist_stencil as ds
 from poissbox_tpu_torch.parallel.halo import halo_pad_local, pad_from_global
 from poissbox_tpu_torch.parallel.uneven import color_mask
+from poissbox_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -530,30 +531,36 @@ def _coarse_correct(levels: Sequence[_Level], coarse_pinv: Tensor,
     return ec
 
 
+# the spans of the levels, named once (MGLevel0 the finest)
+_LEVEL_SPANS = tuple(f"MGLevel{k}" for k in range(32))
+
+
 def v_cycle(levels: Sequence[_Level], coarse_pinv: Tensor, cfg: MGConfig,
             b: Tensor, idx: int = 0, dots: bool = False):
-    """One cycle for the level-`idx` system A_idx e = b. `dots=True` (top
-    level) returns (x, <x, b>, sum(x)), the reductions taken in the final
-    post-smooth kernel."""
-    lvl = levels[idx]
-    if idx == len(levels) - 1:
-        # coarse solve in the pinv's (setup) precision, cast back; a
-        # distributed coarse level is gathered, solved on every rank and cut
-        full = b if lvl.grid is None else lvl.grid.unshard(b)
-        flat = full.reshape(-1).to(coarse_pinv.dtype)
-        x = (coarse_pinv @ flat).reshape(lvl.shape).to(b.dtype)
-        return x if lvl.grid is None else lvl.grid.shard(x)
-    pd = _dtype(cfg.pre_dtype)
-    if pd is not None and pd != b.dtype:
-        # low-precision pre-smooth; the full-precision residual below
-        # absorbs x1's rounding. The fused legs read the narrow iterate as
-        # it is (K6/K7 upcast it); the other paths widen it here.
-        x = _smooth(None, b.to(pd), lvl, cfg, cfg.pre_smooth, reverse=False)
-        if not _fused_leg(levels, cfg, idx, b.device):
-            x = x.to(b.dtype)
-    else:
-        x = _smooth(None, b, lvl, cfg, cfg.pre_smooth, reverse=False)
-    return _v_cycle_rest(levels, coarse_pinv, cfg, x, b, idx, dots)
+    """One cycle for the level-`idx` system A_idx e = b, the span
+    `MGLevel<idx>` (the coarsest level's is its pseudo-inverse solve).
+    `dots=True` (top level) returns (x, <x, b>, sum(x)), the reductions
+    taken in the final post-smooth kernel."""
+    with span(_LEVEL_SPANS[idx]):
+        lvl = levels[idx]
+        if idx == len(levels) - 1:
+            # coarse solve in the pinv's (setup) precision, cast back; a
+            # distributed coarse level is gathered, solved on every rank and cut
+            full = b if lvl.grid is None else lvl.grid.unshard(b)
+            flat = full.reshape(-1).to(coarse_pinv.dtype)
+            x = (coarse_pinv @ flat).reshape(lvl.shape).to(b.dtype)
+            return x if lvl.grid is None else lvl.grid.shard(x)
+        pd = _dtype(cfg.pre_dtype)
+        if pd is not None and pd != b.dtype:
+            # low-precision pre-smooth; the full-precision residual below
+            # absorbs x1's rounding. The fused legs read the narrow iterate as
+            # it is (K6/K7 upcast it); the other paths widen it here.
+            x = _smooth(None, b.to(pd), lvl, cfg, cfg.pre_smooth, reverse=False)
+            if not _fused_leg(levels, cfg, idx, b.device):
+                x = x.to(b.dtype)
+        else:
+            x = _smooth(None, b, lvl, cfg, cfg.pre_smooth, reverse=False)
+        return _v_cycle_rest(levels, coarse_pinv, cfg, x, b, idx, dots)
 
 
 def _v_cycle_rest(levels: Sequence[_Level], coarse_pinv: Tensor,
@@ -662,7 +669,8 @@ def make_mg_preconditioner(
         return x.to(r.dtype)
 
     def M(r: Tensor) -> Tensor:
-        return cycle(r)
+        with span("PCApply", r):
+            return cycle(r)
 
     M.config = cfg
     M.levels = levels
@@ -672,11 +680,13 @@ def make_mg_preconditioner(
     if cfg.cycles == 1 and cdt is None and len(levels) > 1:
         if gather0:
             def apply_dots(r: Tensor):
-                v = cycle(r)
-                return v, torch.sum(v * r), torch.sum(v)
+                with span("PCApply", r):
+                    v = cycle(r)
+                    return v, torch.sum(v * r), torch.sum(v)
         else:
             def apply_dots(r: Tensor):
-                return v_cycle(levels, pinv, cfg, r, dots=True)
+                with span("PCApply", r):
+                    return v_cycle(levels, pinv, cfg, r, dots=True)
         M.apply_dots = apply_dots
 
         pd0 = _dtype(cfg.pre_dtype)
@@ -695,13 +705,14 @@ def make_mg_preconditioner(
             xdt = pd0 if pd0 is not None and pd0 != dtype else None
 
             def apply_update_dots(r: Tensor, ap: Tensor, alpha):
-                b_new, x, rr, sr = sor_rb_zero_update_cuda(
-                    r, ap, alpha, lvl0.deltas, w, out_dtype=xdt)
-                if cfg.pre_smooth > 1:
-                    x = sor_rb_multisweep_cuda(x, b_new, lvl0.deltas, w,
-                                               cfg.pre_smooth - 1)
-                v, rv, sv = _v_cycle_rest(levels, pinv, cfg, x, b_new, 0,
-                                          dots=True)
+                with span("PCApply", r), span(_LEVEL_SPANS[0]):
+                    b_new, x, rr, sr = sor_rb_zero_update_cuda(
+                        r, ap, alpha, lvl0.deltas, w, out_dtype=xdt)
+                    if cfg.pre_smooth > 1:
+                        x = sor_rb_multisweep_cuda(x, b_new, lvl0.deltas, w,
+                                                   cfg.pre_smooth - 1)
+                    v, rv, sv = _v_cycle_rest(levels, pinv, cfg, x, b_new, 0,
+                                              dots=True)
                 return v, b_new, rr, sr, rv, sv
             M.apply_update_dots = apply_update_dots
     return M

@@ -33,6 +33,7 @@ from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print, _sums
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
+from poissbox_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -72,9 +73,11 @@ def pipecg(
         r = b
     else:
         x = A.project(x0)
-        r = b - A(x)
+        with span("MatMult"):
+            r = b - A(x)
     u = Mp(r)
-    w = A(u)
+    with span("MatMult"):
+        w = A(u)
     reduce = getattr(A, "allreduce", None)
     gamma, delta, rr, bb = _sums(reduce, _dot(r, u), _dot(w, u),
                                  None if natural else _dot(r, r),
@@ -105,38 +108,40 @@ def pipecg(
               & torch.isfinite(resnorm))
         if not debugging.proceed(go, resnorm, "pipecg", k):
             break
-        m = Mp(w)
-        n = A(m)
-        # k = 0: beta = 0, alpha = gamma / delta; then beta = gamma_k /
-        # gamma_{k-1}, alpha = gamma / (delta - beta * gamma / alpha_{k-1})
-        if k == 0:
-            beta = zero
-        else:
-            beta = torch.where(gamma_old == 0.0, zero,
-                               gamma / torch.where(gamma_old == 0.0, one, gamma_old))
-        denom = delta - beta * gamma / torch.where(alpha_old == 0.0, one, alpha_old)
-        # breakdown guard as in cg
-        ok = (denom != 0.0) & (gamma != 0.0)
-        alpha = torch.where(ok, gamma / torch.where(ok, denom, one), zero)
-        z = n + beta * z          # z = A q
-        q = m + beta * q          # q = M s
-        s = w + beta * s          # s = A p
-        p = u + beta * p
-        x = x + alpha * p
-        r = r - alpha * s
-        u = u - alpha * q
-        w = w - alpha * z
-        gamma_old = gamma
-        # the iteration's one reduction point
-        gamma, delta, rr = _sums(reduce, _dot(r, u), _dot(w, u),
-                                 None if natural else _dot(r, r))
-        norm = torch.sqrt(torch.abs(gamma)) if natural else torch.sqrt(rr)
-        resnorm = torch.where(ok, norm, zero)
-        alpha_old = alpha
-        k += 1
-        hist[k] = resnorm
-        if monitor:
-            _monitor_print(k, resnorm)
+        with span("KSPIteration"):
+            m = Mp(w)
+            with span("MatMult"):
+                n = A(m)
+            # k = 0: beta = 0, alpha = gamma / delta; then beta = gamma_k /
+            # gamma_{k-1}, alpha = gamma / (delta - beta * gamma / alpha_{k-1})
+            if k == 0:
+                beta = zero
+            else:
+                beta = torch.where(gamma_old == 0.0, zero,
+                                   gamma / torch.where(gamma_old == 0.0, one, gamma_old))
+            denom = delta - beta * gamma / torch.where(alpha_old == 0.0, one, alpha_old)
+            # breakdown guard as in cg
+            ok = (denom != 0.0) & (gamma != 0.0)
+            alpha = torch.where(ok, gamma / torch.where(ok, denom, one), zero)
+            z = n + beta * z          # z = A q
+            q = m + beta * q          # q = M s
+            s = w + beta * s          # s = A p
+            p = u + beta * p
+            x = x + alpha * p
+            r = r - alpha * s
+            u = u - alpha * q
+            w = w - alpha * z
+            gamma_old = gamma
+            # the iteration's one reduction point
+            gamma, delta, rr = _sums(reduce, _dot(r, u), _dot(w, u),
+                                     None if natural else _dot(r, r))
+            norm = torch.sqrt(torch.abs(gamma)) if natural else torch.sqrt(rr)
+            resnorm = torch.where(ok, norm, zero)
+            alpha_old = alpha
+            k += 1
+            hist[k] = resnorm
+            if monitor:
+                _monitor_print(k, resnorm)
 
     reason = classify(resnorm, k, bnorm, rtol_, atol_, max_it)
     return SolveResult(

@@ -18,6 +18,7 @@ from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print, _sums
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
+from poissbox_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
 
@@ -41,7 +42,8 @@ def richardson(
     x = A.project(x)
     precond = M if M is not None else (lambda v: v)
 
-    r0 = b - A(x)
+    with span("MatMult"):
+        r0 = b - A(x)
     reduce = getattr(A, "allreduce", None)
     rr0, bb = _sums(reduce, _dot(r0, r0), _dot(b, b))
     rnorm0, bnorm = torch.sqrt(rr0), torch.sqrt(bb)
@@ -62,15 +64,17 @@ def richardson(
               & torch.isfinite(resnorm))
         if not debugging.proceed(go, resnorm, "richardson", k):
             break
-        # r is b - A x of the current x (the JAX package forms it twice)
-        x = A.project(x + w * precond(r))
-        r = b - A(x)
-        rr, = _sums(reduce, _dot(r, r))
-        resnorm = torch.sqrt(rr)
-        k += 1
-        hist[k] = resnorm
-        if monitor:
-            _monitor_print(k, resnorm)
+        with span("KSPIteration"):
+            # r is b - A x of the current x (the JAX package forms it twice)
+            x = A.project(x + w * precond(r))
+            with span("MatMult"):
+                r = b - A(x)
+            rr, = _sums(reduce, _dot(r, r))
+            resnorm = torch.sqrt(rr)
+            k += 1
+            hist[k] = resnorm
+            if monitor:
+                _monitor_print(k, resnorm)
 
     reason = classify(resnorm, k, bnorm, rtol_, atol_, max_it)
     return SolveResult(x, torch.tensor(k, dtype=torch.int32), resnorm, hist,

@@ -1,5 +1,5 @@
 """Auxiliary subsystems (port of :mod:`poissbox_tpu.utils`): the profiling
-helpers behind `-log_view` (:mod:`.profiling`), process-0 logging
+helpers behind `-log_view` and the solve's spans (:mod:`.profiling`), process-0 logging
 (:mod:`.logging`), NaN, shape and finiteness checking
 (:mod:`.debugging`), the census of the collectives a rank makes
 (:mod:`.census`) and the scaling model held to it (:mod:`.scaling`).

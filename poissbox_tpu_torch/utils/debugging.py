@@ -13,6 +13,8 @@ from typing import Optional, Sequence
 
 import torch
 
+from poissbox_tpu_torch.utils.profiling import span
+
 _nan_checks = False
 
 
@@ -46,12 +48,14 @@ def _nonfinite(method: str, k: int) -> FloatingPointError:
 
 
 def proceed(go: torch.Tensor, norm: torch.Tensor, method: str, k: int) -> bool:
-    """A Krylov loop's one read a step: whether the device boolean `go`
-    holds. With NaN checks on, the same read carries whether `norm` is
-    finite, and raises FloatingPointError where it is not."""
-    if not _nan_checks:
-        return bool(go.item())
-    code = int(torch.where(torch.isfinite(norm), go.to(torch.int8), -1).item())
+    """A Krylov loop's one read a step, the span `KSPSync`: whether the
+    device boolean `go` holds. With NaN checks on, the same read carries
+    whether `norm` is finite, and raises FloatingPointError where it is
+    not."""
+    with span("KSPSync"):
+        if not _nan_checks:
+            return bool(go.item())
+        code = int(torch.where(torch.isfinite(norm), go.to(torch.int8), -1).item())
     if code < 0:
         raise _nonfinite(method, k)
     return code == 1

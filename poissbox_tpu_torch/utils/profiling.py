@@ -10,16 +10,142 @@ tensor each timed loop runs between two `torch.cuda.Event`s and ends in a
 synchronise (device time, the host's enqueue included where it is the
 slower); on the CPU it is host time. `solve_time` is the same protocol over
 whole solves, and `bandwidth_gbps` turns a time into a rate.
+
+`span` marks a stretch of the solve (PETSc's event names where one exists:
+`KSPSolve`, `KSPIteration`, `KSPSync`, `MatMult`, `PCApply`,
+`MGLevel<k>`, `FFTSymbol`). A span records only while a `recording()`
+window is open or a torch profiler is active; otherwise `span` returns a
+shared no-op context after one test. A recorded span keeps its name, its
+id, its parent's, its `KSPSolve` root's, the host's `perf_counter_ns` at
+entry and exit, and, where the work is on a CUDA card, a pair of timing
+events on the current stream (its interval on the device's clock). Under
+a profiler it also opens a host range of its name on the profiler's
+clock, which the profiler does not copy onto the device's timeline.
+Nothing synchronises while a solve runs: `spans()` synchronises once and
+computes the durations; the records stay until `reset()`.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import time
 from typing import Callable, Optional
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+
+_windows = 0              # open recording() windows
+_open: list = []          # open spans, innermost last
+_done: list = []          # finished spans, in the order they closed
+_exported = 0             # how many of _done have their record
+_ids = itertools.count()
+_OFF = contextlib.nullcontext()
+
+
+class _Span:
+    """One recorded span (see the module docstring)."""
+
+    __slots__ = ("name", "id", "up", "solve", "stream", "t0", "t1", "ev0", "ev1",
+                 "mark", "kids_ns", "kids_ms", "record")
+
+    def __init__(self, name: str, on: Optional[torch.Tensor]):
+        self.name = name
+        self.up = _open[-1] if _open else None
+        # the stream of its events, None off the card: a root's is looked
+        # up once (the lookup costs more than recording an event), the
+        # rest take their parent's
+        self.stream = (self.up.stream if self.up is not None else
+                       torch.cuda.current_stream(on.device)
+                       if on is not None and on.is_cuda else None)
+        self.kids_ns, self.kids_ms = 0, 0.0
+        self.ev0 = self.ev1 = self.mark = self.record = None
+
+    def __enter__(self):
+        self.id = next(_ids)
+        root = _open[0] if _open else self
+        self.solve = root.id if root.name == "KSPSolve" else None
+        if _autograd_profiler._is_profiler_enabled:
+            self.mark = torch._C._profiler._RecordFunctionFast(self.name)
+            self.mark.__enter__()
+        if self.stream is not None:
+            self.ev0 = torch.cuda.Event(enable_timing=True)
+            self.ev0.record(self.stream)
+        _open.append(self)
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        self.t1 = time.perf_counter_ns()
+        _open.pop()
+        if self.stream is not None:
+            self.ev1 = torch.cuda.Event(enable_timing=True)
+            self.ev1.record(self.stream)
+        if self.mark is not None:
+            self.mark.__exit__(*exc)
+            self.mark = None
+        if self.up is not None:
+            self.up.kids_ns += self.t1 - self.t0
+        _done.append(self)
+        return False
+
+
+def span(name: str, on: Optional[torch.Tensor] = None):
+    """A context that records the enclosed work as the span `name` while
+    a `recording()` window is open or a torch profiler is active, and does
+    nothing otherwise; enter it where it is made. A span outside any other
+    times the device only where `on`, a tensor of the work, is on a CUDA
+    card; one inside another times it where its parent does, on its
+    parent's stream."""
+    if not (_windows or _autograd_profiler._is_profiler_enabled):
+        return _OFF
+    return _Span(name, on)
+
+
+@contextlib.contextmanager
+def recording():
+    """Record spans in the enclosed work (windows may nest)."""
+    global _windows
+    _windows += 1
+    try:
+        yield
+    finally:
+        _windows -= 1
+
+
+def reset() -> None:
+    """Drop every finished span's record."""
+    global _exported
+    _done.clear()
+    _exported = 0
+
+
+def spans() -> list:
+    """The finished spans' records, in the order they closed: dicts of
+    name, id, parent, solve (the id of its `KSPSolve` root, None outside
+    one), host_ms and self_host_ms, device_ms and self_device_ms (None
+    off the card). A span's self time is its time less its children's.
+    Synchronises once where there are device intervals to read."""
+    global _exported
+    new = _done[_exported:]
+    if any(s.ev1 is not None for s in new):
+        torch.cuda.synchronize()
+    for s in new:
+        host_ms = (s.t1 - s.t0) / 1e6
+        dev_ms = s.ev0.elapsed_time(s.ev1) if s.ev1 is not None else None
+        if dev_ms is not None and s.up is not None:
+            s.up.kids_ms += dev_ms
+        s.record = {"name": s.name, "id": s.id,
+                    "parent": s.up.id if s.up is not None else None,
+                    "solve": s.solve, "host_ms": host_ms,
+                    "self_host_ms": host_ms - s.kids_ns / 1e6,
+                    "device_ms": dev_ms,
+                    "self_device_ms": None if dev_ms is None else dev_ms - s.kids_ms}
+        s.ev0 = s.ev1 = s.stream = None
+    _exported = len(_done)
+    return [s.record for s in _done]
 
 
 @contextlib.contextmanager

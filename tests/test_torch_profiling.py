@@ -2,9 +2,10 @@
 package (ports of tests/test_round3.py's log_view case and
 tests/test_utils.py's timer cases).
 
-The table's events and counts (MatMult it+1, PCApply it) are held to the
-JAX package's on the same problem; the times are host times here and are
-only checked to be positive.
+The table's events are held to the JAX package's on the same problem, and
+its counts to the logged solve's spans (the JAX package assumes MatMult
+it+1 and PCApply it; CG from a zero guess applies A it times and M it+1
+times); the times are host times here and are only checked to be positive.
 """
 
 import jax.numpy as jnp
@@ -55,7 +56,9 @@ def test_log_view(capsys):
 
 @pytest.mark.parametrize("pc", ["jacobi", "mg"])
 def test_log_view_events_match_jax(capsys, pc):
-    """The same events with the same counts as the JAX package's table."""
+    """The same events as the JAX package's table, counted by the logged
+    solve's spans: CG from a zero guess applies A once an iteration and M
+    once more (its last iteration applies M before the stopping test)."""
     argv = ["-ksp_type", "cg", "-pc_type", pc, "-ksp_rtol", "1e-6", "-log_view"]
     grid, A, b, u = _problem()
     res = solve(A, b, Options(list(argv)), grid=grid)
@@ -66,10 +69,12 @@ def test_log_view_events_match_jax(capsys, pc):
     jres = jsolve(jA, jb, JOptions(list(argv)), shape=jgrid.n, deltas=jgrid.deltas)
     ref = capsys.readouterr().out
     assert int(res.iterations) == int(jres.iterations)
-    assert _events(got) == _events(ref)
+    assert [e for e, _ in _events(got)] == [e for e, _ in _events(ref)]
     it = int(res.iterations)
-    assert ("MatMult", str(it + 1)) in _events(got)
-    assert ("PCApply", str(it)) in _events(got)
+    assert ("MatMult", str(it + 1)) in _events(ref)
+    assert ("PCApply", str(it)) in _events(ref)
+    assert ("MatMult", str(it)) in _events(got)
+    assert ("PCApply", str(it + 1)) in _events(got)
 
 
 def test_log_view_with_options_error_if_unused():
