@@ -48,6 +48,11 @@ and fails loudly if any phase fails:
      torch.linalg.lu_solve; K13's, K16's and K17's strip kernels timed at
      every size the paths give them (64^3 f64, 96^3, 256^3 and 512^3 f32,
      512^3 f64) with the lanes they take and their share of the floor;
+  3b. the spectral solves' symbol multiply (csrc/spectral.cu), both
+     forms, bit for bit against its plain version at 512^3 f32, 64^3 f64
+     and an odd length along z ((48, 40, 97) f32 and f64, anisotropic
+     cells), then timed at 512^3 f32 against its byte floor (each
+     complex64 of the half spectrum read once and written once);
   5b. K13's, K16's and K17's strip kernels: every variant (32 or 16
      lanes, staggered workers or not) and the streaming kernel at the same
      five sizes, each held bit-equal to its plain version once, then timed
@@ -212,6 +217,7 @@ from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops import _build
 from poissbox_tpu_torch.ops import compact
 from poissbox_tpu_torch.ops import compact_pcr as cp
+from poissbox_tpu_torch.ops import spectral_cuda
 from poissbox_tpu_torch.ops import stencil_cuda as sc
 from poissbox_tpu_torch.ops import transfer_cuda as tc
 from poissbox_tpu_torch.ops import tridiag_cuda
@@ -256,8 +262,9 @@ RED_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 MM_TOL = 1e-6
 # the kernels whose fields must equal their plain versions bit for bit
 # (KA's epilogues, K11's colour update, K15 on both of its kernels, K14,
-# and K13, K16 and K17 on their strip and streaming kernels)
-BIT_EQUAL = ("stencil7.", "rbsor.general", "compact.", "tridiag.")
+# K13, K16 and K17 on their strip and streaming kernels, and the spectral
+# symbol multiply)
+BIT_EQUAL = ("stencil7.", "rbsor.general", "compact.", "tridiag.", "spectral.")
 
 PALLAS = "poissbox_tpu/ops/stencil_pallas.py"
 INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
@@ -301,6 +308,10 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "tridiag.dual.long": ("tridiag.cu", f"{TRI}:459"),
     "tridiag.chain.long": ("tridiag.cu", f"{TRI}:467"),
     "tridiag.sum.long": ("tridiag.cu", f"{TRI}:475"),
+    "spectral.compact": ("spectral.cu", "none (the JAX package builds the symbol "
+                         "with jnp: poissbox_tpu/solvers/fft.py:465)"),
+    "spectral.sum": ("spectral.cu", "none (the JAX package builds the symbol with "
+                     "jnp: poissbox_tpu/solvers/fft.py:34)"),
 }
 # K13's, K16's and K17's modes, their streaming kernels' counters beside
 STRIP_KEYS = ("tridiag.thomas", "tridiag.babe", "tridiag.compact", "tridiag.dual",
@@ -611,6 +622,65 @@ def check_kernels() -> dict:
         torch.cuda.empty_cache()
         print(f"  all modes agree at {shape} {dtype}, lengths {length}", flush=True)
     return stats
+
+
+SPECTRAL_CASES = [((512, 512, 512), (1.0, 1.0, 1.0), torch.float32),
+                  ((64, 64, 64), (1.0, 1.0, 1.0), torch.float64),
+                  ((48, 40, 97), (1.0, 0.75, 1.5), torch.float32),
+                  ((48, 40, 97), (1.0, 0.75, 1.5), torch.float64),
+                  ((9, 7, 13), (1.0, 0.75, 1.5), torch.float32)]
+# operations a mode: S (compact 5 products and 2 sums; 7-point 2 sums),
+# the test, the reciprocal and the two scalings
+SPECTRAL_OPS = {"compact": 11, "sum": 6}
+
+
+def check_spectral(stats: dict) -> None:
+    """Phase 3b: the symbol multiply of both forms bit for bit against its
+    plain version on the card (SPECTRAL_CASES, the tables from
+    fft.symbol_tables), on cuFFT's layout of the half spectrum (the half
+    axis outermost) and on the C-order one (rows of nz/2 + 1; (9, 7, 13)
+    leaves an odd count of complex64 values), then its time at 512^3 f32
+    beside the plain version's and its floor."""
+    for shape, length, dtype in SPECTRAL_CASES:
+        deltas = Grid3D(shape, length, DEVICE).deltas
+        g = torch.Generator(device=DEVICE).manual_seed(sum(shape))
+        b = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+        xhat = torch.fft.rfftn(b)
+        del b
+        for form in spectral_cuda.FORMS:
+            key = f"spectral.{form}"
+            tables, peak, rel = fft.symbol_tables(shape, deltas, dtype, DEVICE, form)
+            for layout in (xhat, xhat.contiguous()):
+                got = spectral_cuda.symbol_scale(layout.clone(), tables, peak, rel, form)
+                ref = spectral_cuda.symbol_scale_plain(layout.clone(), tables, peak, rel,
+                                                       form)
+                err = compare(f"{key} {shape} {dtype}", torch.view_as_real(got),
+                              torch.view_as_real(ref))
+                if err != 0.0 or not torch.equal(got == 0, ref == 0):
+                    raise AssertionError(
+                        f"{key} {shape} {dtype}, axes in memory "
+                        f"{spectral_cuda.memory_order(layout)}: max|diff| {err:.3e}, "
+                        "not bit-equal")
+                zeros = int((ref == 0).sum())
+                del got, ref
+            st = stats[key]
+            st["max_abs_err"] = max(st["max_abs_err"], err)
+            if shape == (512, 512, 512):
+                buf = xhat.clone()
+                ms = median_ms(lambda: spectral_cuda.symbol_scale(buf, tables, peak, rel, form))
+                plain_ms = median_ms(lambda: spectral_cuda.symbol_scale_plain(
+                    buf, tables, peak, rel, form))
+                del buf
+                bd = bound(2 * xhat.nbytes, SPECTRAL_OPS[form] * xhat.numel())
+                st.update(ms=ms, plain_ms=plain_ms, **bd)
+                print(f"  {key:32s} 512^3 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                      f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
+                      f"{share(bd, ms)}")
+            print(f"  {key} bit-equal at {shape} {dtype}, axes in memory "
+                  f"{spectral_cuda.memory_order(xhat)} and C order ({zeros} modes "
+                  "dropped)", flush=True)
+        del xhat
+        torch.cuda.empty_cache()
 
 
 def check_contractions() -> None:
@@ -2976,6 +3046,9 @@ def main() -> int:
     check_colour_update(stats)
     check_pencil_blocks(stats)
 
+    phase("the spectral symbol multiply against its plain version")
+    check_spectral(stats)
+
     phase("the one-pass sweep against two K11 launches")
     sweep_pairs(smi)
 
@@ -3054,10 +3127,11 @@ def main() -> int:
     cases_e = [(256, f32, 1e-3, fcg), (256, f64, 1e-8, fcg)]
     run_path("(e) -ksp_type fft at 512^3 f32, order 2 and 6",
              [(2, 512, f32, smi), (6, 512, f32, smi)],
-             ["stencil7.apply"] + lapl_keys, totals, runner=fft_case)
+             ["stencil7.apply", "spectral.sum", "spectral.compact"] + lapl_keys, totals,
+             runner=fft_case)
     torch.cuda.empty_cache()
-    runs_e = run_path("(e) order 6, FCG + -pc_type fft", cases_e, lapl_keys, totals,
-                      runner=solve6_case)
+    runs_e = run_path("(e) order 6, FCG + -pc_type fft", cases_e,
+                      lapl_keys + ["spectral.sum"], totals, runner=solve6_case)
     compare6(runs_e, cases_e, smi)
     del runs_e
     torch.cuda.empty_cache()

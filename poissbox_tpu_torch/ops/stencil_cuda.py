@@ -58,11 +58,13 @@ for the star's epilogues and K12's prologue, ``rbsor.general`` for K11's
 colour update, ``rbsor.zero``/``sweep``/``dots``/``zero_update`` for KB's
 sweeps (one launch a sweep: K3, K4, K4 with dots, K5), ``xfer.*`` for the
 transfer legs, ``cgupd`` for K8, ``compact.x|y|z`` for K15's line kernel
-by axis (ops/compact_pcr.py) and ``tridiag.*`` for K13/K14/K16 and K17's
-four modes (ops/tridiag_cuda.py); ``.bf16`` marks a bf16 launch,
-``.narrow`` K5 storing its swept iterate in bf16, ``.bf16u`` a transfer
-leg reading a bf16 iterate and ``.long`` K13, K16 or K17 on lines too
-long for their strip kernel); a wrapper adds one where it launches, so a
+by axis (ops/compact_pcr.py), ``tridiag.*`` for K13/K14/K16 and K17's
+four modes (ops/tridiag_cuda.py) and ``spectral.compact|sum`` for the
+spectral solves' symbol multiply by form (ops/spectral_cuda.py);
+``.bf16`` marks a bf16 launch, ``.narrow`` K5 storing its swept iterate
+in bf16, ``.bf16u`` a transfer leg reading a bf16 iterate and ``.long``
+K13, K16 or K17 on lines too long for their strip kernel); a wrapper
+adds one where it launches, so a
 run can show which kernels its path went through.
 Reductions come back as per-block partials that the wrapper sums with
 ``torch.sum``, as the JAX wrappers sum theirs. KA streams x planes
@@ -92,7 +94,7 @@ LAUNCHES: dict[str, int] = {k: 0 for k in (
     "compact.x", "compact.y", "compact.z", "tridiag.thomas", "tridiag.pcr",
     "tridiag.babe", "tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
     "tridiag.thomas.long", "tridiag.babe.long", "tridiag.compact.long", "tridiag.dual.long", "tridiag.chain.long",
-    "tridiag.sum.long",
+    "tridiag.sum.long", "spectral.compact", "spectral.sum",
 )}
 
 _EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2,
@@ -115,7 +117,7 @@ DTYPES: dict[str, tuple] = {
     "rbsor.sweep": _WIDE_OR_BF16, "rbsor.zero_update": _WIDE,
     "rbsor.dots": _WIDE,
     "xfer.restrict": _WIDE_OR_BF16, "xfer.prolong_add": _WIDE_OR_BF16,
-    "cgupd": _WIDE,
+    "cgupd": _WIDE, "spectral.compact": _WIDE, "spectral.sum": _WIDE,
 }
 
 

@@ -10,7 +10,12 @@ its rational trigonometric symbol (:func:`compact_inv_eigenvalues`),
 which is real, so both solves take the real-input layout:
 ``torch.fft.rfftn``, a multiply on the half spectrum, ``irfftn``. The
 transforms are library calls, as XLA's are in the JAX package; no Pallas
-kernel is involved.
+kernel is involved. On one rank the multiply is one in-place pass
+(:func:`~poissbox_tpu_torch.ops.spectral_cuda.symbol_scale`, a CUDA
+kernel on the card) that evaluates each mode's symbol from per-axis 1-D
+tables: :func:`symbol_tables` builds them once a (shape, spacing, dtype,
+device, form) and keeps the last few, so no solve rebuilds the 3-D
+symbol; :data:`SYMBOL_TABLES` counts the builds against the applies.
 
 Not ported, on purpose: ``_rfft_last``, ``_rfftn_packed``,
 ``_spectral_solve_*`` and ``_tangled_solve_core`` (``fft.py:63-196``).
@@ -47,10 +52,12 @@ its own pencil block from index ranges.
 from __future__ import annotations
 
 import math
+from collections import OrderedDict
 from typing import Sequence
 
 import torch
 
+from poissbox_tpu_torch.ops import spectral_cuda
 from poissbox_tpu_torch.ops.coefficients import (
     compact_grad_coeffs,
     compact_interp_coeffs,
@@ -72,6 +79,14 @@ def _ranges(shape, box, device):
     return [torch.arange(s, s + c, device=device) for s, c in zip(*box)]
 
 
+def _lam(k: Tensor, n: int, d: float, dtype) -> Tensor:
+    """The 7-point Laplacian's 1-D eigenvalue -4 sin^2(pi k / n) / d^2,
+    cancellation-free (2 cos(theta) - 2 loses ~7 digits on the low modes
+    in float32)."""
+    s = torch.sin((math.pi / n) * k.to(dtype))
+    return (-4.0 / d**2) * s * s
+
+
 def _inv_eigenvalues(shape, deltas, dtype, rfft: bool, device=None,
                      box=None) -> Tensor:
     """Pseudo-inverse eigenvalues of the periodic 7-point Laplacian, in
@@ -79,32 +94,84 @@ def _inv_eigenvalues(shape, deltas, dtype, rfft: bool, device=None,
     ((starts), (counts)) only those modes (a rank's pencil block)."""
     nx, ny, nz = shape
     dx, dy, dz = deltas
-
-    def lam(k, n, d):
-        # -4 sin^2(theta/2), cancellation-free (2 cos(theta) - 2 loses
-        # ~7 digits on the low modes in float32)
-        s = torch.sin((math.pi / n) * k.to(dtype))
-        return (-4.0 / d**2) * s * s
-
     kx, ky, kz = _ranges(shape, box, device)
     if rfft and box is None:
         kz = kz[: nz // 2 + 1]
-    eig = (lam(kx, nx, dx)[:, None, None] + lam(ky, ny, dy)[None, :, None]
-           + lam(kz, nz, dz)[None, None, :])
+    eig = (_lam(kx, nx, dx, dtype)[:, None, None] + _lam(ky, ny, dy, dtype)[None, :, None]
+           + _lam(kz, nz, dz, dtype)[None, None, :])
     nz_mask = eig != 0.0
     return torch.where(nz_mask, 1.0 / torch.where(nz_mask, eig, 1.0), 0.0)
+
+
+# ---------------------------------------------------------------------------
+# The one-rank solves: per-axis symbol tables and one in-place multiply
+# ---------------------------------------------------------------------------
+
+SYMBOL_TABLES = {"builds": 0, "applies": 0}
+_TABLES: OrderedDict = OrderedDict()
+_TABLES_KEPT = 8
+
+
+def _mirrored(half: Tensor, n: int) -> Tensor:
+    """A table of the modes 0 .. n//2 extended to 0 .. n-1 by t[n-k] =
+    t[k], exactly."""
+    return torch.cat([half, half[1:(n + 1) // 2].flip(0)])
+
+
+def _axis_tables(n: int, d: float, form: str) -> list[Tensor]:
+    """One axis's tables in float64 on the CPU, built on k <= n/2 and
+    mirrored: [DG, II] (the real parts of the products
+    :func:`_compact_symbol` forms) or [lambda]."""
+    k = torch.arange(n // 2 + 1)
+    if form == "sum":
+        return [_mirrored(_lam(k, n, d, torch.float64), n)]
+    return [_mirrored(p.real, n) for p in _axis_parts(k, n, d, torch.float64)]
+
+
+def symbol_tables(shape, deltas, dtype, device, form: str):
+    """(tables, peak, rel) of the `form` symbol ("compact" or "sum") for
+    :func:`~poissbox_tpu_torch.ops.spectral_cuda.symbol_scale`: the
+    per-axis tables computed in float64 and rounded once to `dtype`, the
+    largest |S| over the spectrum as a 0-d tensor on `device` (S is even,
+    so the half spectrum's), and the kernel-mode tolerance relative to it.
+    Built once a key and kept, the last few keys in use."""
+    key = (tuple(shape), tuple(float(d) for d in deltas), dtype, torch.device(device), form)
+    hit = _TABLES.get(key)
+    if hit is not None:
+        _TABLES.move_to_end(key)
+        return hit
+    SYMBOL_TABLES["builds"] += 1
+    axes = [_axis_tables(n, d, form) for n, d in zip(key[0], key[1])]
+    tables = torch.stack([torch.cat(rows) for rows in zip(*axes)]).to(dtype=dtype,
+                                                                       device=device)
+    if form == "compact":
+        peak = torch.max(torch.abs(spectral_cuda.symbol_plain(tables, key[0], form)))
+        rel = 1e-6 if dtype == torch.float32 else 1e-12
+    else:
+        peak, rel = torch.zeros((), dtype=dtype, device=device), 0.0
+    _TABLES[key] = (tables, peak, rel)
+    if len(_TABLES) > _TABLES_KEPT:
+        _TABLES.popitem(last=False)
+    return _TABLES[key]
+
+
+def _spectral_solve(b: Tensor, deltas: Sequence[float], form: str) -> Tensor:
+    """x = A^+ b by rfftn, the `form` symbol's pseudo-inverse applied in
+    place on the half spectrum, irfftn."""
+    shape = tuple(b.shape)
+    xhat = torch.fft.rfftn(b)
+    with span("FFTSymbol"):
+        tables, peak, rel = symbol_tables(shape, deltas, b.dtype, b.device, form)
+        spectral_cuda.symbol_scale(xhat, tables, peak, rel, form)
+    SYMBOL_TABLES["applies"] += 1
+    return torch.fft.irfftn(xhat, s=shape).to(b.dtype)
 
 
 def poisson_solve_fft(b: Tensor, deltas: Sequence[float]) -> Tensor:
     """x = A^+ b for the periodic 7-point Laplacian: exact to rounding for
     any RHS; the null-space component of b is annihilated, so x is the
     minimal-norm solution."""
-    shape = tuple(b.shape)
-    with span("FFTSymbol"):
-        inv = _inv_eigenvalues(shape, tuple(float(d) for d in deltas), b.dtype,
-                               rfft=True, device=b.device)
-    xhat = torch.fft.rfftn(b) * inv
-    return torch.fft.irfftn(xhat, s=shape).to(b.dtype)
+    return _spectral_solve(b, deltas, "sum")
 
 
 def make_fft_preconditioner(deltas: Sequence[float], grid=None):
@@ -173,25 +240,27 @@ def _op_symbol(theta: Tensor, a: float, b: float, opsign: int, shift: int,
     return R / (1.0 + 2.0 * alpha * torch.cos(theta))
 
 
+def _axis_parts(k: Tensor, n: int, d: float, dtype) -> tuple[Tensor, Tensor]:
+    """One axis's D*G and I*I' on the modes `k`, complex, computed in
+    `dtype`'s precision."""
+    cplx = _COMPLEX[dtype]
+    ci = compact_interp_coeffs()
+    theta = (2.0 * math.pi / n) * k.to(dtype)
+    cg = compact_grad_coeffs(d)
+    G = _op_symbol(theta, cg.a, cg.b, -1, 0, cg.alpha)   # grad, cell->vtx
+    D = _op_symbol(theta, cg.a, cg.b, -1, 1, cg.alpha)   # div', vtx->cell
+    I = _op_symbol(theta, ci.a, ci.b, +1, 0, ci.alpha)   # interp
+    Ip = _op_symbol(theta, ci.a, ci.b, +1, 1, ci.alpha)  # interp'
+    return (D * G).to(cplx), (I * Ip).to(cplx)
+
+
 def _compact_symbol(shape, deltas, dtype, device=None, idx=None) -> Tensor:
     """The compact Laplacian's symbol S on the modes `idx` (one index
     tensor an axis; all modes by default), complex as the JAX package
     computes it."""
-    cplx = _COMPLEX[dtype]
-    ci = compact_interp_coeffs()
     idx = _ranges(shape, None, device) if idx is None else idx
-
-    def axis_parts(k, n, d):
-        theta = (2.0 * math.pi / n) * k.to(dtype)
-        cg = compact_grad_coeffs(d)
-        G = _op_symbol(theta, cg.a, cg.b, -1, 0, cg.alpha)   # grad, cell->vtx
-        D = _op_symbol(theta, cg.a, cg.b, -1, 1, cg.alpha)   # div', vtx->cell
-        I = _op_symbol(theta, ci.a, ci.b, +1, 0, ci.alpha)   # interp
-        Ip = _op_symbol(theta, ci.a, ci.b, +1, 1, ci.alpha)  # interp'
-        return (D * G).to(cplx), (I * Ip).to(cplx)
-
     (DGx, IIx), (DGy, IIy), (DGz, IIz) = (
-        axis_parts(k, n, float(d)) for k, n, d in zip(idx, shape, deltas))
+        _axis_parts(k, n, float(d), dtype) for k, n, d in zip(idx, shape, deltas))
     return (DGx[:, None, None] * IIy[None, :, None] * IIz[None, None, :]
             + IIx[:, None, None] * DGy[None, :, None] * IIz[None, None, :]
             + IIx[:, None, None] * IIy[None, :, None] * DGz[None, None, :])
@@ -220,12 +289,7 @@ def compact_poisson_solve_fft(b: Tensor, deltas: Sequence[float]) -> Tensor:
     (the staggered half-shift phases cancel in each D*G and I*I'
     product), so the real-input transforms and the half spectrum
     serve."""
-    shape = tuple(b.shape)
-    with span("FFTSymbol"):
-        inv = compact_inv_eigenvalues(shape, tuple(float(d) for d in deltas),
-                                      b.dtype, device=b.device)
-    xhat = torch.fft.rfftn(b) * inv.real[..., : shape[-1] // 2 + 1]
-    return torch.fft.irfftn(xhat, s=shape).to(b.dtype)
+    return _spectral_solve(b, deltas, "compact")
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,11 @@ compact one), in float64.
   * PoissonSolver(order=6) at 16^3: -ksp_type fft to a 1e-10 residual
     (the JAX package's test_poisson_solver_order6_api), CG + GMG and
     FCG + -pc_type fft with the JAX package's iteration counts on the
-    smooth field of its test_cg_with_gmg_preconditioner.
+    smooth field of its test_cg_with_gmg_preconditioner;
+  * the one-rank solves' symbol multiply (ops/spectral_cuda.py's plain
+    version, from fft.symbol_tables) against the half spectrum of the
+    full inverse tables, its kernel-mode mask, the tables' evenness and
+    their cache.
 """
 
 import jax
@@ -27,6 +31,7 @@ from poissbox_tpu.solvers.mg import make_mg_preconditioner as jmake_mg
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options, SolverOptions
 from poissbox_tpu_torch.mesh import Grid3D
+from poissbox_tpu_torch.ops import spectral_cuda
 from poissbox_tpu_torch.ops.stencil import make_laplacian_operator
 from poissbox_tpu_torch.solvers import fft, ksp
 
@@ -167,3 +172,93 @@ def test_fft_preconditioner_and_monitor(capsys):
     assert out[0].startswith("  0 KSP Residual norm")
     assert out[1].startswith("  1 KSP Residual norm")
     assert "CONVERGED_ATOL" in out[2]
+
+
+# the symbol multiply: SHAPES and one odd length along z (no Nyquist plane)
+SCALE_SHAPES = SHAPES + [((10, 12, 15), (1.0, 1.5, 0.75))]
+SCALE_IDS = SHAPE_IDS + ["odd-z"]
+
+
+def half_inverse(form, shape, d):
+    """The inverse on the rfft half spectrum as the full tables give it."""
+    if form == "compact":
+        full = fft.compact_inv_eigenvalues(shape, d, torch.float64)
+        return full.real[..., : shape[2] // 2 + 1]
+    return fft._inv_eigenvalues(shape, d, torch.float64, rfft=True)
+
+
+@pytest.mark.parametrize("form", ["compact", "sum"])
+@pytest.mark.parametrize("shape,length", SCALE_SHAPES, ids=SCALE_IDS)
+def test_symbol_scale_equals_the_half_inverse(shape, length, form):
+    """symbol_scale on a CPU tensor (the plain version) multiplies each
+    half-spectrum value by the full inverse's entry, to 1e-12 relative,
+    and zeroes exactly the modes that inverse zeroes."""
+    d = deltas(shape, length)
+    ref = half_inverse(form, shape, d)
+    tables, peak, rel = fft.symbol_tables(shape, d, torch.float64, "cpu", form)
+    ones = torch.ones(ref.shape, dtype=torch.complex128) * (1 + 1j)
+    got = spectral_cuda.symbol_scale(ones, tables, peak, rel, form)
+    assert got is ones
+    assert torch.equal(got.real, got.imag)
+    rel_close(got.real.numpy(), ref.numpy())
+    assert torch.equal(got.real == 0, ref == 0)
+    b = torch.as_tensor(field(shape, 5))
+    xhat = torch.fft.rfftn(b)
+    want = xhat * ref
+    spectral_cuda.symbol_scale(xhat, tables, peak, rel, form)
+    rel_close(torch.view_as_real(xhat).numpy(), torch.view_as_real(want).numpy())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["compact", "sum"])
+@pytest.mark.parametrize("shape,length", SCALE_SHAPES, ids=SCALE_IDS)
+def test_symbol_tables_are_even(shape, length, form, dtype):
+    """Every axis table has t[n - k] == t[k] bit for bit, so the symbol is
+    exactly even and the kz = 0 and kz = nz/2 planes of the product stay
+    Hermitian; the tables are the float64 ones rounded once."""
+    d = deltas(shape, length)
+    tables, peak, _ = fft.symbol_tables(shape, d, dtype, "cpu", form)
+    wide, _, _ = fft.symbol_tables(shape, d, torch.float64, "cpu", form)
+    assert tables.dtype == peak.dtype == dtype and peak.dim() == 0
+    assert tables.shape == (spectral_cuda.ROWS[form], sum(shape))
+    assert torch.equal(tables, wide.to(dtype))
+    for row in tables:
+        for t in spectral_cuda.axis_tables(row, shape):
+            assert torch.equal(t[1:], t[1:].flip(0))
+
+
+@pytest.mark.parametrize("form", ["compact", "sum"])
+def test_symbol_peak_is_the_full_spectrum_peak(form):
+    """The kernel-mode tolerance's peak, from the half spectrum, against
+    the largest |S| of the full complex symbol (compact); the 7-point
+    form drops only S = 0 (rel 0)."""
+    shape, length = SCALE_SHAPES[1]
+    d = deltas(shape, length)
+    _, peak, rel = fft.symbol_tables(shape, d, torch.float64, "cpu", form)
+    if form == "sum":
+        assert rel == 0.0 and float(peak) == 0.0
+        return
+    want = float(torch.max(torch.abs(fft._compact_symbol(shape, d, torch.float64))))
+    assert rel == 1e-12 and abs(float(peak) - want) <= 1e-14 * want
+
+
+@pytest.mark.parametrize("solve,form", [(fft.compact_poisson_solve_fft, "compact"),
+                                        (fft.poisson_solve_fft, "sum")])
+def test_symbol_tables_built_once_a_key(solve, form):
+    """Two solves of one shape build the tables once (SYMBOL_TABLES counts
+    builds against applies); another spacing builds them again; the
+    cache keeps only its last few keys."""
+    fft._TABLES.clear()
+    for k in fft.SYMBOL_TABLES:
+        fft.SYMBOL_TABLES[k] = 0
+    shape = (8, 6, 10)
+    b = torch.as_tensor(field(shape, 6))
+    x1, x2 = solve(b, (1.0, 1.0, 1.0)), solve(b, (1.0, 1.0, 1.0))
+    assert torch.equal(x1, x2)
+    assert fft.SYMBOL_TABLES == {"builds": 1, "applies": 2}
+    solve(b, (1.0, 0.5, 1.0))
+    assert fft.SYMBOL_TABLES == {"builds": 2, "applies": 3}
+    assert all(key[4] == form for key in fft._TABLES)
+    for k in range(2 * fft._TABLES_KEPT):
+        fft.symbol_tables(shape, (1.0, 1.0, 1.0 + k), torch.float64, "cpu", form)
+    assert len(fft._TABLES) == fft._TABLES_KEPT
