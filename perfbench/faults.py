@@ -9,15 +9,18 @@ unchanged (x = 0); an answer altered where it is produced (one cell of
 x); every solve reported unconverged; and, for the compact operator, the
 7-point Laplacian in K15's place (the operator's apply, which forms the
 residual a solve reports) or the 7-point spectral solve in place of the
-compact one. Each run prints its result line's "correct" and "checks":
-the readings of a fault, which set a number's upper reading. Benchmark
-runs do not run it; the tests plant the same faults on the CPU.
+compact one; across ranks, the face exchange along x left out (each
+rank's block wrapped on itself there). Each run prints its result line's
+"correct" and "checks": the readings of a fault, which set a number's
+upper reading. Benchmark runs do not run it; the tests plant the same
+faults on the CPU.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import importlib
 import json
 import sys
 import time
@@ -58,19 +61,53 @@ def _solve_lapl7():
     return fft, "compact_poisson_solve_fft", fft.poisson_solve_fft
 
 
+def _x_exchange_left_out():
+    """Across ranks: the face exchange along x left out, each rank taking
+    its own opposite x planes for its neighbours' (a rank's block wrapped
+    on itself); the other axes' exchanges go on."""
+    from poissbox_tpu_torch.parallel import halo
+    real = halo.start_face_exchange
+
+    class Exchange:
+        def __init__(self, block, width, others):
+            self.block, self.width, self.others = block, width, others
+
+        def wait(self):
+            faces = dict(self.others.wait())
+            n = self.block.shape[0]
+            faces[0] = (self.block.narrow(0, n - self.width, self.width),
+                        self.block.narrow(0, 0, self.width))
+            return faces
+
+    def start(block, mesh, width=1, dims=None):
+        split = halo.sharded_dims(mesh, dims)
+        if 0 not in split:
+            return real(block, mesh, width, dims)
+        return Exchange(block, width, real(block, mesh, width, [d for d in split if d]))
+    return halo, "start_face_exchange", start
+
+
 FAULTS = {
     "unchanged": lambda: _wrap_solve(lambda res: res._replace(x=res.x.new_zeros(res.x.shape))),
     "altered": lambda: _wrap_solve(_altered),
     "unconverged": lambda: _wrap_solve(_unconverged),
     "k15_lapl7": _k15_lapl7,
     "solve_lapl7": _solve_lapl7,
+    "x_exchange_left_out": _x_exchange_left_out,
 }
 
 
 @contextlib.contextmanager
 def planted(name: str):
-    """The program with the fault `name` planted, for the enclosed runs."""
-    owner, attr, value = FAULTS[name]()
+    """The program with the fault `name` planted, for the enclosed runs:
+    an entry of FAULTS, or "<module>:<function>", a function that returns
+    the same (owner, attribute, value) as they do."""
+    if name in FAULTS:
+        make = FAULTS[name]
+    else:
+        module, _, func = name.partition(":")
+        make = getattr(importlib.import_module(module), func)
+    owner, attr, value = make()
     real = getattr(owner, attr)
     setattr(owner, attr, value)
     try:
@@ -95,8 +132,20 @@ def main(argv=None) -> int:
     from perfbench import run as harness
     cell = cells.load_cell(args.workload, cells.manifest())
     for s in args.seeds.split(","):
-        with planted(args.fault):
-            res = harness.run_process(cell, int(s), args.seconds, False, args.device, time.time())
+        if cell["chips"] > 1:
+            # planted in every rank's process
+            from perfbench import ranks
+            out = ranks.launch(cell, int(s), args.seconds, False, args.device, time.time(),
+                               fault=args.fault)
+            if out.rc != 0:
+                print(json.dumps({"workload": cell["name"], "fault": args.fault,
+                                  "seed": int(s), "exit": out.rc}), flush=True)
+                continue
+            res = out.result
+        else:
+            with planted(args.fault):
+                res = harness.run_process(cell, int(s), args.seconds, False, args.device,
+                                          time.time())
         print(json.dumps({"workload": cell["name"], "fault": args.fault, "seed": int(s),
                           "correct": res["correct"], "checks": res["checks"]}), flush=True)
     return 0

@@ -25,6 +25,10 @@ standard output is one JSON object: ``correct``, ``attempted`` (solves),
 limits (also the last lines of standard error). Set-up's parts are
 printed on earlier lines.
 
+A cell on more than one card runs one process a rank (``ranks.py``); this
+process starts them, without importing torch itself, and prints rank 0's
+result.
+
 Without a CUDA card, or with fewer than the cell asks for, it prints no
 result and exits with 2. If JAX or the JAX package has been imported by
 the time the window closes, it exits with 3.
@@ -289,6 +293,10 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
     cell = cells.load_cell(args.workload, cells.manifest())
+    if cell["chips"] > 1:
+        # one process a rank, each of which looks for its card
+        from perfbench import ranks
+        return ranks.main(cell, args.seed, args.seconds, bool(args.trace), T_START)
     t = time.time()
     import torch
     torch_import_s = time.time() - t

@@ -1,5 +1,7 @@
 """The manifest and everything it names, found by name, within the
-benchmark contract's limits."""
+benchmark contract's limits: ``BENCHMARK.json``, and the same with the
+four-card cell's entries (``data/four_card_cell.json``) added, as a
+manifest that lists the cell will have them."""
 
 import json
 import re
@@ -8,6 +10,7 @@ import shutil
 import pytest
 
 from perfbench import cells
+from perfbench_helpers import with_four_card_cell
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.-]{1,16}$")
@@ -15,9 +18,11 @@ PATH = re.compile(r"^[A-Za-z0-9_./-]{1,200}$")
 WIDTH = re.compile(r"(hidden|intermediate|latent|state|projection|_dim$|_rank$|head|expansion)")
 
 
-@pytest.fixture(scope="module")
-def man():
-    return cells.manifest()
+@pytest.fixture(scope="module", params=["BENCHMARK.json", "with the four-card cell"])
+def man(request):
+    if request.param == "BENCHMARK.json":
+        return cells.manifest()
+    return with_four_card_cell(cells.manifest())
 
 
 def _line(s: str) -> bool:
@@ -67,7 +72,6 @@ def test_workloads_found_by_name(man):
         assert NAME.match(w["name"]) and NAME.match(w["traffic"]) and _line(w["why"])
         assert w["chips"] in (1, 4)
         cell = cells.load_cell(w["name"], man)
-        assert w["chips"] == 1
         assert cell["dtype"] in ("float32", "float64")
         assert cell["pool"] >= 1 and cell["trace_solves"] >= 1
         assert cell["limits"] and set(cell["limits"]) <= {"residual", "error", "residual_gap"}
@@ -75,6 +79,32 @@ def test_workloads_found_by_name(man):
         if "rtol" in cell:
             # the configuration states the residual's limit: the cell's rtol
             assert cell["limits"]["residual"] == cell["rtol"]
+
+
+def test_cells_on_more_than_one_card(man):
+    """A cell with chips over 1 agrees with its traffic file and splits its
+    configuration's process grid over exactly its cards; at most a quarter
+    of the cells, rounded down, ask for four (one always may); and every
+    metric of the four-card cells ("dist_*", "*.dist") lists only them."""
+    multi = [w for w in man["workloads"] if w["chips"] > 1]
+    assert len(multi) <= max(1, len(man["workloads"]) // 4)
+    for w in multi:
+        cell = cells.load_cell(w["name"], man)
+        assert cell["chips"] == w["chips"] == 4
+        spec = cell["config_spec"]
+        assert len(spec["pgrid"]) == 3 and spec["pgrid"][0] * spec["pgrid"][1] * spec["pgrid"][2] \
+            == w["chips"]
+        assert spec["backend"] == "nccl"
+        assert all(n % p == 0 for n, p in zip(cell["grid"], spec["pgrid"]))
+    for w in man["workloads"]:
+        if w["chips"] == 1:
+            assert "pgrid" not in cells.load_cell(w["name"], man)["config_spec"]
+    four = {w["name"] for w in multi}
+    dist = [m for m in man["end_to_end"] + man["per_layer"]
+            if m["name"].startswith("dist_") or m["name"].endswith(".dist")]
+    assert bool(dist) == bool(multi)
+    for m in dist:
+        assert m["workloads"] and set(m["workloads"]) <= four, m["name"]
 
 
 def test_metrics_found_by_name_and_reported_with_what_they_move(man):
