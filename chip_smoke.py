@@ -96,6 +96,9 @@ and fails loudly if any phase fails:
              1e-8 and 512^3 f32 rtol 1e-6 (a 31-field basis, 16.6 GB),
              with -pc_type none at 64^3 f64 for 60 iterations (K2 through
              use_fused; history against the plain path's), the demo;
+             FGMRES(30) + MG at 64^3 f64 rtol 1e-8 and 512^3 f32 rtol 1e-6
+             (the bf16 pre-smooth; V's and Z's 61 fields, 32.7 GB), each
+             held to the true residual <= 1.01 rtol, and its -ksp_view;
        (h)   PIPECG + MG at 64^3 f64 and 256^3 f32, Richardson + MG at
              256^3 f32;
        (i)   CG with the deferred p-update (K12 bound on the operator) at
@@ -3152,13 +3155,26 @@ def main() -> int:
                       demo=gm + ["-pc_type", "mg"])
     b512 = runs_g[1][1]
     print(f"  gmres 512^3 f32: restart 30 resolved to {clamp_restart(30, b512)} "
-          f"(basis {31 * b512.nbytes / 1e9:.1f} GB, budget a quarter of "
+          f"(basis {31 * b512.nbytes / 1e9:.1f} GB, budget half of "
           f"{torch.cuda.mem_get_info(b512.device)[1] / 2**30:.1f} GiB)", flush=True)
     del b512
     compare_paths(runs_g, cases_g, smi)
     del runs_g
     torch.cuda.empty_cache()
     gmres_bf16_case(smi)
+    fgm = ["-ksp_type", "fgmres", "-gmres_restart", "30"]
+    runs_fg = run_path("(g) FGMRES(30) + MG, 64^3 f64 + 512^3 f32 (bf16 pre-smooth), "
+                       "the true residual", [(64, f64, 1e-8, fgm, None),
+                                             (512, f32, 1e-6, fgm, None)],
+                       ["stencil7.apply", "rbsor.zero.bf16", "rbsor.sweep",
+                        "xfer.restrict", "xfer.prolong_add"], totals)
+    inner = runs_fg[1][0]._solver
+    if inner.M.resolved["pre_dtype"] != "bfloat16":
+        raise AssertionError(f"fgmres 512^3 f32: pre-smooth {inner.M.resolved}")
+    print("  fgmres 512^3 f32 -ksp_view: "
+          + ksp.view(inner.opts, inner.shape, inner.M).replace("\n", "; "), flush=True)
+    del runs_fg, inner
+    torch.cuda.empty_cache()
     run_path("(g) GMRES(30) -pc_type none, 64^3 f64, 60 iterations (K2 in the "
              "Gram-Schmidt step)", [(smi,)], ["stencil7.apply", "stencil7.apply_dot"],
              totals, runner=gmres_none_case)

@@ -18,7 +18,7 @@ mirror the JAX package's paths:
   - tridiagonal solves ... poissbox_tpu_torch.ops.tridiag, ops.tridiag_cuda
   - FFT direct solves .... poissbox_tpu_torch.solvers.fft
   - CG / FCG ............. poissbox_tpu_torch.solvers.cg
-  - PIPECG, GMRES, Richardson  poissbox_tpu_torch.solvers.{pipecg,gmres,richardson}
+  - PIPECG, (F)GMRES, Richardson  poissbox_tpu_torch.solvers.{pipecg,gmres,richardson}
   - multigrid ............ poissbox_tpu_torch.solvers.mg
   - options-driven solve . poissbox_tpu_torch.solvers.ksp
   - refinement ........... poissbox_tpu_torch.solvers.refine

@@ -143,7 +143,7 @@ class SolverOptions:
     coarse solve (reference README.md:42-47).
     """
 
-    ksp_type: str = "gmres"
+    ksp_type: str = "gmres"        # cg | fcg | pipecg | gmres | fgmres | richardson | fft
     ksp_norm_type: str = "unpreconditioned"  # unpreconditioned | natural (cg)
     ksp_rtol: float = 1.0e-5
     ksp_atol: float = 1.0e-50

@@ -2,7 +2,8 @@
 
   - solvers.cg ......... conjugate gradients, flexible CG
   - solvers.pipecg ..... pipelined CG, one reduction group an iteration
-  - solvers.gmres ...... restarted GMRES (PETSc's default KSP type)
+  - solvers.gmres ...... restarted GMRES (PETSc's default KSP type) and
+                         flexible GMRES (`-ksp_type fgmres`)
   - solvers.richardson . damped Richardson iteration
   - solvers.mg ......... geometric-multigrid V/W-cycle preconditioner
   - solvers.fft ........ FFT direct solves (7-point and compact 6th order)

@@ -3,8 +3,8 @@
 
 :func:`make_solver` assembles the pipeline from a :class:`SolverOptions`:
 the preconditioner (none/jacobi/fft/mg), the method (cg/fcg, pipecg,
-gmres — PETSc's default and so the default here — richardson, or the FFT
-direct solve), the stopping controls and the monitor. Solvers are built
+gmres — PETSc's default and so the default here — fgmres, richardson, or
+the FFT direct solve), the stopping controls and the monitor. Solvers are built
 for the card unless `device` (or the grid's device) says otherwise; a
 request for the card without one raises. Over a process grid (an operator
 with ``allreduce``) every type runs on rank blocks, and so does
@@ -107,7 +107,8 @@ def make_preconditioner(
             # true residual of 7e-4 behind GMRES's estimate converged to
             # 1e-6, and PIPECG ran to its 50 iterations at 8.4e-5 (PERF.md).
             # So both keep the automatic pre-smooth in float32, and warn
-            # on a bf16 one asked for.
+            # on a bf16 one asked for. FGMRES takes any M and stops on the
+            # true residual: it keeps the automatic pre-smooth, as CG does.
             if "bfloat16" in (opts.mg_pre_dtype, opts.mg_cycle_dtype):
                 warnings.warn(
                     "a bf16 MG pre-smooth or cycle is not a linear "
@@ -156,9 +157,10 @@ def make_solver(
         shape = grid.n if shape is None else shape
         deltas = grid.deltas if deltas is None else deltas
         device = grid.device
-    if opts.ksp_type not in ("cg", "fcg", "pipecg", "gmres", "richardson", "fft"):
+    if opts.ksp_type not in ("cg", "fcg", "pipecg", "gmres", "fgmres", "richardson",
+                             "fft"):
         raise ValueError(f"unknown ksp_type {opts.ksp_type!r} "
-                         "(expected cg|fcg|pipecg|gmres|richardson|fft)")
+                         "(expected cg|fcg|pipecg|gmres|fgmres|richardson|fft)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"make_solver(device={str(device)!r}) needs a CUDA "
                            "device; torch.cuda.is_available() is False")
@@ -183,9 +185,10 @@ def make_solver(
             def method(b, x0=None):
                 return pipecg(A, b, x0, M=M, norm_type=opts.ksp_norm_type,
                               **common)
-        elif opts.ksp_type == "gmres":
+        elif opts.ksp_type in ("gmres", "fgmres"):
             def method(b, x0=None):
-                return gmres(A, b, x0, M=M, restart=opts.gmres_restart, **common)
+                return gmres(A, b, x0, M=M, restart=opts.gmres_restart,
+                             flexible=opts.ksp_type == "fgmres", **common)
         else:
             def method(b, x0=None):
                 return richardson(A, b, x0, M=M, **common)
@@ -213,7 +216,7 @@ def view(opts: SolverOptions, shape=None, M=None) -> str:
         f"  tolerances: rtol={opts.ksp_rtol:g}, atol={opts.ksp_atol:g}, "
         f"max_it={opts.ksp_max_it}",
     ]
-    if opts.ksp_type == "gmres":
+    if opts.ksp_type in ("gmres", "fgmres"):
         lines.append(f"  restart: {opts.gmres_restart}")
     lines += ["PC Object:", f"  type: {opts.pc_type}"]
     cfg = getattr(M, "config", None)

@@ -13,7 +13,7 @@ whole solves, and `bandwidth_gbps` turns a time into a rate.
 
 `span` marks a stretch of the solve (PETSc's event names where one exists:
 `KSPSolve`, `KSPIteration`, `KSPSync`, `MatMult`, `PCApply`,
-`MGLevel<k>`, `FFTSymbol`). A span records only while a `recording()`
+`MGLevel<k>`, `FFTSymbol`, `KSPGMRESOrthog`, `KSPGMRESBuildSoln`). A span records only while a `recording()`
 window is open or a torch profiler is active; otherwise `span` returns a
 shared no-op context after one test. A recorded span keeps its name, its
 id, its parent's, its `KSPSolve` root's, the host's `perf_counter_ns` at
@@ -23,6 +23,12 @@ a profiler it also opens a host range of its name on the profiler's
 clock, which the profiler does not copy onto the device's timeline.
 Nothing synchronises while a solve runs: `spans()` synchronises once and
 computes the durations; the records stay until `reset()`.
+
+`count` adds to a named counter of the open `KSPSolve` under the same
+condition (`KSPGMRESOrthog.steps` and `.rows`, the Gram-Schmidt's work in
+`solvers/gmres.py`): each solve's counters start from zero, `counts()`
+returns them by the solve's root id, and `reset()` drops them with the
+spans.
 """
 
 from __future__ import annotations
@@ -43,6 +49,7 @@ _done: list = []          # finished spans, in the order they closed
 _exported = 0             # how many of _done have their record
 _ids = itertools.count()
 _OFF = contextlib.nullcontext()
+_counts: dict = {}        # {KSPSolve root id (None outside one): {name: total}}
 
 
 class _Span:
@@ -104,6 +111,22 @@ def span(name: str, on: Optional[torch.Tensor] = None):
     return _Span(name, on)
 
 
+def count(name: str, n: int = 1) -> None:
+    """Add `n` to the counter `name` of the open `KSPSolve` while a
+    `recording()` window is open or a torch profiler is active, as a span
+    records; nothing otherwise."""
+    if not (_windows or _autograd_profiler._is_profiler_enabled):
+        return
+    root = _open[0].id if _open and _open[0].name == "KSPSolve" else None
+    per = _counts.setdefault(root, {})
+    per[name] = per.get(name, 0) + n
+
+
+def counts() -> dict:
+    """{root id of a `KSPSolve` (None outside one): {counter: total}}."""
+    return {root: dict(per) for root, per in _counts.items()}
+
+
 @contextlib.contextmanager
 def recording():
     """Record spans in the enclosed work (windows may nest)."""
@@ -116,9 +139,10 @@ def recording():
 
 
 def reset() -> None:
-    """Drop every finished span's record."""
+    """Drop every finished span's record, and the counters."""
     global _exported
     _done.clear()
+    _counts.clear()
     _exported = 0
 
 

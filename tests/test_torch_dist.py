@@ -22,7 +22,8 @@ import pytest
 
 from torch_dist_common import *  # noqa: F401,F403  (the shared checks)
 from torch_dist_common import (run_case, test_mg_options_match_one_rank,  # noqa: F401
-                               test_krylov_matches_jax, test_solve_refined_matches_jax,
+                               test_krylov_matches_jax, test_fgmres_matches_one_rank,
+                               test_solve_refined_matches_jax,
                                test_solve_checkpointed_matches_jax,
                                test_checkpoint_kill_and_resume_equals_uninterrupted,
                                test_checkpoint_starts_fresh_on_every_rank,

@@ -17,7 +17,8 @@ from poissbox_tpu_torch.solvers.ksp import solve
 from poissbox_tpu_torch.utils import profiling
 
 SPAN_READERS = ["enqueue_ms_per_it", "sync_wait_ms", "vcycles_per_it",
-                "vcycle_device_ms", "krylov_device_ms", "symbol_device_ms"]
+                "vcycle_device_ms", "krylov_device_ms", "symbol_device_ms",
+                "orthog_device_ms"]
 
 
 @pytest.fixture(autouse=True)
@@ -77,7 +78,7 @@ def test_cg_mg_solve_records_its_spans(impl):
         assert s["device_ms"] is None and s["self_device_ms"] is None
 
 
-@pytest.mark.parametrize("ksp", ["cg", "fcg", "pipecg", "gmres", "richardson"])
+@pytest.mark.parametrize("ksp", ["cg", "fcg", "pipecg", "gmres", "richardson", "fgmres"])
 def test_every_krylov_type_counts_its_iterations(ksp):
     """One KSPIteration span an iteration of every Krylov type, and a
     host read (KSPSync) in every solve."""
@@ -86,6 +87,50 @@ def test_every_krylov_type_counts_its_iterations(ksp):
     assert _count(recs, "KSPSolve") == 1
     assert _count(recs, "KSPIteration") == int(res.iterations) > 0
     assert _count(recs, "KSPSync") >= 1 and _count(recs, "PCApply") >= int(res.iterations)
+
+
+@pytest.mark.parametrize("ksp", ["gmres", "fgmres"])
+def test_gmres_records_its_orthogonalisation_and_counts_its_rows(ksp):
+    """GMRES(4) and FGMRES(4) with Jacobi at 16^3: a KSPGMRESOrthog span
+    inside every iteration, a KSPGMRESBuildSoln span a cycle under the
+    root, and the solve's counters: the steps, and the rows built when
+    each ran, sum(j + 1) over every cycle's steps j, as the iteration
+    count and the restart give it and as the spans' order gives it."""
+    _, res, recs = _recorded_solve(["-ksp_type", ksp, "-pc_type", "jacobi", "-ksp_rtol", "1e-6",
+                                    "-gmres_restart", "4"], n=16)
+    its, m = int(res.iterations), 4
+    assert its > 2 * m
+    root = next(s for s in recs if s["parent"] is None)
+    by_id = {s["id"]: s for s in recs}
+    orthog = [s for s in recs if s["name"] == "KSPGMRESOrthog"]
+    build = [s for s in recs if s["name"] == "KSPGMRESBuildSoln"]
+    assert len(orthog) == its and len(build) == -(-its // m)
+    assert all(by_id[s["parent"]]["name"] == "KSPIteration" for s in orthog)
+    assert all(s["parent"] == root["id"] and s["solve"] == root["id"] for s in build)
+    lengths = [m] * (its // m) + ([its % m] if its % m else [])
+    rows = sum(L * (L + 1) // 2 for L in lengths)
+    from_spans, j = 0, 0
+    for s in sorted(orthog + build, key=lambda s: s["id"]):
+        if s["name"] == "KSPGMRESBuildSoln":
+            j = 0
+        else:
+            j += 1
+            from_spans += j
+    assert from_spans == rows
+    assert profiling.counts() == {root["id"]: {"KSPGMRESOrthog.steps": its,
+                                               "KSPGMRESOrthog.rows": rows}}
+
+
+def test_counters_count_only_while_spans_record():
+    solver = PoissonSolver((16,) * 3, options=Options(["-ksp_type", "fgmres", "-pc_type", "mg"]),
+                           dtype=torch.float64, device="cpu")
+    solver.solve(_rhs(solver))
+    assert profiling.counts() == {}
+    with profiling.recording():
+        profiling.count("outside")
+    assert profiling.counts() == {None: {"outside": 1}}
+    profiling.reset()
+    assert profiling.counts() == {}
 
 
 def test_fft_solve_records_one_symbol():
@@ -192,6 +237,7 @@ def _synthetic(solves):
             add("PCApply", it, root, 1.0, 5.0)
         add("KSPSync", root, root, 0.5, 0.1)
         add("FFTSymbol", root, root, 0.2, 4.0)
+        add("KSPGMRESOrthog", it, root, 0.3, 2.0)
         recs.append({"name": "KSPSolve", "id": root, "parent": None, "solve": root,
                      "host_ms": 10.0, "self_host_ms": 1.0, "device_ms": 30.0,
                      "self_device_ms": 1.0})
@@ -212,3 +258,45 @@ def test_span_readers_need_every_solve_of_the_window(name, monkeypatch):
     assert cells.reader(name)(rec) is None
     monkeypatch.delattr(profiling, "spans")
     assert cells.reader(name)(rec) is None
+
+
+def test_orthog_roofline_reads_the_counters(monkeypatch):
+    """orthog_roofline on a synthetic store: one solve of three steps in
+    one cycle (rows 1 + 2 + 3), 2.0 device ms each, at 512^3 float32:
+    (2 x 6 + 2 x 3) passes of 0.537 GB over 3.35 TB/s in 6 ms; nothing
+    where the program keeps no counters or they miss a step."""
+    recs = _synthetic(1)
+    root = recs[-1]["id"]
+    it = next(s["id"] for s in recs if s["name"] == "KSPIteration")
+    recs[:0] = [{"name": "KSPGMRESOrthog", "id": 10**6 + i, "parent": it, "solve": root,
+                 "host_ms": 0.3, "self_host_ms": 0.3, "device_ms": 2.0, "self_device_ms": 2.0}
+                for i in range(2)]
+    rec = {"window": {"solves": 1, "wall_s": 0.1, "solve_ms": [30.0]}, "grid": [512] * 3,
+           "itemsize": 4}
+    monkeypatch.setattr(profiling, "spans", lambda: recs)
+    monkeypatch.setattr(profiling, "counts", lambda: {
+        root: {"KSPGMRESOrthog.steps": 3, "KSPGMRESOrthog.rows": 6}})
+    assert cells.reader("orthog_device_ms")(rec) == pytest.approx(6.0)
+    floor_ms = 18 * 512**3 * 4 / 3.35e12 * 1e3
+    assert cells.reader("orthog_roofline")(rec) == pytest.approx(100.0 * floor_ms / 6.0)
+    monkeypatch.setattr(profiling, "counts", lambda: {root: {"KSPGMRESOrthog.steps": 2}})
+    assert cells.reader("orthog_roofline")(rec) is None
+    monkeypatch.delattr(profiling, "counts")
+    assert cells.reader("orthog_roofline")(rec) is None
+
+
+def test_traced_fgmres_cell_reads_its_krylov_metrics(monkeypatch):
+    """A traced CPU run of poisson7.512.fgmres at 16^3: correct, and its
+    iterations read by `iterations`'s reader under their own name; the
+    device-interval readers find nothing to read off the card. (This
+    session imported the JAX package for other tests, which the harness
+    would refuse.)"""
+    import time
+
+    from perfbench import run as harness
+    monkeypatch.setattr(harness, "refuse_forbidden", lambda: None)
+    cell = dict(cells.load_cell("poisson7.512.fgmres", cells.manifest()), grid=[16] * 3)
+    res = harness.run_process(cell, 2**31 + 11, 0.3, True, "cpu", time.time())
+    assert res["correct"]
+    m = res["metrics"]
+    assert set(m) == {"iterations.fgmres"} and m["iterations.fgmres"]["value"] >= 1

@@ -569,6 +569,24 @@ def test_krylov_matches_jax(dist_run, tag):
     _krylov_matches_jax(dist_run, tag)
 
 
+def test_fgmres_matches_one_rank(dist_run):
+    """FGMRES(30) + MG across ranks (the JAX package has no FGMRES) against
+    rank 0's one-rank solve of the same system: its iteration count on
+    every rank, a true residual <= 1.01 rtol, x and the monitored history
+    within 1e-10 of the one-rank ones (the sharded reductions sum in
+    another order)."""
+    pgrid, n, ranks, _ = dist_run
+    one = ranks[0]
+    assert {int(rk["fgmres.its"]) for rk in ranks} == {int(one["fgmres1.its"])}
+    for rk in ranks:
+        assert float(rk["fgmres.rel"]) <= 1.01e-8
+    _x_within(ranks, "fgmres.x", one["fgmres1.x"], n, pgrid, 1e-10)
+    k = int(one["fgmres1.its"]) + 1
+    want = one["fgmres1.hist"][:k]
+    for rk in ranks:
+        assert np.abs(rk["fgmres.hist"][:k] - want).max() <= 1e-10 * want[0]
+
+
 def test_solve_refined_matches_jax(dist_run):
     """The outer and inner counts of the JAX package's refinement on the
     same process grid, a true residual <= 1e-12, x within 1e-6."""

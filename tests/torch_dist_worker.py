@@ -11,7 +11,8 @@ rank 0 then also solving the same system on one rank). With `mgopts`,
 solves with other MG options (MG_OPTS), each beside rank 0's one-rank
 solve. PIPECG + MG on the MG-CG system always; with `krylov`, the rest of
 the Krylov layer and the facade (KRYLOV: GMRES(30) + MG, GMRES with
-`-pc_type none`, Richardson + MG; then solve_refined, solve_checkpointed
+`-pc_type none`, Richardson + MG; FGMRES(30) + MG, which rank 0 also
+solves on one rank; then solve_refined, solve_checkpointed
 killed after chunk 0 and resumed, over a b that differs on rank 1 only
 and over a checkpoint of another process grid, and the restart length
 agreed over uneven boxes). With `n6=M`, at M^3: the compact operators across ranks (and each
@@ -63,6 +64,8 @@ KRYLOV = {"pipecg": (["-ksp_type", "pipecg"] + MG, 1.01e-8),
           "gmresnone": (["-ksp_type", "gmres", "-gmres_restart", "30", "-pc_type", "none",
                          "-ksp_rtol", "1e-5", "-ksp_max_it", "100"], 1e-4),
           "richardson": (["-ksp_type", "richardson"] + MG, 1.01e-8)}
+# FGMRES, which the JAX package has not: held to rank 0's one-rank solve
+FGMRES = ["-ksp_type", "fgmres", "-gmres_restart", "30"] + MG
 OTHER_PGRID = {(2, 2, 1): (4, 1, 1), (3, 1, 1): (1, 3, 1)}   # same world, other boxes
 EVERY = 2
 # the MG configurations whose one-iteration census is held to the model
@@ -204,6 +207,17 @@ def krylov(pgrid, n: int, f: dict, out_dir: str, extra, out: dict) -> None:
         out[f"{tag}.hist"] = res.history.numpy()
     if "krylov" not in extra:
         return
+    s = PoissonSolver((n,) * 3, options=Options(FGMRES), dtype=torch.float64, device="cpu",
+                      shard=pgrid)
+    b = s.rhs_for(f["x_exact"])
+    res = s.solve(b)
+    out["fgmres.x"], out["fgmres.its"] = res.x.numpy(), int(res.iterations)
+    out["fgmres.rel"], out["fgmres.hist"] = s.residual_norm(res.x, b), res.history.numpy()
+    if torch.distributed.get_rank() == 0:
+        s1 = PoissonSolver((n,) * 3, options=Options(FGMRES), dtype=torch.float64, device="cpu")
+        r1 = s1.solve(s1.rhs_for(torch.as_tensor(fields(n)["x_exact"])))
+        out["fgmres1.x"], out["fgmres1.its"] = r1.x.numpy(), int(r1.iterations)
+        out["fgmres1.hist"] = r1.history.numpy()
     s = PoissonSolver((n,) * 3, options=Options(SOLVE), dtype=torch.float64, device="cpu",
                       shard=pgrid)
     g, A = s.grid, s.A
