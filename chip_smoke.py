@@ -53,6 +53,12 @@ and fails loudly if any phase fails:
      and an odd length along z ((48, 40, 97) f32 and f64, anisotropic
      cells), then timed at 512^3 f32 against its byte floor (each
      complex64 of the half spectrum read once and written once);
+  3c. GMRES's Gram-Schmidt step over the rows built (csrc/gmres.cu):
+     gs_dots and gs_update_norm against their plain versions on a 31-row
+     basis for 1 to 30 rows, at (33, 20, 27) f32 and f64 (single-value
+     loads), 64^3 f64 and 512^3 f32; at 512^3 f32 their times beside the
+     plain versions', cuBLAS's over the same rows and their floors, and a
+     step against its 2 (rows + 1) + 2 passes and the whole-basis products;
   5b. K13's, K16's and K17's strip kernels: every variant (32 or 16
      lanes, staggered workers or not) and the streaming kernel at the same
      five sizes, each held bit-equal to its plain version once, then timed
@@ -95,7 +101,8 @@ and fails loudly if any phase fails:
        (g)   GMRES(30), the default KSP: with -pc_type mg at 64^3 f64 rtol
              1e-8 and 512^3 f32 rtol 1e-6 (a 31-field basis, 16.6 GB),
              with -pc_type none at 64^3 f64 for 60 iterations (K2 through
-             use_fused; history against the plain path's), the demo;
+             use_fused; history against the plain path's), the demo; every
+             Gram-Schmidt step through gmres.dots and gmres.update;
              FGMRES(30) + MG at 64^3 f64 rtol 1e-8 and 512^3 f32 rtol 1e-6
              (the bf16 pre-smooth; V's and Z's 61 fields, 32.7 GB), each
              held to the true residual <= 1.01 rtol, and its -ksp_view;
@@ -220,6 +227,7 @@ from poissbox_tpu_torch.mesh import Grid3D
 from poissbox_tpu_torch.ops import _build
 from poissbox_tpu_torch.ops import compact
 from poissbox_tpu_torch.ops import compact_pcr as cp
+from poissbox_tpu_torch.ops import gmres_cuda
 from poissbox_tpu_torch.ops import spectral_cuda
 from poissbox_tpu_torch.ops import stencil_cuda as sc
 from poissbox_tpu_torch.ops import transfer_cuda as tc
@@ -315,6 +323,10 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
                          "with jnp: poissbox_tpu/solvers/fft.py:465)"),
     "spectral.sum": ("spectral.cu", "none (the JAX package builds the symbol with "
                      "jnp: poissbox_tpu/solvers/fft.py:34)"),
+    "gmres.dots": ("gmres.cu", "none (the JAX package's GMRES takes jnp.tensordot over "
+                   "the whole zero-padded basis: poissbox_tpu/solvers/gmres.py:145)"),
+    "gmres.update": ("gmres.cu", "none (jnp.tensordot over the whole zero-padded "
+                     "basis: poissbox_tpu/solvers/gmres.py:150, :218)"),
 }
 # K13's, K16's and K17's modes, their streaming kernels' counters beside
 STRIP_KEYS = ("tridiag.thomas", "tridiag.babe", "tridiag.compact", "tridiag.dual",
@@ -683,6 +695,96 @@ def check_spectral(stats: dict) -> None:
                   f"{spectral_cuda.memory_order(xhat)} and C order ({zeros} modes "
                   "dropped)", flush=True)
         del xhat
+        torch.cuda.empty_cache()
+
+
+# GMRES's Gram-Schmidt kernels: a 31-row basis (GMRES(30)'s) of unit
+# fields at each shape; every row count below against the plain versions,
+# the 512^3 f32 counts in GS_TIMED also timed; the kernel table's row is
+# GS_ROW rows, the last step of poisson7.512.fgmres's 7-step cycle
+GS_CASES = [((33, 20, 27), torch.float64), ((33, 20, 27), torch.float32),
+            ((64, 64, 64), torch.float64), ((512, 512, 512), torch.float32)]
+GS_ROWS = (1, 4, 7, 8, 9, 16, 30)
+GS_TIMED = (1, 7, 8, 30)
+GS_ROW = 7
+
+
+def gs_basis(shape, dtype, seed):
+    """GMRES(30)'s 31 basis rows, each of unit norm, and a field w."""
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    V = torch.rand((31,) + shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+    V /= torch.linalg.vector_norm(V.reshape(31, -1), dim=1).view(-1, 1, 1, 1)
+    w = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
+    return V, w
+
+
+def check_gmres(stats: dict) -> None:
+    """Phase 3c: gs_dots and gs_update_norm against their plain versions
+    (GS_CASES; the odd shape takes single-value loads): each coefficient
+    within 256 eps of the dot of the absolute values, each value of the
+    new row within 2 (rows + 1) eps of |w| + sum |h_i V_i| (the kernel
+    fuses each multiply-add), the norm within 256 eps. At 512^3 f32 each
+    kernel, its plain version and the cuBLAS product over the same rows
+    are timed, and a step (both kernels) against its floor of 2 (rows + 1)
+    + 2 field passes and against the whole-basis cuBLAS products the
+    kernels replace."""
+    for shape, dtype in GS_CASES:
+        V, w = gs_basis(shape, dtype, seed=sum(shape))
+        Vf, wf = V.reshape(31, -1), w.reshape(-1)
+        eps = torch.finfo(dtype).eps
+        out, out_ref = torch.empty_like(w), torch.empty_like(w)
+        for rows in GS_ROWS:
+            h = gmres_cuda.gs_dots(V, rows, w)
+            h_ref = gmres_cuda.gs_dots_plain(V, rows, w)
+            absdot = torch.stack([torch.dot(Vf[i].abs(), wf.abs()) for i in range(rows)])
+            dh = float(((h - h_ref).abs() / absdot).max())
+            ww = gmres_cuda.gs_update_norm(V, rows, h_ref, w, out)
+            ww_ref = gmres_cuda.gs_update_norm_plain(V, rows, h_ref, w, out_ref)
+            scale = w.abs()
+            for i in range(rows):
+                scale = scale + h_ref[i].abs() * V[i].abs()
+            dout = float(((out - out_ref).abs() / scale).max())
+            dww = abs(float(ww) - float(ww_ref)) / float(ww_ref)
+            torch.cuda.synchronize()
+            if not (dh <= 256 * eps and dout <= 2 * (rows + 1) * eps and dww <= 256 * eps):
+                raise AssertionError(
+                    f"gmres {shape} {dtype} rows {rows}: h {dh:.3e}, new row {dout:.3e}, "
+                    f"norm {dww:.3e} (in eps {eps:.3e}: 256, {2 * (rows + 1)}, 256)")
+            for key, err in (("gmres.dots", float((h - h_ref).abs().max())),
+                             ("gmres.update", float((out - out_ref).abs().max()))):
+                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            if shape != (512, 512, 512) or rows not in GS_TIMED:
+                continue
+            field, ops = w.nbytes, w.numel()
+            times = {
+                "gmres.dots": (median_ms(lambda: gmres_cuda.gs_dots(V, rows, w)),
+                               median_ms(lambda: gmres_cuda.gs_dots_plain(V, rows, w)),
+                               median_ms(lambda: Vf[:rows] @ wf),
+                               bound((rows + 1) * field, 2 * rows * ops)),
+                "gmres.update": (median_ms(lambda: gmres_cuda.gs_update_norm(
+                                     V, rows, h_ref, w, out)),
+                                 median_ms(lambda: gmres_cuda.gs_update_norm_plain(
+                                     V, rows, h_ref, w, out_ref)),
+                                 median_ms(lambda: torch.addmv(wf, Vf[:rows].t(), h_ref,
+                                                               alpha=-1)),
+                                 bound((rows + 2) * field, (2 * rows + 2) * ops))}
+            for key, (ms, plain_ms, lib_ms, bd) in times.items():
+                print(f"  {key:14s} 512^3 f32 rows {rows:2d}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, cuBLAS over the rows {lib_ms:.4f} ms, bound "
+                      f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {share(bd, ms)}")
+                if rows == GS_ROW:
+                    stats[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
+            h31 = gmres_cuda.gs_dots_plain(V, 31, w)
+            whole = median_ms(lambda: Vf @ wf) + median_ms(lambda: wf - h31 @ Vf)
+            step = times["gmres.dots"][0] + times["gmres.update"][0]
+            floor = bound((2 * rows + 2) * field, 0)
+            print(f"  step at rows {rows:2d}: {step:.4f} ms against its floor of "
+                  f"{2 * rows + 2} passes {floor['bound_ms']:.4f} ms, "
+                  f"{share(floor, step)}; the whole-basis cuBLAS products {whole:.4f} ms",
+                  flush=True)
+        print(f"  gmres.dots and gmres.update agree at {shape} {dtype}, rows {GS_ROWS}",
+              flush=True)
+        del V, w, Vf, wf, out, out_ref
         torch.cuda.empty_cache()
 
 
@@ -3052,6 +3154,9 @@ def main() -> int:
     phase("the spectral symbol multiply against its plain version")
     check_spectral(stats)
 
+    phase("GMRES's Gram-Schmidt kernels against their plain versions")
+    check_gmres(stats)
+
     phase("the one-pass sweep against two K11 launches")
     sweep_pairs(smi)
 
@@ -3151,7 +3256,8 @@ def main() -> int:
     runs_g = run_path("(g) GMRES(30) + MG, 64^3 f64 + 512^3 f32, -pc_type none, "
                       "demo", cases_g,
                       ["stencil7.apply", "rbsor.zero", "rbsor.sweep",
-                       "xfer.restrict", "xfer.prolong_add"], totals,
+                       "xfer.restrict", "xfer.prolong_add", "gmres.dots",
+                       "gmres.update"], totals,
                       demo=gm + ["-pc_type", "mg"])
     b512 = runs_g[1][1]
     print(f"  gmres 512^3 f32: restart 30 resolved to {clamp_restart(30, b512)} "
@@ -3167,7 +3273,8 @@ def main() -> int:
                        "the true residual", [(64, f64, 1e-8, fgm, None),
                                              (512, f32, 1e-6, fgm, None)],
                        ["stencil7.apply", "rbsor.zero.bf16", "rbsor.sweep",
-                        "xfer.restrict", "xfer.prolong_add"], totals)
+                        "xfer.restrict", "xfer.prolong_add", "gmres.dots",
+                        "gmres.update"], totals)
     inner = runs_fg[1][0]._solver
     if inner.M.resolved["pre_dtype"] != "bfloat16":
         raise AssertionError(f"fgmres 512^3 f32: pre-smooth {inner.M.resolved}")
@@ -3176,7 +3283,8 @@ def main() -> int:
     del runs_fg, inner
     torch.cuda.empty_cache()
     run_path("(g) GMRES(30) -pc_type none, 64^3 f64, 60 iterations (K2 in the "
-             "Gram-Schmidt step)", [(smi,)], ["stencil7.apply", "stencil7.apply_dot"],
+             "Gram-Schmidt step)", [(smi,)], ["stencil7.apply", "stencil7.apply_dot",
+                                              "gmres.dots", "gmres.update"],
              totals, runner=gmres_none_case)
     cases_h = [(64, f64, 1e-8, ["-ksp_type", "pipecg"], 6),
                (256, f32, 1e-6, ["-ksp_type", "pipecg"], None),

@@ -3,8 +3,8 @@ its assembled view (assemble), the 6th-order compact stack (compact,
 compact_pcr; across ranks compact_dist) and its tridiagonal solvers
 (tridiag, tridiag_cuda), and the
 Hopper kernels with their plain versions (stencil_cuda, transfer_cuda,
-compact_pcr, tridiag_cuda, spectral_cuda; sources in ../csrc, built by
-_build)."""
+compact_pcr, tridiag_cuda, spectral_cuda, gmres_cuda; sources in
+../csrc, built by _build)."""
 
 from poissbox_tpu_torch.ops import (
     assemble,
@@ -12,6 +12,7 @@ from poissbox_tpu_torch.ops import (
     compact,
     compact_dist,
     compact_pcr,
+    gmres_cuda,
     spectral_cuda,
     stencil,
     stencil_cuda,
@@ -20,4 +21,4 @@ from poissbox_tpu_torch.ops import (
 )
 
 __all__ = ["assemble", "coefficients", "compact", "compact_dist", "compact_pcr",
-           "spectral_cuda", "stencil", "stencil_cuda", "tridiag", "tridiag_cuda"]
+           "gmres_cuda", "spectral_cuda", "stencil", "stencil_cuda", "tridiag", "tridiag_cuda"]

@@ -29,7 +29,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("stencil7.cu", "rbsor.cu", "xfer.cu", "cgupd.cu", "compact.cu",
-           "tridiag.cu", "spectral.cu")
+           "tridiag.cu", "spectral.cu", "gmres.cu")
 HEADERS = ("common.cuh",)
 # --fmad=false keeps every a*b+c as a rounded multiply and a rounded add,
 # the grouping the plain PyTorch versions (and the Pallas kernels) use
@@ -151,6 +151,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_strip_force.restype = i
     lib.poissbox_symbol_scale.argtypes = [i, i, i, p, p, p, p, d] + [i] * 6
     lib.poissbox_symbol_scale.restype = i
+    lib.poissbox_gmres_blocks.argtypes = [i, i, i, i, ll, i]
+    lib.poissbox_gmres_blocks.restype = i
+    lib.poissbox_gmres_dots.argtypes = [i, i, i] + [p] * 4 + [i, ll, i]
+    lib.poissbox_gmres_dots.restype = i
+    lib.poissbox_gmres_update.argtypes = [i, i, i] + [p] * 6 + [i, ll, i]
+    lib.poissbox_gmres_update.restype = i
 
 def load() -> ctypes.CDLL:
     """The loaded kernel library, built first if needed."""

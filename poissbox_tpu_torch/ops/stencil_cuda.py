@@ -59,8 +59,9 @@ colour update, ``rbsor.zero``/``sweep``/``dots``/``zero_update`` for KB's
 sweeps (one launch a sweep: K3, K4, K4 with dots, K5), ``xfer.*`` for the
 transfer legs, ``cgupd`` for K8, ``compact.x|y|z`` for K15's line kernel
 by axis (ops/compact_pcr.py), ``tridiag.*`` for K13/K14/K16 and K17's
-four modes (ops/tridiag_cuda.py) and ``spectral.compact|sum`` for the
-spectral solves' symbol multiply by form (ops/spectral_cuda.py);
+four modes (ops/tridiag_cuda.py), ``spectral.compact|sum`` for the
+spectral solves' symbol multiply by form (ops/spectral_cuda.py) and
+``gmres.dots|update`` for GMRES's Gram-Schmidt step (ops/gmres_cuda.py);
 ``.bf16`` marks a bf16 launch, ``.narrow`` K5 storing its swept iterate
 in bf16, ``.bf16u`` a transfer leg reading a bf16 iterate and ``.long``
 K13, K16 or K17 on lines too long for their strip kernel); a wrapper
@@ -94,7 +95,7 @@ LAUNCHES: dict[str, int] = {k: 0 for k in (
     "compact.x", "compact.y", "compact.z", "tridiag.thomas", "tridiag.pcr",
     "tridiag.babe", "tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
     "tridiag.thomas.long", "tridiag.babe.long", "tridiag.compact.long", "tridiag.dual.long", "tridiag.chain.long",
-    "tridiag.sum.long", "spectral.compact", "spectral.sum",
+    "tridiag.sum.long", "spectral.compact", "spectral.sum", "gmres.dots", "gmres.update",
 )}
 
 _EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2,
@@ -118,6 +119,7 @@ DTYPES: dict[str, tuple] = {
     "rbsor.dots": _WIDE,
     "xfer.restrict": _WIDE_OR_BF16, "xfer.prolong_add": _WIDE_OR_BF16,
     "cgupd": _WIDE, "spectral.compact": _WIDE, "spectral.sum": _WIDE,
+    "gmres.dots": _WIDE, "gmres.update": _WIDE,
 }
 
 

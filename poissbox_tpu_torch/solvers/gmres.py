@@ -3,15 +3,19 @@
 and its flexible variant, `-ksp_type fgmres` (PETSc's KSPFGMRES; the JAX
 package has none).
 
-Left-preconditioned GMRES(m) with a zero-padded (m+1, *field) Krylov basis
-on the device, Gram-Schmidt against the whole basis in two products (as
-the JAX package's `tensordot`s), and Givens rotations. The JAX package
+Left-preconditioned GMRES(m) with a stacked (m+1, *field) Krylov basis on
+the device, classical Gram-Schmidt (once, PETSc's default) against the
+rows built so far, and Givens rotations. Step j's coefficients h = V[:j+1] w
+and its new row w - h V[:j+1] are two kernels that read rows 0..j only
+(:mod:`poissbox_tpu_torch.ops.gmres_cuda`; the JAX package's `tensordot`s
+run over the whole zero-padded basis), so the basis is never zero-filled:
+nothing reads a row before it is written. The JAX package
 masks the steps of a cycle after convergence inside a fixed-length
 `fori_loop`; here the host loop stops the cycle at the first masked step,
 which gives the same history and iteration count. Each step copies the
-new Hessenberg column (m + 2 numbers) to the host, which is the loop's one
+new Hessenberg column (j + 2 numbers at step j) to the host, the loop's one
 synchronisation; the rotations and the triangular solve run there, in the
-field dtype.
+field dtype. A cycle ends with x += V[:j] y, by the same update kernel.
 
 Flexible GMRES (Saad, SIAM J. Sci. Comput. 14 (1993) 461-469) shares that
 step with the preconditioner moved to the right: step j stores
@@ -23,7 +27,7 @@ Before it reports convergence it forms x, computes the true residual
 b - A x with one operator apply, reports that norm, and restarts from that
 residual where it misses the target (within `max_it`).
 
-The spans `KSPGMRESOrthog` (a step's two products, its norm and its
+The spans `KSPGMRESOrthog` (a step's two kernels, its norm and its
 normalisation) and `KSPGMRESBuildSoln` (forming x at a cycle's end) are
 PETSc's event names; the counters `KSPGMRESOrthog.steps` and
 `KSPGMRESOrthog.rows` (the rows built when each step ran, j + 1 at step j)
@@ -32,7 +36,7 @@ count in :func:`poissbox_tpu_torch.utils.profiling.count` beside them.
 Over a process grid (``A.allreduce``) the fields are rank blocks and the
 basis holds this rank's block of every vector: the initial norms go out
 in one all-reduce, a restart's norm in one, and a Gram-Schmidt step takes
-two, as the JAX package's two psums: the local coefficients h = V w (with
+two, as the JAX package's two psums: the local coefficients h (with
 K2's partial <V_j, A V_j> stacked on them on the fused path), then
 ||w - h V||^2. FGMRES adds one all-reduce a cycle, its true residual's
 norm. Every rank then holds the same column, so the host's rotations and
@@ -50,8 +54,8 @@ import torch
 
 from poissbox_tpu_torch.linops import LinearOperator
 from poissbox_tpu_torch.mesh import ranks_on_device
+from poissbox_tpu_torch.ops.gmres_cuda import gs_dots, gs_update_norm
 from poissbox_tpu_torch.solvers.cg import _dot, _monitor_print, _sums
-from poissbox_tpu_torch.solvers.mg import _full_fp32_matmul
 from poissbox_tpu_torch.solvers.result import SolveResult, classify
 from poissbox_tpu_torch.utils import debugging
 from poissbox_tpu_torch.utils.profiling import count, span
@@ -166,20 +170,15 @@ def gmres(
     target = max(ft(rtol) * bnorm, ft(atol))
     use_fused = M is None and A.apply_dot is not None
 
-    # the zero-padded basis: rows past the current step are zero, so the
-    # whole-basis products see only the vectors built so far
-    V = torch.zeros((m + 1,) + tuple(b.shape), dtype=b.dtype, device=b.device)
-    Vf = V.view(m + 1, -1)
+    # uninitialised: step j reads rows 0..j, each written before
+    V = torch.empty((m + 1,) + tuple(b.shape), dtype=b.dtype, device=b.device)
     Z = (torch.empty((m,) + tuple(b.shape), dtype=b.dtype, device=b.device)
          if zbasis else V)
-    Zf = Z.view(Z.shape[0], -1)
     resnorm, k = rnorm0, 0
     r, beta_t = r0, rnorm0_t
     while resnorm > target and np.isfinite(resnorm) and k < max_it:
         if r is None:
             r, beta_t = residual(x)      # a restart's (preconditioned) residual
-        if k:
-            V.zero_()            # a restart's clean basis
         torch.div(r, torch.clamp(beta_t, min=float(tiny)), out=V[0])
         with span("KSPSync"):
             beta = ft(beta_t.item())
@@ -210,10 +209,10 @@ def gmres(
                     with span("MatMult"):
                         w = A(V[j])
                     w = pres(w)
-                with span("KSPGMRESOrthog"), _full_fp32_matmul():
+                with span("KSPGMRESOrthog"):
                     count("KSPGMRESOrthog.steps")
                     count("KSPGMRESOrthog.rows", j + 1)
-                    h = Vf @ w.reshape(-1)
+                    h = gs_dots(V, j + 1, w)
                     if reduce is not None:
                         # this rank's coefficients (and K2's partial) summed
                         # over every rank in one all-reduce
@@ -222,14 +221,13 @@ def gmres(
                             h, vAv = h[:-1], h[-1]
                     if use_fused:
                         h[j] = vAv
-                    w = w - (h @ Vf).view(b.shape)
-                    ww, = _sums(reduce, _dot(w, w))
+                    ww, = _sums(reduce, gs_update_norm(V, j + 1, h, w, V[j + 1]))
                     hnext_t = torch.sqrt(ww)
-                    torch.div(w, torch.clamp(hnext_t, min=float(tiny)), out=V[j + 1])
+                    V[j + 1].div_(torch.clamp(hnext_t, min=float(tiny)))
                 with span("KSPSync"):
                     col = torch.cat([h, hnext_t.reshape(1)]).cpu().numpy().astype(ft)
-                hcol = col[:m + 1].copy()
-                hcol[j + 1] = col[m + 1]
+                hcol = np.zeros(m + 1, dtype=ft)
+                hcol[:j + 2] = col
                 # the accumulated rotations on the new column
                 for i in range(j):
                     hi = cs[i] * hcol[i] + sn[i] * hcol[i + 1]
@@ -259,9 +257,9 @@ def gmres(
                 y = torch.linalg.solve_triangular(
                     torch.from_numpy(H[:jdone, :jdone]),
                     torch.from_numpy(g[:jdone, None]), upper=True)[:, 0]
-                with _full_fp32_matmul():
-                    dx = (y.to(b.device) @ Zf[:jdone]).view(b.shape)
-                x = A.project(x + dx)
+                xn = torch.empty_like(x)
+                gs_update_norm(Z, jdone, (-y).to(b.device), x, xn)
+                x = A.project(xn)
         r = None
         if flexible:
             # the true residual: the norm reported, and a restart's start

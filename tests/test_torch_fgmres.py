@@ -52,8 +52,9 @@ def test_fgmres_matches_the_plain_reference(n, pc):
     preconditioner (mean removed, as the port applies it; MG's pre-smooth
     is the field's float64 here) and the reference operator: equal
     iterations, histories and x to 1e-10 relative. The two orthogonalise
-    differently (the whole-basis classical products against modified
-    Gram-Schmidt), which in float64 over these steps stays under 2e-11."""
+    differently (classical Gram-Schmidt over the built rows against
+    modified Gram-Schmidt), which in float64 over these steps stays under
+    2e-11."""
     s = fgmres_solver(n, pc)
     b = rhs(n, n + 7)
     res = s.solve(b)

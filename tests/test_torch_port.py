@@ -18,7 +18,14 @@ from poissbox_tpu.solvers.result import classify as jclassify
 from poissbox_tpu_torch import constants, interop
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.mesh import Grid3D
-from poissbox_tpu_torch.ops import _build, compact, stencil_cuda, transfer_cuda, tridiag_cuda
+from poissbox_tpu_torch.ops import (
+    _build,
+    compact,
+    gmres_cuda,
+    stencil_cuda,
+    transfer_cuda,
+    tridiag_cuda,
+)
 from poissbox_tpu_torch.ops.coefficients import compact_grad_coeffs
 from poissbox_tpu_torch.solvers.result import ConvergedReason, SolveResult, classify
 
@@ -76,6 +83,9 @@ WRAPPERS = {
     "residual_xrestrict_cuda": lambda u, d: transfer_cuda.residual_xrestrict_cuda(
         u, u, d),
     "xprolong_add_cuda": lambda u, d: transfer_cuda.xprolong_add_cuda(u, u[:4]),
+    "gs_dots": lambda u, d: gmres_cuda.gs_dots(u, 2, u[0]),
+    "gs_update_norm": lambda u, d: gmres_cuda.gs_update_norm(u, 2, u[0, 0, :2], u[0],
+                                                             u[3]),
     **{f"tridiag_{alg}": (lambda u, d, alg=alg: _pfac(alg).solve(u, 0))
        for alg in ("thomas", "pcr", "babe")},
     "solve_compact": lambda u, d: _pfac("thomas").solve_compact(u, *_GRAD[1]),
