@@ -1,12 +1,18 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port on one GPU.
+"""Check of the PyTorch/CUDA port on one GPU.
 
 Drives poissbox_tpu_torch on the card, through the hand-written kernels,
-and fails loudly if any phase fails:
+holds every kernel to its plain PyTorch version and every path to the
+plain path and the JAX package's counts, and fails loudly if any phase
+fails. It times nothing: per-kernel device times on the card come from
+the benchmark's traced runs (`perfbench/run.py --trace 1`, the ledger's
+`breakdown`) and, for one call, from
+`poissbox_tpu_torch.utils.profiling.kernel_time`.
 
   1. device: requires CUDA; prints the card's name and power limit;
   2. build: compiles the kernels from poissbox_tpu_torch/csrc with nvcc
-     (one compiler per source, in parallel);
+     (one compiler per source, in parallel) and prints ptxas's registers
+     and spills;
   2b. native planner: builds the port's C++ library (poissbox_tpu_torch/
      native: decomp.cpp, options.cpp) with g++ and holds decompose_3d,
      owned_box, dof_distribution and halo_bytes to the Python planner on
@@ -20,66 +26,52 @@ and fails loudly if any phase fails:
      modes on the f32 cases and 512^3; the stencil7 epilogues, bf16 too, at
      (48, 40, 96) f32; KA, KB and K6 also at a ragged (40, 36, 52) in f64
      and f32, at 4^3 and 8^3 f64 and at odd (6, 5, 7) extents; KA's grid
-     against ops/stencil_cuda.ka_blocks), then kernel, plain and bound
-     times at 256^3 f32 and, for the modes of the 512^3 path (and K2, K12),
-     at 512^3 f32, with K2's share of its floor; K1 beside Conv3d; K11 bit
-     for bit at every distributed block (DIST_BLOCKS), (6, 5, 7), (9, 6, 5),
-     (40, 36, 52), (64, 32, 48), 256^3 and 512^3 in f32, f64
-     (below 256^3) and bf16, both colours, cubic cells and not, and
-     timed in bf16 at the (2, 2, 1) block of 512^3
-     and at 512^3, in f32 at 256^3 and the block; then the
-     one-launch general sweep against two K11 launches at 256^3 f32 and
-     512^3 bf16, seven pairs in turns;
+     against ops/stencil_cuda.ka_blocks); the kernels of path (m) at every
+     distributed block (DIST_BLOCKS); K11 bit for bit at those blocks,
+     (6, 5, 7), (9, 6, 5), (40, 36, 52), (64, 32, 48), 256^3 and 512^3 in
+     f32, f64 (below 256^3) and bf16, both colours, cubic cells and not,
+     and KB's one-launch general sweep equal to two K11 launches at 256^3
+     f32 and 512^3 bf16; K15's Laplacian sweeps bit for bit at path (n)'s
+     pencil blocks (PENCIL_BLOCKS);
+  3b. the spectral solves' symbol multiply (csrc/spectral.cu), both
+     forms, bit for bit against its plain version at 512^3 f32, 64^3 f64
+     and an odd length along z ((48, 40, 97) f32 and f64, anisotropic
+     cells), on cuFFT's layout of the half spectrum and on C order;
+  3c. GMRES's Gram-Schmidt step over the rows built (csrc/gmres.cu):
+     gs_dots and gs_update_norm against their plain versions on a 31-row
+     basis for 1 to 30 rows, at (33, 20, 27) f32 and f64 (single-value
+     loads), 64^3 f64 and 512^3 f32;
   4. transfers: the banded-matrix y/z transfers against the roll form in
-     f32 with TF32 allowed globally (the contractions must not use it),
-     and their times against the roll form's;
+     f32 with TF32 allowed globally (the contractions must not use it);
   5. compact and tridiagonal kernels: K15 (lapl, grad, div, interp, op_1d:
      compact.z/y/x; the register kernel for lines of 32 m points, the tile
      kernel for the rest, each case printing the kernels it took and the
      tile kernel's lane widths held bit-equal), K13/K14/K16
      (tridiag.thomas/pcr/babe; K13 also on a non-periodic and on a
      variable-coefficient system, periodic and not) and K17's four modes
-     (tridiag.compact/dual/chain/sum) against their plain versions at 64^3
-     f64, (48, 40, 96) f32 and f64 (both K15 kernels in one Laplacian),
-     (33, 20, 24) f64 (an odd split for K16), 96^3 f32, 256^3 f32 and
-     512^3 f32 and f64, K13-K17 bit for bit; sweep, Laplacian and solve
-     times with their bounds and each K15 sweep's share of its floor
-     (512^3 f64: the sweeps and the Laplacian), K13/K14/K16 beside
-     torch.linalg.lu_solve; K13's, K16's and K17's strip kernels timed at
-     every size the paths give them (64^3 f64, 96^3, 256^3 and 512^3 f32,
-     512^3 f64) with the lanes they take and their share of the floor;
-  3b. the spectral solves' symbol multiply (csrc/spectral.cu), both
-     forms, bit for bit against its plain version at 512^3 f32, 64^3 f64
-     and an odd length along z ((48, 40, 97) f32 and f64, anisotropic
-     cells), then timed at 512^3 f32 against its byte floor (each
-     complex64 of the half spectrum read once and written once);
-  3c. GMRES's Gram-Schmidt step over the rows built (csrc/gmres.cu):
-     gs_dots and gs_update_norm against their plain versions on a 31-row
-     basis for 1 to 30 rows, at (33, 20, 27) f32 and f64 (single-value
-     loads), 64^3 f64 and 512^3 f32; at 512^3 f32 their times beside the
-     plain versions', cuBLAS's over the same rows and their floors, and a
-     step against its 2 (rows + 1) + 2 passes and the whole-basis products;
-  5b. K13's, K16's and K17's strip kernels: every variant (32 or 16
-     lanes, staggered workers or not) and the streaming kernel at the same
-     five sizes, each held bit-equal to its plain version once, then timed
-     in turns; then lines too long for a strip ((2048, 16, 16)
-     f32, (1024, 16, 16) f64) through the streaming kernels (the .long
-     counters), bit-equal to the plain versions;
+     (tridiag.compact/dual/chain/sum) against their plain versions at
+     COMPACT_CASES (64^3 f64, (48, 40, 96) f32 and f64, (33, 20, 24) f64,
+     96^3, 256^3, (256, 384, 384) and 512^3 f32, 512^3 f64), K13-K17 bit
+     for bit; K13, K14 and K16 against torch.linalg.lu_solve at 256^3 and
+     512^3 f32. Each K13, K16 and K17 launch takes the route its shape
+     gives it, printed with the case: a strip kernel of 32 or 16 lanes,
+     its workers staggered or not, or the streaming kernel (the .long
+     counters; also on lines too long for a strip, LONG_CASES); every mode
+     must reach all five routes;
   6. paths, each with the launch counters reset before and read after
-     (failing if a red-black sweep took two launches), each checked against
-     the plain PyTorch path on the card (impl="roll", transfers="roll"; for
-     the compact operator method="pscan"), with warm solve times:
+     (failing if a kernel the path needs never launched, or if a
+     red-black sweep took two launches), each checked against the plain
+     PyTorch path on the card (impl="roll", transfers="roll"; for the
+     compact operator method="pscan"):
        (a)   MG-CG through the fused transfer legs (K6/K7): 64^3 f64 rtol
              1e-8 (6 iterations), 256^3 f32 rtol 1e-6 (5), the demo at 64^3;
-             after the counted run, a torch.profiler breakdown of one warm
-             256^3 solve, the demo with -log_view, and the utils on the
-             card: check_field on the 64^3 solution, and the NaN checks
-             raising FloatingPointError on a 64^3 b that holds a NaN (and,
-             once turned off, the solve stopping with DIVERGED_NAN);
+             the demo with -log_view, and the utils on the card:
+             check_field on the 64^3 solution, and the NaN checks raising
+             FloatingPointError on a 64^3 b that holds a NaN (and, once
+             turned off, the solve stopping with DIVERGED_NAN);
        (a/r) the same solves with -mg_transfers roll through the kernels;
        (b)   512^3 f32 rtol 1e-6, the default MGConfig: V(1,1), bf16
-             pre-smooth, K5 storing x1 in bf16, K6/K7 reading it (7); a
-             torch.profiler breakdown of one warm solve;
+             pre-smooth, K5 storing x1 in bf16, K6/K7 reading it (7);
        (b/r) the same with -mg_transfers roll (CG then takes K8);
        (b/s) 512^3 f32 with the bf16 pre-smooth of the Chebyshev smoother
              (KA's bf16 residual), of two-sweep Jacobi (K10 in bf16) and of
@@ -89,15 +81,13 @@ and fails loudly if any phase fails:
        (d)   PoissonSolver(order=6), CG + the 2nd-order GMG: 64^3 f64 rtol
              1e-8, 256^3 f32 rtol 1e-3 (what f32 can certify there), 48^3
              f64 rtol 1e-8 (K15's tile kernel; the others take the
-             register kernel); a torch.profiler breakdown of one warm
-             256^3 solve;
+             register kernel);
        (e)   -ksp_type fft at 512^3 f32, order 2 and order 6; FCG with
              -pc_type fft on order 6 at 256^3 f32 and f64;
        (f)   the batched periodic tridiagonal solve of the JAX package's
              bench at 512^3 f32 and at 64^3 f64: CudaTridiagFactor, PCR
              (auto), Thomas (K13) and the twisted factorization (K16), K13
-             and K16 on their strip kernels; after the path's counters are
-             read, K16 timed against K13;
+             and K16 on their strip kernels;
        (g)   GMRES(30), the default KSP: with -pc_type mg at 64^3 f64 rtol
              1e-8 and 512^3 f32 rtol 1e-6 (a 31-field basis, 16.6 GB),
              with -pc_type none at 64^3 f64 for 60 iterations (K2 through
@@ -110,10 +100,10 @@ and fails loudly if any phase fails:
              256^3 f32;
        (i)   CG with the deferred p-update (K12 bound on the operator) at
              256^3 and 512^3 f32, and 512^3 with roll transfers (K8 +
-             K12): the eager path's iterations, warm deferred vs eager;
+             K12): the eager path's and the plain path's iterations;
        (j)   solve_refined (float32 MG-CG inner solves, float64 residuals)
-             to 1e-12 at 512^3 beside float64 MG-CG, and at 128^3 against
-             the plain path;
+             to 1e-12 at 512^3 beside float64 MG-CG to 1e-12, and at 128^3
+             against the plain path;
        (k)   solve_checkpointed at 256^3 f32, every 2 iterations, in a
              temporary directory: killed after chunk 0 and resumed equals
              the uninterrupted run; a b one ulp away starts fresh;
@@ -122,24 +112,24 @@ and fails loudly if any phase fails:
              pipeline) solved by CG + GMG at 64^3 f64 rtol 1e-8, 256^3 and
              96^3 f32 rtol 1e-3 (K17's launches printed by size), with the
              K15 path's iterations on the same b; then K17's Laplacian
-             against K15's at 512^3 f32 and f64, seven pairs in turns.
+             against K15's at 512^3 f32 and f64.
 
   7. distributed Krylov solves, path (m): the parent builds the library,
      runs each case on one rank (the reference: iterations, x, b = A u by
-     K1, the warm wall), then spawns one process a rank (`--dist-worker`,
-     each within DIST_TIMEOUT) that drives PoissonSolver(shard=pgrid):
-     (2,2,1) 512^3 f32 rtol 1e-6, the default cycle: MG-CG (7 iterations,
-     as one rank), PIPECG, GMRES(30) (its pre-smooth in float32) and
-     Richardson + MG, solve_refined to 1e-12 (float64 b), the MG-CG solve
-     with -log_view (the table printed by rank 0 alone, its events and
-     counts the one-rank table's, its GDoF/s the global DoF count's), and
-     at 256^3 f32 solve_checkpointed every 2 iterations, killed after
-     chunk 0 and resumed (bit-equal to the uninterrupted run) and over a b
-     one ulp away on rank 1 (every rank starts fresh); (3,1,1) 64^3 f64
-     rtol 1e-8, the reference's 90112/86016/86016 split, the matvec within
-     1e-13 of one rank's K1: MG-CG (6 iterations, the JAX package's count
-     there), with the Jacobi smoother (K10, 7, the one-rank count), PIPECG
-     and GMRES(30) + MG, and GMRES -pc_type none to rtol 1e-5 (K2 in the
+     K1), then spawns one process a rank (`--dist-worker`, each within
+     DIST_TIMEOUT) that drives PoissonSolver(shard=pgrid): (2,2,1) 512^3
+     f32 rtol 1e-6, the default cycle: MG-CG (7 iterations, as one rank),
+     PIPECG, GMRES(30) (its pre-smooth in float32) and Richardson + MG,
+     solve_refined to 1e-12 (float64 b), the MG-CG solve with -log_view
+     (the table printed by rank 0 alone, its events and counts the
+     one-rank table's, its GDoF/s the global DoF count's), and at 256^3
+     f32 solve_checkpointed every 2 iterations, killed after chunk 0 and
+     resumed (bit-equal to the uninterrupted run) and over a b one ulp
+     away on rank 1 (every rank starts fresh); (3,1,1) 64^3 f64 rtol 1e-8,
+     the reference's 90112/86016/86016 split, the matvec within 1e-13 of
+     one rank's K1: MG-CG (6 iterations, the JAX package's count there),
+     with the Jacobi smoother (K10, 7, the one-rank count), PIPECG and
+     GMRES(30) + MG, and GMRES -pc_type none to rtol 1e-5 (K2 in the
      Gram-Schmidt step); (2,2,2) 64^3 f64 MG-CG, 8 ranks (6). On every
      rank the counters are reset before rhs_for + the run + residual_norm
      and read after; rank 0's counts and the sums over ranks are printed
@@ -150,11 +140,8 @@ and fails loudly if any phase fails:
      show launches on every rank; the iterations must equal the one-rank
      run's; x must be within 100 rtol of the one-rank x. With one card
      the ranks share it over gloo, every face staged through pinned host
-     buffers (walls printed, no speed figure); with two cards or more the
-     same cases also run over NCCL, one rank a card (a group of more ranks
-     than cards is skipped there). The kernels of the path are also held
-     to their plain versions at the ranks' block shapes (DIST_BLOCKS) in
-     phase 3, K11 in bf16 timed at the (2,2,1) block of 512^3.
+     buffers; with two cards or more the same cases also run over NCCL,
+     one rank a card (a group of more ranks than cards is skipped there).
      Path (n), order 6 and the FFT across ranks, in the same groups after
      path (m)'s cases (PENCIL_CASES; the four-rank group also takes the
      process grid (2,1,2)), each beside the parent's one-rank solve: over
@@ -168,10 +155,8 @@ and fails loudly if any phase fails:
      Laplacian of the same u (relative RMS within 50 eps, max|diff|
      printed), rank 0's all-to-alls and bytes of one Laplacian, one FFT
      solve and the counted window against pencil_bytes_model, K15
-     launched on every rank, iterations equal to one rank's, residuals within
-     1.01 rtol (-ksp_type fft: twice one rank's), warm walls beside one
-     rank's. Phase 3 holds K15's Laplacian sweeps to their plain versions
-     at the pencil block shapes (PENCIL_BLOCKS), bit for bit.
+     launched on every rank, iterations equal to one rank's, residuals
+     within 1.01 rtol (-ksp_type fft: twice one rank's).
      The census (utils.census), each path (m) case: one MG-CG iteration's
      collectives (windows of 2 and 1 iterations, the difference) equal
      utils.scaling.mgcg_iteration_model on every rank, record for record,
@@ -179,17 +164,14 @@ and fails loudly if any phase fails:
      not MG-CG is held by the MG-CG solve of its grid, dtype and MG
      options. For 512^3 (2,2,1) MG-CG the census by level (block shape,
      exchanges, face messages, bytes, mean bytes a message, the exchanges
-     whose messages are all under 64 KiB). With four cards over NCCL:
-     the strong-scaling prediction (scaling.predict_efficiency, LINK_BW of
-     the card) against the measured efficiency of that case, and the weak
-     rung, (1024, 1024, 512) f32 MG-CG to rtol 1e-6 on (2,2,1) (512^3 a
-     card; three warm solves; true residual <= 1.01 rtol; its census held
-     to the model too), its predicted efficiency against one card's 512^3
-     wall over the four-card wall; skipped, and saying so, with fewer
-     cards.
+     whose messages are all under 64 KiB). With four cards over NCCL the
+     weak rung, (1024, 1024, 512) f32 MG-CG to rtol 1e-6 on (2,2,1) (512^3
+     a card): true residual <= 1.01 rtol, its census held to the model
+     too; skipped, and saying so, with fewer cards.
 
 The last two lines of standard output are a JSON object with one entry
-per kernel mode (with its launches by rank in each case of paths (m) and
+per kernel mode (its launches over the paths, its largest difference from
+its plain version, and its launches by rank in each case of paths (m) and
 (n) that launched it, under dist_launches), then {"ok": true, "device":
 {...}}.
 
@@ -209,7 +191,6 @@ import itertools
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -245,7 +226,7 @@ from poissbox_tpu_torch.solvers.cg import cg
 from poissbox_tpu_torch.solvers.gmres import clamp_restart
 from poissbox_tpu_torch.solvers.refine import refine
 from poissbox_tpu_torch.solvers.result import ConvergedReason
-from poissbox_tpu_torch.utils import check_field, debugging, enable_nan_checks, profiling
+from poissbox_tpu_torch.utils import check_field, debugging, enable_nan_checks
 from poissbox_tpu_torch.utils import census, scaling
 from poissbox_tpu_torch.utils.census import (exchange_bytes_model, krylov_work,
                                              pencil_bytes_model)
@@ -332,29 +313,26 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
 STRIP_KEYS = ("tridiag.thomas", "tridiag.babe", "tridiag.compact", "tridiag.dual",
               "tridiag.chain", "tridiag.sum")
 # kernels that no path launches, and why (the idle check skips them; each
-# is still held to its plain version and timed)
+# is still held to its plain version)
 OFF_PATH = {f"{k}.long": "the streaming kernel takes lines too long for two strip "
                          "workers a block (LONG_CASES); no counted path has such "
-                         "lines (lapl_pairs' 512^3 f64 Laplacian gives sum's two "
-                         "columns a lane to it)"
+                         "lines (the 512^3 f64 Laplacian of K17 against K15 gives "
+                         "sum's two columns a lane to it)"
             for k in STRIP_KEYS}
-# K17's modes: field passes at the floor (inputs read once, outputs
-# written once) and operations a point (7 for the RHS taps, 2 forward, 3
-# back, 2 correction per operator; the sum's tap sum and final add)
-K17_MODES = {"compact": (2, 14), "dual": (3, 28), "chain": (2, 28), "sum": (4, 30)}
-# the modes of the 512^3 path, timed at 512^3 (the rest at 256^3)
-AT_512 = ("rbsor.zero.bf16", "rbsor.sweep.bf16", "rbsor.zero_update.narrow",
-          "xfer.restrict.bf16u", "xfer.prolong_add.bf16u",
-          "stencil7.residual.bf16", "stencil7.jacobi.bf16")
-# float32 sweep modes that paths (b) and (g) launch at 512^3, where the
-# sweep kernel's grid takes its largest x chunk: checked there, timed at
-# 256^3
-CHECK_512 = ("rbsor.zero", "rbsor.sweep", "rbsor.dots")
-# the card's peaks (H100 SXM data sheet): HBM bytes/s, f32 operations/s
-# outside the tensor cores (the kernels' arithmetic is f32 or f64; every
-# timed case is f32 or bf16 stored, f32 computed)
-HBM_BPS = 3.35e12
-F32_OPS = 67e12
+# the routes of a K13, K16 or K17 launch, (lanes, stagger): a strip kernel
+# of 32 or 16 lanes with its workers started in turn (1) or at once (0),
+# or the streaming kernel (0, -1); every mode must take each of them in
+# phase 5
+STRIP_ROUTES = ((32, 0), (32, 1), (16, 0), (16, 1), (0, -1))
+STRIP_MAX_WORKERS = 8   # csrc/tridiag.cu kMaxWorkers
+# the modes checked at 512^3 besides the transfer legs, K8, K10, K2 and
+# K12: those of the 512^3 paths (the bf16 forms), and the float32 sweep
+# modes that paths (b) and (g) launch there, where the sweep kernel's grid
+# takes its largest x chunk
+CHECK_512 = ("rbsor.zero.bf16", "rbsor.sweep.bf16", "rbsor.zero_update.narrow",
+             "xfer.restrict.bf16u", "xfer.prolong_add.bf16u",
+             "stencil7.residual.bf16", "stencil7.jacobi.bf16",
+             "rbsor.zero", "rbsor.sweep", "rbsor.dots")
 # the bench's periodic tridiagonal system (alpha, 1, alpha), alpha the
 # compact first derivative's (bench.py:198-200)
 ALPHA_TRI = 9.0 / 62.0
@@ -373,61 +351,53 @@ def as_tuple(out):
 
 
 def mode_calls(deltas, narrow: bool):
-    """(name, inputs, operations per point, kernel call, plain call) per
-    mode; with `narrow` (float32 cases) the bf16 modes too. A timed name
-    is the counter's own; a sweep mode's time is the wrapper's, one launch
-    (the whole TPU kernel: K3, K4, K5). The
-    inputs (each read once) and the outputs (each written once) give the
-    mode's byte bound; the operations, its arithmetic bound."""
+    """(name, kernel call, plain call) per mode; with `narrow` (float32
+    cases) the bf16 modes too. A name is its counter's, then "/" and the
+    variant where a mode has several."""
     d = deltas
     calls = [
-        ("stencil7.apply", ["u"], 10, lambda f: sc.apply_laplacian_cuda(f["u"], d),
+        ("stencil7.apply", lambda f: sc.apply_laplacian_cuda(f["u"], d),
          lambda f: sc.apply_laplacian_plain(f["u"], d)),
-        ("stencil7.apply_dot", ["u"], 12,
-         lambda f: sc.apply_laplacian_dot_cuda(f["u"], d),
+        ("stencil7.apply_dot", lambda f: sc.apply_laplacian_dot_cuda(f["u"], d),
          lambda f: sc.apply_laplacian_dot_plain(f["u"], d)),
-        # K12: p' (3 operations a point), the star (10), the dot (2)
-        ("stencil7.pupd_dot", ["u", "p"], 15,
+        ("stencil7.pupd_dot",
          lambda f: sc.pupdate_lapl_dot_cuda(f["u"], f["p"], f["beta"], f["zs"], d),
          lambda f: sc.pupdate_lapl_dot_plain(f["u"], f["p"], f["beta"], f["zs"], d)),
-        ("stencil7.residual", ["u", "b"], 11,
-         lambda f: sc.residual_cuda(f["u"], f["b"], d),
+        ("stencil7.residual", lambda f: sc.residual_cuda(f["u"], f["b"], d),
          lambda f: sc.residual_plain(f["u"], f["b"], d)),
-        ("stencil7.jacobi", ["u", "b"], 13,
-         lambda f: sc.jacobi_sweep_cuda(f["u"], f["b"], d, WJ),
+        ("stencil7.jacobi", lambda f: sc.jacobi_sweep_cuda(f["u"], f["b"], d, WJ),
          lambda f: sc.jacobi_sweep_plain(f["u"], f["b"], d, WJ)),
-        ("xfer.restrict", ["u", "b"], 13,
-         lambda f: tc.residual_xrestrict_cuda(f["u"], f["b"], d),
+        ("xfer.restrict", lambda f: tc.residual_xrestrict_cuda(f["u"], f["b"], d),
          lambda f: tc.residual_xrestrict_plain(f["u"], f["b"], d)),
-        ("xfer.prolong_add", ["u", "e"], 3, lambda f: tc.xprolong_add_cuda(f["u"], f["e"]),
+        ("xfer.prolong_add", lambda f: tc.xprolong_add_cuda(f["u"], f["e"]),
          lambda f: tc.xprolong_add_plain(f["u"], f["e"])),
-        ("cgupd", ["u", "p", "r", "ap"], 7,
+        ("cgupd",
          lambda f: sc.cg_fused_update_cuda(f["alpha"], f["u"], f["p"], f["r"], f["ap"]),
          lambda f: sc.cg_fused_update_plain(f["alpha"], f["u"], f["p"], f["r"],
                                             f["ap"])),
-        ("rbsor.dots/multisweep3", ["u", "b"], 45,
+        ("rbsor.dots/multisweep3",
          lambda f: sc.sor_rb_multisweep_cuda(f["u"], f["b"], d, W, 3, dots=True),
          lambda f: sc.sor_rb_multisweep_plain(f["u"], f["b"], d, W, 3, dots=True)),
     ]
     for colour in (0, 1):
         # K11: one colour update (half the points updated, all copied)
-        calls.append((f"rbsor.general/colour={colour}", ["u", "b"], 7,
+        calls.append((f"rbsor.general/colour={colour}",
                       lambda f, c=colour: sc.sor_sweep_cuda(f["u"], f["b"], d, W, c),
                       lambda f, c=colour: sc.sor_sweep_plain(f["u"], f["b"], d, W, c)))
     for rev in (False, True):
         calls += [
-            (f"rbsor.zero/rev={rev}", ["b"], 13,
+            (f"rbsor.zero/rev={rev}",
              lambda f, rev=rev: sc.sor_rb_zero_sweep_cuda(f["b"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_zero_sweep_plain(f["b"], d, W, rev)),
-            (f"rbsor.zero_update/rev={rev}", ["r", "ap"], 17,
+            (f"rbsor.zero_update/rev={rev}",
              lambda f, rev=rev: sc.sor_rb_zero_update_cuda(
                  f["r"], f["ap"], f["alpha"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_zero_update_plain(
                  f["r"], f["ap"], f["alpha"], d, W, rev)),
-            (f"rbsor.sweep/rev={rev}", ["u", "b"], 13,
+            (f"rbsor.sweep/rev={rev}",
              lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u"], f["b"], d, W, rev),
              lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u"], f["b"], d, W, rev)),
-            (f"rbsor.dots/rev={rev}", ["u", "b"], 16,
+            (f"rbsor.dots/rev={rev}",
              lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u"], f["b"], d, W, rev,
                                                      dots=True),
              lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u"], f["b"], d, W, rev,
@@ -435,14 +405,14 @@ def mode_calls(deltas, narrow: bool):
         ]
         if narrow:
             calls += [
-                (f"rbsor.zero.bf16/rev={rev}", ["b16"], 13,
+                (f"rbsor.zero.bf16/rev={rev}",
                  lambda f, rev=rev: sc.sor_rb_zero_sweep_cuda(f["b16"], d, W, rev),
                  lambda f, rev=rev: sc.sor_rb_zero_sweep_plain(f["b16"], d, W, rev)),
-                (f"rbsor.sweep.bf16/rev={rev}", ["u16", "b16"], 13,
+                (f"rbsor.sweep.bf16/rev={rev}",
                  lambda f, rev=rev: sc.sor_rb_sweep_cuda(f["u16"], f["b16"], d, W, rev),
                  lambda f, rev=rev: sc.sor_rb_sweep_plain(f["u16"], f["b16"], d, W,
                                                           rev)),
-                (f"rbsor.zero_update.narrow/rev={rev}", ["r", "ap"], 17,
+                (f"rbsor.zero_update.narrow/rev={rev}",
                  lambda f, rev=rev: sc.sor_rb_zero_update_cuda(
                      f["r"], f["ap"], f["alpha"], d, W, rev, out_dtype=BF16),
                  lambda f, rev=rev: sc.sor_rb_zero_update_plain(
@@ -450,54 +420,18 @@ def mode_calls(deltas, narrow: bool):
             ]
     if narrow:
         calls += [
-            ("xfer.restrict.bf16u", ["u16", "b"], 13,
+            ("xfer.restrict.bf16u",
              lambda f: tc.residual_xrestrict_cuda(f["u16"], f["b"], d),
              lambda f: tc.residual_xrestrict_plain(f["u16"], f["b"], d)),
-            ("xfer.prolong_add.bf16u", ["u16", "e"], 3,
-             lambda f: tc.xprolong_add_cuda(f["u16"], f["e"]),
+            ("xfer.prolong_add.bf16u", lambda f: tc.xprolong_add_cuda(f["u16"], f["e"]),
              lambda f: tc.xprolong_add_plain(f["u16"], f["e"])),
-            ("stencil7.residual.bf16", ["u16", "b16"], 11,
-             lambda f: sc.residual_cuda(f["u16"], f["b16"], d),
+            ("stencil7.residual.bf16", lambda f: sc.residual_cuda(f["u16"], f["b16"], d),
              lambda f: sc.residual_plain(f["u16"], f["b16"], d)),
-            ("stencil7.jacobi.bf16", ["u16", "b16"], 13,
+            ("stencil7.jacobi.bf16",
              lambda f: sc.jacobi_sweep_cuda(f["u16"], f["b16"], d, WJ),
              lambda f: sc.jacobi_sweep_plain(f["u16"], f["b16"], d, WJ)),
         ]
     return calls
-
-
-def bound(nbytes: float, ops: float) -> dict:
-    """The least time the card could take: the bytes over the HBM rate or
-    the operations over the f32 rate, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / F32_OPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def share(bd: dict, ms: float) -> str:
-    """The kernel's share of its floor: bound over measured time."""
-    return f"{100 * bd['bound_ms'] / ms:.1f} % of its floor"
-
-
-def out_bytes(out) -> int:
-    """Bytes written: every field output (reductions are a few scalars)."""
-    return sum(t.nbytes for t in as_tuple(out) if t.dim() > 0)
-
-
-def conv_star(deltas, dtype):
-    """One library call for K1: Conv3d with the 7-point star as its
-    weights, circular padding (the periodic boundary), no bias."""
-    ivx, ivy, ivz = (1.0 / float(dd) ** 2 for dd in deltas)
-    w = torch.zeros(3, 3, 3, dtype=torch.float64)
-    w[0, 1, 1] = w[2, 1, 1] = ivx
-    w[1, 0, 1] = w[1, 2, 1] = ivy
-    w[1, 1, 0] = w[1, 1, 2] = ivz
-    w[1, 1, 1] = -2.0 * (ivx + ivy + ivz)
-    conv = torch.nn.Conv3d(1, 1, 3, padding=1, padding_mode="circular",
-                           bias=False).to(device=DEVICE, dtype=dtype)
-    conv.requires_grad_(False)
-    conv.weight.copy_(w.view(1, 1, 3, 3, 3))
-    return lambda u: conv(u[None, None])[0, 0]
 
 
 def fields(shape, dtype, seed):
@@ -540,19 +474,10 @@ def compare(name, got, ref) -> float:
     return worst
 
 
-def median_ms(fn, reps: int = 25, warm: int = 3) -> float:
-    """Median device time of one call, from CUDA events around each of
-    `reps` back-to-back calls after `warm` warm-up calls."""
-    for _ in range(warm):
-        fn()
-    ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-          for _ in range(reps)]
-    for a, b in ev:
-        a.record()
-        fn()
-        b.record()
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in ev)
+def record(stats: dict, key: str, err: float) -> None:
+    """Keep the largest field difference of kernel `key` from its plain
+    version; a key in `stats` has been checked."""
+    stats[key] = max(stats.get(key, 0.0), err)
 
 
 # KB's and K6's cases beyond the path shapes: a ragged (y, z) tile in f64
@@ -567,11 +492,10 @@ SMALL_CASES = [((40, 36, 52), (1.0, 1.0, 1.0), torch.float64),
                ((6, 5, 7), (1.0, 1.0, 1.0), torch.float32)]
 
 
-def check_kernels() -> dict:
-    """Phase 3: every mode against its plain version; returns, per launch
-    counter, the max abs error over the cases and, at the mode's path
-    shape (512^3 for AT_512, 256^3 otherwise), its time, the plain
-    version's, its bound and, for K1, the library call's."""
+def check_kernels(stats: dict) -> None:
+    """Phase 3: every mode against its plain version at every case (at
+    512^3 only CHECK_512's, the transfer legs, K8, K10, K2 and K12), and
+    KA's grid against ka_blocks."""
     cases = [((64, 64, 64), (1.0, 1.0, 1.0), torch.float64),
              *SMALL_CASES,
              ((64, 32, 48), (1.0, 0.75, 1.5), torch.float64),
@@ -579,7 +503,6 @@ def check_kernels() -> dict:
              ((48, 40, 96), (1.0, 1.0, 1.0), torch.float32),
              ((256, 256, 256), (1.0, 1.0, 1.0), torch.float32),
              ((512, 512, 512), (1.0, 1.0, 1.0), torch.float32)]
-    stats = {k: {"max_abs_err": 0.0, "library_ms": None} for k in KERNELS}
     for shape, length, dtype in cases:
         gz, gy, gx, _ = sc.ka_blocks(shape)
         if _build.load().poissbox_num_blocks(*shape) != gz * gy * gx:
@@ -588,9 +511,9 @@ def check_kernels() -> dict:
         deltas = Grid3D(shape, length, DEVICE).deltas
         f = fields(shape, dtype, seed=sum(shape))
         n = shape[0] if len(set(shape)) == 1 else 0
-        for name, ins, ops, kern, plain in mode_calls(deltas, dtype == torch.float32):
+        for name, kern, plain in mode_calls(deltas, dtype == torch.float32):
             key = name.split("/")[0]
-            if n == 512 and key not in AT_512 + CHECK_512 and not key.startswith(
+            if n == 512 and key not in CHECK_512 and not key.startswith(
                     ("xfer.", "cgupd", "stencil7.jacobi", "stencil7.apply_dot",
                      "stencil7.pupd_dot")):
                 continue      # at 512^3, only the modes of the 512^3 paths
@@ -599,44 +522,15 @@ def check_kernels() -> dict:
             if (shape, length, dtype) in SMALL_CASES and not key.startswith(
                     ("rbsor.", "xfer.restrict", "stencil7.")):
                 continue      # KA's, KB's and K6's ragged and wrapped-halo cases
-            got = kern(f)
-            err = compare(f"{name} {shape} {dtype}", got, plain(f))
+            err = compare(f"{name} {shape} {dtype}", kern(f), plain(f))
             torch.cuda.synchronize()
             if key.startswith(BIT_EQUAL) and err != 0.0:
                 raise AssertionError(f"{name} {shape} {dtype}: field max|diff| {err:.3e}, "
                                      "not bit-equal")
-            st = stats[key]
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            # a sweep mode's row takes the rev=False sweep, K11's the
-            # colour-0 update
-            record = "/" not in name or name.endswith(("rev=False", "colour=0"))
-            timed = record and not (n == 512 and key in CHECK_512) and key not in K11_KEYS
-            if n in (256, 512) and timed:
-                ms, plain_ms = median_ms(lambda: kern(f)), median_ms(lambda: plain(f))
-                bd = bound(sum(f[k].nbytes for k in ins) + out_bytes(got),
-                           ops * f["u"].numel())
-                print(f"  {name:32s} {n}^3 f32: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-                      f"({bd['bound_by']}), {share(bd, ms)}, max|diff| {err:.3e}")
-                if record and n == (512 if key in AT_512 else 256):
-                    st.update(ms=ms, plain_ms=plain_ms, **bd)
-            del got
-        if n == 256:
-            lib = conv_star(deltas, dtype)
-            with torch.no_grad():
-                y = lib(f["u"])
-                ref = sc.apply_laplacian_plain(f["u"], deltas)
-                rel = float((y - ref).abs().max()) / float(ref.abs().max())
-                if not rel <= 1e-5:
-                    raise AssertionError(f"Conv3d star: relative {rel:.3e} from K1's plain")
-                lib_ms = median_ms(lambda: lib(f["u"]))
-            stats["stencil7.apply"]["library_ms"] = lib_ms
-            print(f"  stencil7.apply library (Conv3d, circular, TF32 off) 256^3 "
-                  f"f32: {lib_ms:.4f} ms, relative diff {rel:.2e}")
+            record(stats, key, err)
         del f
         torch.cuda.empty_cache()
         print(f"  all modes agree at {shape} {dtype}, lengths {length}", flush=True)
-    return stats
 
 
 SPECTRAL_CASES = [((512, 512, 512), (1.0, 1.0, 1.0), torch.float32),
@@ -644,9 +538,6 @@ SPECTRAL_CASES = [((512, 512, 512), (1.0, 1.0, 1.0), torch.float32),
                   ((48, 40, 97), (1.0, 0.75, 1.5), torch.float32),
                   ((48, 40, 97), (1.0, 0.75, 1.5), torch.float64),
                   ((9, 7, 13), (1.0, 0.75, 1.5), torch.float32)]
-# operations a mode: S (compact 5 products and 2 sums; 7-point 2 sums),
-# the test, the reciprocal and the two scalings
-SPECTRAL_OPS = {"compact": 11, "sum": 6}
 
 
 def check_spectral(stats: dict) -> None:
@@ -654,8 +545,7 @@ def check_spectral(stats: dict) -> None:
     plain version on the card (SPECTRAL_CASES, the tables from
     fft.symbol_tables), on cuFFT's layout of the half spectrum (the half
     axis outermost) and on the C-order one (rows of nz/2 + 1; (9, 7, 13)
-    leaves an odd count of complex64 values), then its time at 512^3 f32
-    beside the plain version's and its floor."""
+    leaves an odd count of complex64 values)."""
     for shape, length, dtype in SPECTRAL_CASES:
         deltas = Grid3D(shape, length, DEVICE).deltas
         g = torch.Generator(device=DEVICE).manual_seed(sum(shape))
@@ -678,19 +568,7 @@ def check_spectral(stats: dict) -> None:
                         "not bit-equal")
                 zeros = int((ref == 0).sum())
                 del got, ref
-            st = stats[key]
-            st["max_abs_err"] = max(st["max_abs_err"], err)
-            if shape == (512, 512, 512):
-                buf = xhat.clone()
-                ms = median_ms(lambda: spectral_cuda.symbol_scale(buf, tables, peak, rel, form))
-                plain_ms = median_ms(lambda: spectral_cuda.symbol_scale_plain(
-                    buf, tables, peak, rel, form))
-                del buf
-                bd = bound(2 * xhat.nbytes, SPECTRAL_OPS[form] * xhat.numel())
-                st.update(ms=ms, plain_ms=plain_ms, **bd)
-                print(f"  {key:32s} 512^3 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                      f"ms, bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), "
-                      f"{share(bd, ms)}")
+            record(stats, key, err)
             print(f"  {key} bit-equal at {shape} {dtype}, axes in memory "
                   f"{spectral_cuda.memory_order(xhat)} and C order ({zeros} modes "
                   "dropped)", flush=True)
@@ -699,14 +577,10 @@ def check_spectral(stats: dict) -> None:
 
 
 # GMRES's Gram-Schmidt kernels: a 31-row basis (GMRES(30)'s) of unit
-# fields at each shape; every row count below against the plain versions,
-# the 512^3 f32 counts in GS_TIMED also timed; the kernel table's row is
-# GS_ROW rows, the last step of poisson7.512.fgmres's 7-step cycle
+# fields at each shape; every row count below against the plain versions
 GS_CASES = [((33, 20, 27), torch.float64), ((33, 20, 27), torch.float32),
             ((64, 64, 64), torch.float64), ((512, 512, 512), torch.float32)]
 GS_ROWS = (1, 4, 7, 8, 9, 16, 30)
-GS_TIMED = (1, 7, 8, 30)
-GS_ROW = 7
 
 
 def gs_basis(shape, dtype, seed):
@@ -723,11 +597,7 @@ def check_gmres(stats: dict) -> None:
     (GS_CASES; the odd shape takes single-value loads): each coefficient
     within 256 eps of the dot of the absolute values, each value of the
     new row within 2 (rows + 1) eps of |w| + sum |h_i V_i| (the kernel
-    fuses each multiply-add), the norm within 256 eps. At 512^3 f32 each
-    kernel, its plain version and the cuBLAS product over the same rows
-    are timed, and a step (both kernels) against its floor of 2 (rows + 1)
-    + 2 field passes and against the whole-basis cuBLAS products the
-    kernels replace."""
+    fuses each multiply-add), the norm within 256 eps."""
     for shape, dtype in GS_CASES:
         V, w = gs_basis(shape, dtype, seed=sum(shape))
         Vf, wf = V.reshape(31, -1), w.reshape(-1)
@@ -750,38 +620,8 @@ def check_gmres(stats: dict) -> None:
                 raise AssertionError(
                     f"gmres {shape} {dtype} rows {rows}: h {dh:.3e}, new row {dout:.3e}, "
                     f"norm {dww:.3e} (in eps {eps:.3e}: 256, {2 * (rows + 1)}, 256)")
-            for key, err in (("gmres.dots", float((h - h_ref).abs().max())),
-                             ("gmres.update", float((out - out_ref).abs().max()))):
-                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-            if shape != (512, 512, 512) or rows not in GS_TIMED:
-                continue
-            field, ops = w.nbytes, w.numel()
-            times = {
-                "gmres.dots": (median_ms(lambda: gmres_cuda.gs_dots(V, rows, w)),
-                               median_ms(lambda: gmres_cuda.gs_dots_plain(V, rows, w)),
-                               median_ms(lambda: Vf[:rows] @ wf),
-                               bound((rows + 1) * field, 2 * rows * ops)),
-                "gmres.update": (median_ms(lambda: gmres_cuda.gs_update_norm(
-                                     V, rows, h_ref, w, out)),
-                                 median_ms(lambda: gmres_cuda.gs_update_norm_plain(
-                                     V, rows, h_ref, w, out_ref)),
-                                 median_ms(lambda: torch.addmv(wf, Vf[:rows].t(), h_ref,
-                                                               alpha=-1)),
-                                 bound((rows + 2) * field, (2 * rows + 2) * ops))}
-            for key, (ms, plain_ms, lib_ms, bd) in times.items():
-                print(f"  {key:14s} 512^3 f32 rows {rows:2d}: kernel {ms:.4f} ms, plain "
-                      f"{plain_ms:.4f} ms, cuBLAS over the rows {lib_ms:.4f} ms, bound "
-                      f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {share(bd, ms)}")
-                if rows == GS_ROW:
-                    stats[key].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **bd)
-            h31 = gmres_cuda.gs_dots_plain(V, 31, w)
-            whole = median_ms(lambda: Vf @ wf) + median_ms(lambda: wf - h31 @ Vf)
-            step = times["gmres.dots"][0] + times["gmres.update"][0]
-            floor = bound((2 * rows + 2) * field, 0)
-            print(f"  step at rows {rows:2d}: {step:.4f} ms against its floor of "
-                  f"{2 * rows + 2} passes {floor['bound_ms']:.4f} ms, "
-                  f"{share(floor, step)}; the whole-basis cuBLAS products {whole:.4f} ms",
-                  flush=True)
+            record(stats, "gmres.dots", float((h - h_ref).abs().max()))
+            record(stats, "gmres.update", float((out - out_ref).abs().max()))
         print(f"  gmres.dots and gmres.update agree at {shape} {dtype}, rows {GS_ROWS}",
               flush=True)
         del V, w, Vf, wf, out, out_ref
@@ -791,7 +631,7 @@ def check_gmres(stats: dict) -> None:
 def check_contractions() -> None:
     """Phase 4: restrict_mm/prolong_mm equal the roll transfers in f32
     with torch's TF32 switch on (the contractions set full float32
-    themselves), and their times against the roll form's."""
+    themselves)."""
     prev = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -809,11 +649,8 @@ def check_contractions() -> None:
                 if not rel <= MM_TOL:
                     raise AssertionError(f"{what}_mm {n}^3 axes {axes}: relative "
                                          f"{rel:.3e} from the roll form")
-                t_mm = median_ms(lambda: mm(x, axes=axes), reps=9)
-                t_roll = median_ms(lambda: roll(x, axes=axes), reps=9)
-                print(f"  {what} axes {axes} on {tuple(x.shape)}: matmul "
-                      f"{t_mm:.4f} ms, roll {t_roll:.4f} ms, relative diff "
-                      f"{rel:.2e}", flush=True)
+                print(f"  {what} axes {axes} on {tuple(x.shape)}: matmul against roll, "
+                      f"relative diff {rel:.2e}", flush=True)
             del f, c
             torch.cuda.empty_cache()
     finally:
@@ -821,35 +658,19 @@ def check_contractions() -> None:
 
 
 # K15's and K17's cases: every line length and dtype the paths give them
-# (96^3 f32 is path (l)'s, 512^3 f64 the Laplacian of lapl_pairs), mixed
-# register and tile lines ((48, 40, 96)) and an odd split for K16
+# (96^3 f32 is path (l)'s, 512^3 f64 the Laplacian K17 is held to K15 at),
+# mixed register and tile lines ((48, 40, 96)), an odd split for K16, and
+# (256, 384, 384) f32, where K17's sum takes 32-lane strips with staggered
+# workers (512^3 f32 gives it 16 lanes)
 COMPACT_CASES = [((64, 64, 64), torch.float64), ((48, 40, 96), torch.float32),
                  ((48, 40, 96), torch.float64), ((33, 20, 24), torch.float64),
                  ((96, 96, 96), torch.float32), ((256, 256, 256), torch.float32),
+                 ((256, 384, 384), torch.float32),
                  ((512, 512, 512), torch.float32), ((512, 512, 512), torch.float64)]
 LAPL_KEYS = ("compact.z", "compact.y", "compact.x")   # lapl_sweeps' order
-# the sizes at which the paths launch K16 and K17 (path (f): 512^3 f32,
-# 64^3 f64; path (l): 64^3 f64, 256^3 and 96^3 f32; lapl_pairs: 512^3 f32
-# and f64), each timed with its share of the floor
-STRIP_TIMED = (((64, 64, 64), torch.float64), ((96, 96, 96), torch.float32),
-               ((256, 256, 256), torch.float32), ((512, 512, 512), torch.float32),
-               ((512, 512, 512), torch.float64))
-# lines too long for two strip workers a block: K16's and K17's streaming
-# kernels (the .long counters)
+# lines too long for two strip workers a block: K13's, K16's and K17's
+# streaming kernels (the .long counters)
 LONG_CASES = [((2048, 16, 16), torch.float32), ((1024, 16, 16), torch.float64)]
-
-
-def program_ops(program) -> int:
-    """Operations per point of one K15 sweep: 7 for the RHS taps (1 for
-    the scale of a plain solve), 3 a PCR step, 1 for the final scale (3
-    for the exact pairing), 1 for each summed term."""
-    total = 0
-    for out in program:
-        total += len(out) - 1
-        for _, specs in out:
-            for _, b, _, _, (fs, _, aF) in specs:
-                total += (1 if b is None else 7) + 3 * len(fs) + (1 if aF == 0.0 else 3)
-    return total
 
 
 def tridiag_system(n: int, dtype):
@@ -876,23 +697,24 @@ def dense_circulant(n: int, dtype) -> torch.Tensor:
 
 
 def compact_calls(f, F, d):
-    """(name, counters, kernel call, plain call) of K15's programs, the
-    K13/K14/K16 solves and K17's modes on one field."""
+    """(name, counters, kernel call, plain call, strip) of K15's programs,
+    the K13/K14/K16 solves and K17's modes on one field; strip is the
+    (mode, axis) of a K13, K16 or K17 launch, else None."""
     rt = cp._dtype_rtol(f.dtype)
     calls = [
-        ("lapl", LAPL_KEYS, lambda: cp.lapl(f, d), lambda: cp.lapl(f, d, plain=True)),
-        ("grad", LAPL_KEYS, lambda: cp.grad(f, d), lambda: cp.grad(f, d, plain=True)),
-        ("div", LAPL_KEYS, lambda: cp.div(F, d), lambda: cp.div(F, d, plain=True)),
+        ("lapl", LAPL_KEYS, lambda: cp.lapl(f, d), lambda: cp.lapl(f, d, plain=True), None),
+        ("grad", LAPL_KEYS, lambda: cp.grad(f, d), lambda: cp.grad(f, d, plain=True), None),
+        ("div", LAPL_KEYS, lambda: cp.div(F, d), lambda: cp.div(F, d, plain=True), None),
         ("interp-", LAPL_KEYS, lambda: cp.interp(f, -1),
-         lambda: cp.interp(f, -1, plain=True)),
+         lambda: cp.interp(f, -1, plain=True), None),
         ("interp+", LAPL_KEYS, lambda: cp.interp(f, +1),
-         lambda: cp.interp(f, +1, plain=True)),
+         lambda: cp.interp(f, +1, plain=True), None),
     ]
     for axis, key in ((2, "compact.z"), (1, "compact.y"), (0, "compact.x")):
         spec = cp.grad_spec(d[axis], +1, f.shape[axis], rt)
         calls.append((f"op_1d/axis={axis}", (key,),
                       lambda s=spec, a=axis: cp.op_1d(f, s, a),
-                      lambda s=spec, a=axis: cp.op_1d(f, s, a, plain=True)))
+                      lambda s=spec, a=axis: cp.op_1d(f, s, a, plain=True), None))
     # K13 also on a non-periodic system and on variable coefficients,
     # periodic and not: the strip kernel's store skips the correction
     # where corr[1] == 0
@@ -906,10 +728,11 @@ def compact_calls(f, F, d):
         calls.append((f"tridiag.{alg}/axis={axis}/periodic={per}"
                       + ("/variable" if var else ""), (f"tridiag.{alg}",),
                       lambda fac=fac, a=axis: fac.solve(f, a),
-                      lambda fac=fac, a=axis: fac.solve(f, a, plain=True)))
+                      lambda fac=fac, a=axis: fac.solve(f, a, plain=True),
+                      None if alg == "pcr" else (alg, axis)))
     for mode, call in k17_calls(f, d).items():
         calls.append((f"tridiag.{mode}", (f"tridiag.{mode}",), call,
-                      lambda call=call: call(plain=True)))
+                      lambda call=call: call(plain=True), (mode, 0)))
     return calls
 
 
@@ -935,16 +758,51 @@ def k17_calls(f, d) -> dict:
     }
 
 
-def check_compact(stats: dict) -> None:
+def strip_route(mode: str, n: int, Q: int, dtype) -> tuple[int, int]:
+    """The route of a K13 ("thomas"), K16 ("babe") or K17 launch over Q
+    lines of n rows, (lanes, stagger): the lanes the library's strip_lanes
+    gives (0: the streaming kernel, stagger -1), and the stagger by
+    launch_strip's rule in csrc/tridiag.cu (a block's workers start in turn
+    when it holds at most four and each takes eight strips or more) from
+    the card's SMs and the shared memory a block may take."""
+    lanes = tridiag_cuda.strip_lanes(mode, n, Q, dtype, DEVICE)
+    if not lanes:
+        return 0, -1
+    props = torch.cuda.get_device_properties(DEVICE)
+    item = torch.empty((), dtype=dtype).element_size()
+    tables = (1 if mode in ("compact", "babe", "thomas") else 2) * (4 * n + 3) * item
+    strip = n * (2 * lanes if mode == "sum" else lanes) * item
+    wmax = min(STRIP_MAX_WORKERS, (props.shared_memory_per_block_optin - 64 - tables) // strip)
+    strips = -(-Q // lanes)
+    grid = min(strips, props.multi_processor_count)
+    workers = min(-(-strips // grid), wmax)
+    return lanes, int(workers <= 4 and strips >= 8 * grid * workers)
+
+
+def route_name(route) -> str:
+    lanes, stagger = route
+    return f"{lanes} lanes, stagger {stagger}" if lanes else "streaming"
+
+
+def check_route(key: str, route, before) -> str:
+    """The counter of the kernel `route` names (`key`, or `key`.long for the
+    streaming kernel) must have taken the one launch since `before`;
+    returns it."""
+    counter = key if route[0] else f"{key}.long"
+    launched = {k: v - before[k] for k, v in sc.LAUNCHES.items() if v != before[k]}
+    if launched != {counter: 1}:
+        raise AssertionError(f"{key} on the route {route_name(route)}: launched {launched}")
+    return counter
+
+
+def check_compact(stats: dict, reached: dict) -> None:
     """Phase 5: K15's programs, K13/K14/K16 and K17's modes against their
     plain versions at every case, with the K15 kernels each case took
     (checked against compact_pcr.route) and, where a line takes the tile
-    kernel, every lane width it is built for held bit-equal; at 256^3 and
-    512^3 the times of each Laplacian sweep and the whole Laplacian and, in
-    f32, those of the three solves (kernel, plain, lu_solve on the dense
-    factor) and K17's modes, with their bounds. The JSON entries take the
-    512^3 f32 times (the JAX package's bench size for compact_lapl and
-    tridiag)."""
+    kernel, every lane width it is built for held bit-equal; each K13, K16
+    and K17 launch on the route strip_route names, the routes printed and
+    gathered by mode in `reached`; at 256^3 and 512^3 f32 the periodic
+    solves against lu_solve."""
     for shape, dtype in COMPACT_CASES:
         g = torch.Generator(device=DEVICE).manual_seed(sum(shape) + 3)
         f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
@@ -953,28 +811,34 @@ def check_compact(stats: dict) -> None:
         routes = {cp.route(n) for n in shape}
         for k in cp.ROUTE_LAUNCHES:
             cp.ROUTE_LAUNCHES[k] = 0
-        for name, keys, kern, plain in compact_calls(f, F, d):
+        took = {}
+        for name, keys, kern, plain, strip in compact_calls(f, F, d):
+            before = collections.Counter(sc.LAUNCHES)
             err = compare(f"{name} {shape} {dtype}", kern(), plain())
             torch.cuda.synchronize()
             if keys[0].startswith(BIT_EQUAL) and err != 0.0:
                 raise AssertionError(f"{name} {shape} {dtype}: field max|diff| {err:.3e}, "
                                      "not bit-equal")
+            if strip is not None:
+                mode, axis = strip
+                route = strip_route(mode, shape[axis], f.numel() // shape[axis], dtype)
+                keys = (check_route(keys[0], route, before),)
+                reached.setdefault(mode, set()).add(route)
+                took[name] = route_name(route)
             for key in keys:
-                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
-        took = {k for k, v in cp.ROUTE_LAUNCHES.items() if v}
-        if took != routes:
-            raise AssertionError(f"K15 at {shape}: launched {took}, the extents take {routes}")
+                record(stats, key, err)
+        kernels = {k for k, v in cp.ROUTE_LAUNCHES.items() if v}
+        if kernels != routes:
+            raise AssertionError(f"K15 at {shape}: launched {kernels}, the extents take {routes}")
         if "tile" in routes:
             tile_widths(f, d)
+        if dtype == torch.float32 and shape in ((256,) * 3, (512,) * 3):
+            check_lu(f)
         print(f"  compact and tridiagonal kernels agree at {shape} {dtype}; K15 "
               f"launches by kernel {dict(cp.ROUTE_LAUNCHES)} (lines "
-              + ", ".join(f"{n}: {cp.route(n)}" for n in shape) + ")", flush=True)
-        del F
-        if shape[0] in (256, 512):
-            time_compact(stats, f, d)
-        if (shape, dtype) in STRIP_TIMED:
-            time_strips(stats, f, d)
-        del f
+              + ", ".join(f"{n}: {cp.route(n)}" for n in shape) + "); K13, K16 and K17 "
+              "routes: " + "; ".join(f"{k} {v}" for k, v in took.items()), flush=True)
+        del f, F
         torch.cuda.empty_cache()
 
 
@@ -992,60 +856,22 @@ def tile_widths(f, d) -> None:
             raise AssertionError(f"compact lapl {tuple(f.shape)}: width {w} differs")
 
 
-def time_compact(stats: dict, f, d) -> None:
+def check_lu(f) -> None:
+    """K13, K14 and K16 on the periodic (alpha, 1, alpha) system along axis
+    0 of f against torch.linalg.lu_solve on the dense factor."""
     n = f.shape[0]
-    f32 = f.dtype == torch.float32
-    tag = f"{n}^3 {str(f.dtype).replace('torch.', '')}"
-    record = n == 512 and f32
-    fields = [f]
-    for (program, axis), key in zip(cp.lapl_sweeps(f.shape, d, f.dtype), LAPL_KEYS):
-        ins = fields
-        outs = cp.sweep(program, ins, axis)
-        ms = median_ms(lambda: cp.sweep(program, ins, axis))
-        plain_ms = median_ms(lambda: cp.sweep_plain(program, ins, axis), reps=5)
-        bd = bound((len(ins) + len(outs)) * f.nbytes, program_ops(program) * f.numel())
-        print(f"  {key} (lapl sweep, {len(ins)}r {len(outs)}w, {cp.route(n)} kernel) {tag}: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bd['bound_ms']:.4f} ms "
-              f"({bd['bound_by']}), {share(bd, ms)}", flush=True)
-        if record:
-            stats[key].update(ms=ms, plain_ms=plain_ms, **bd)
-        fields = outs
-    del fields, outs, ins
-    ms = median_ms(lambda: cp.lapl(f, d))
-    floor = 10 * f.nbytes / HBM_BPS * 1e3
-    if not f32:
-        print(f"  compact lapl {tag}: kernels {ms:.4f} ms, bound (10 passes) {floor:.4f} ms, "
-              f"{100 * floor / ms:.1f} % of it", flush=True)
-        return
-    plain_ms = median_ms(lambda: cp.lapl(f, d, plain=True), reps=5)
-    pscan_ms = median_ms(lambda: make_compact_laplacian_operator(
-        Grid3D(f.shape, device=DEVICE), method="pscan").apply(f), reps=3, warm=1)
-    print(f"  compact lapl {tag}: kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"pscan path {pscan_ms:.4f} ms, bound (10 passes) {floor:.4f} ms, "
-          f"{100 * floor / ms:.1f} % of it", flush=True)
-    B = f.reshape(n, -1)
     lu, piv = torch.linalg.lu_factor(dense_circulant(n, f.dtype))
-    lib = lambda: torch.linalg.lu_solve(lu, piv, B)
-    lib_ms = median_ms(lib)
+    ref = torch.linalg.lu_solve(lu, piv, f.reshape(n, -1)).reshape(f.shape)
     for alg in ("thomas", "pcr", "babe"):
-        fac = CudaTridiagFactor(*tridiag_system(n, f.dtype), periodic=True,
-                                algorithm=alg)
+        fac = CudaTridiagFactor(*tridiag_system(n, f.dtype), periodic=True, algorithm=alg)
         x = fac.solve(f, 0)
-        rel = float((lib().reshape(f.shape) - x).abs().max()) / float(x.abs().max())
+        rel = float((ref - x).abs().max()) / float(x.abs().max())
         if not rel <= FIELD_TOL[f.dtype] * 10:
-            raise AssertionError(f"lu_solve vs tridiag.{alg}: relative {rel:.3e}")
-        ms = median_ms(lambda: fac.solve(f, 0))
-        plain_ms = median_ms(lambda: fac.solve(f, 0, plain=True))
-        ops = 7 if alg != "pcr" else program_ops((((0, (fac.pcr_spec,)),),))
-        bd = bound(2 * f.nbytes, ops * f.numel())
-        print(f"  tridiag.{alg} {n}^3 f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"lu_solve {lib_ms:.4f} ms (relative diff {rel:.2e}), bound "
-              f"{bd['bound_ms']:.4f} ms ({bd['bound_by']})", flush=True)
-        if record:
-            stats[f"tridiag.{alg}"].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                                           **bd)
-        del x
-    del lu, piv, B
+            raise AssertionError(f"lu_solve vs tridiag.{alg} {tuple(f.shape)}: relative "
+                                 f"{rel:.3e}")
+        print(f"  tridiag.{alg} {tuple(f.shape)} {f.dtype} against lu_solve: relative diff "
+              f"{rel:.2e}", flush=True)
+    del lu, piv, ref
 
 
 def strip_calls(f, d) -> dict:
@@ -1060,102 +886,7 @@ def strip_calls(f, d) -> dict:
     return calls
 
 
-def strip_floor(key, f) -> dict:
-    """K13's, K16's or K17's bound on f: its field passes and operations a
-    point."""
-    passes, ops = K17_MODES.get(key.split(".")[1], (2, 7))
-    return bound(passes * f.nbytes, ops * f.numel())
-
-
-def time_strips(stats: dict, f, d) -> None:
-    """K13, K16 and K17's modes at one of their path sizes: kernel time,
-    the strip lanes the route takes, bound and share of it; at 512^3 f32
-    also the plain versions' times, and the JSON entries."""
-    n, Q = f.shape[0], f.numel() // f.shape[0]
-    tag = f"{n}^3 {str(f.dtype).replace('torch.', '')}"
-    record = n == 512 and f.dtype == torch.float32
-    for key, call in strip_calls(f, d).items():
-        ms = median_ms(call)
-        bd = strip_floor(key, f)
-        mode = key.split(".")[1]
-        lanes = tridiag_cuda.strip_lanes(mode, n, Q, f.dtype, f.device)
-        route = f"{lanes}-lane strips" if lanes else "streaming kernel"
-        line = (f"  {key} {tag}: kernel {ms:.4f} ms ({route}), bound "
-                f"{bd['bound_ms']:.4f} ms ({bd['bound_by']}), {share(bd, ms)}")
-        if record:
-            plain_ms = median_ms(lambda: call(plain=True), reps=3, warm=1)
-            stats[key].update(ms=ms, plain_ms=plain_ms, **bd)
-            line += f"; plain {plain_ms:.4f} ms"
-        print(line, flush=True)
-
-
-# the strip kernels' variants: (lanes, stagger), and lanes 0 for the
-# streaming kernel (the design before the strips)
-VARIANTS = ((32, 0), (32, 1), (16, 0), (16, 1), (0, -1))
-
-
-def variant_name(lanes: int, stagger: int) -> str:
-    return f"{lanes} lanes, stagger {stagger}" if lanes else "streaming"
-
-
-def strip_variants(stats: dict, smi) -> None:
-    """What chose the strip kernels' lanes and stagger, and what they
-    replaced: at every size of STRIP_TIMED, K13, K16 and K17's modes on each
-    variant (VARIANTS, forced through tridiag_cuda._forced_strip), each
-    first held bit-equal to its plain version, then timed as the median of
-    10 calls, in turns (the list, then the list reversed). A variant
-    whose strip does not fit one worker a block (the rule the route uses)
-    is said so before any launch; every launch error raises. The streaming
-    kernels' JSON entries take their 512^3 f32 times."""
-    for shape, dtype in STRIP_TIMED:
-        g = torch.Generator(device=DEVICE).manual_seed(29)
-        f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
-        d = tuple(1.0 / n for n in shape)
-        n, tag = shape[0], f"{shape[0]}^3 {str(dtype).replace('torch.', '')}"
-        record = n == 512 and dtype == torch.float32
-        forced = lambda key, la, st: tridiag_cuda._forced_strip(
-            key.split(".")[1], n, dtype, f.device, la, st)
-        calls, ts = strip_calls(f, d), {}
-        for key, call in calls.items():
-            ref = call(plain=True)
-            for la, st in VARIANTS:
-                name = f"{key} {variant_name(la, st)}"
-                counter = key if la else f"{key}.long"
-                with forced(key, la, st) as fits:
-                    if not fits:
-                        print(f"  {tag} {name}: the strip does not fit one worker a block",
-                              flush=True)
-                        continue
-                    before = sc.LAUNCHES[counter]
-                    err = compare(f"{name} {tag}", call(), ref)
-                torch.cuda.synchronize()
-                if sc.LAUNCHES[counter] != before + 1:
-                    raise AssertionError(f"{name} {tag} did not launch {counter}")
-                if err != 0.0:
-                    raise AssertionError(f"{name} {tag}: field max|diff| {err:.3e}, "
-                                         "not bit-equal")
-                stats[counter]["max_abs_err"] = max(stats[counter]["max_abs_err"], err)
-                ts[name] = (key, la, st, [])
-            del ref
-        for order in (list(ts), list(ts)[::-1]):
-            for name in order:
-                key, la, st, v = ts[name]
-                with forced(key, la, st):
-                    v.append(median_ms(calls[key], reps=10, warm=2))
-        for name, (key, la, st, v) in ts.items():
-            ms = statistics.median(v)
-            print(f"  {tag} {name}: {ms:.4f} ms ({' / '.join(f'{t:.4f}' for t in v)}), "
-                  f"{share(strip_floor(key, f), ms)}", flush=True)
-            if record and la == 0:
-                stats[f"{key}.long"].update(ms=ms, plain_ms=stats[key]["plain_ms"],
-                                            library_ms=stats[key]["library_ms"],
-                                            **strip_floor(key, f))
-        print(f"  ({smi})", flush=True)
-        del f, calls
-        torch.cuda.empty_cache()
-
-
-def check_long(stats: dict) -> None:
+def check_long(stats: dict, reached: dict) -> None:
     """K13, K16 and K17 on lines too long for two strip workers a block
     (LONG_CASES): the route must take the streaming kernels (.long
     counters), each field bit-equal to its plain version."""
@@ -1164,18 +895,32 @@ def check_long(stats: dict) -> None:
         f = torch.rand(shape, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
         d = tuple(1.0 / n for n in shape)
         for key, call in strip_calls(f, d).items():
-            before = sc.LAUNCHES[f"{key}.long"]
+            mode = key.split(".")[1]
+            route = strip_route(mode, shape[0], f.numel() // shape[0], dtype)
+            before = collections.Counter(sc.LAUNCHES)
             err = compare(f"{key} {shape} {dtype}", call(), call(plain=True))
             torch.cuda.synchronize()
-            if sc.LAUNCHES[f"{key}.long"] != before + 1:
+            if route != (0, -1) or check_route(key, route, before) != f"{key}.long":
                 raise AssertionError(f"{key} at {shape} {dtype} did not take the streaming kernel")
             if err != 0.0:
                 raise AssertionError(f"{key}.long {shape} {dtype}: field max|diff| {err:.3e}, "
                                      "not bit-equal")
-            stats[f"{key}.long"]["max_abs_err"] = max(stats[f"{key}.long"]["max_abs_err"], err)
+            record(stats, f"{key}.long", err)
+            reached.setdefault(mode, set()).add(route)
         print(f"  K13, K16 and K17 at {shape} {dtype} (lines of {shape[0]}): the streaming "
               "kernels, bit-equal to the plain versions", flush=True)
         del f
+
+
+def check_strip_routes(reached: dict) -> None:
+    """Every K13, K16 and K17 mode took each of STRIP_ROUTES in phase 5."""
+    missing = {mode: [route_name(r) for r in STRIP_ROUTES if r not in reached.get(mode, ())]
+               for mode in (k.split(".")[1] for k in STRIP_KEYS)}
+    missing = {mode: m for mode, m in missing.items() if m}
+    if missing:
+        raise AssertionError(f"strip routes no case took: {missing}")
+    print(f"  every K13, K16 and K17 mode took each route: "
+          + ", ".join(route_name(r) for r in STRIP_ROUTES), flush=True)
 
 
 def rhs(solver, n, dtype):
@@ -1201,11 +946,8 @@ def solve_case(n, dtype, rtol, extra, expect_its):
     solver = PoissonSolver((n,) * 3, options=Options(argv), dtype=dtype,
                            device=DEVICE)
     b = rhs(solver, n, dtype)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     res = solver.solve(b)
     its = int(res.iterations)
-    t_solve = time.perf_counter() - t0
     rel = solver.residual_norm(res.x, b)
     if tuple(res.x.shape) != (n,) * 3 or not bool(torch.isfinite(res.x).all()):
         raise AssertionError(f"{n}^3: bad solution tensor")
@@ -1216,8 +958,7 @@ def solve_case(n, dtype, rtol, extra, expect_its):
                              f"relative residual {rel:.3e} (rtol {rtol:g})")
     M = solver._solver.M
     print(f"  {n}^3 {dtype} rtol {rtol:g} {' '.join(extra)}: {its} iterations, "
-          f"relative residual {rel:.3e}, monitored {float(res.residual_norm):.3e}, "
-          f"first solve {t_solve * 1e3:.2f} ms"
+          f"relative residual {rel:.3e}, monitored {float(res.residual_norm):.3e}"
           + (f", M: {M.resolved}" if M is not None else ""), flush=True)
     return solver, b, its
 
@@ -1240,7 +981,7 @@ def run_path(label, cases, required, totals, demo=False, runner=None, routes=())
         if not rel <= 1e-5 * true_tol(extra):
             raise AssertionError(f"demo {extra}: relative residual {rel:.3e}")
     torch.cuda.synchronize()
-    launches = dict(sc.LAUNCHES)
+    launches = collections.Counter(sc.LAUNCHES)
     idle = [k for k in required if launches[k] == 0]
     idle += [f"K15 {r} kernel" for r in routes if cp.ROUTE_LAUNCHES[r] == 0]
     if idle:
@@ -1250,8 +991,7 @@ def run_path(label, cases, required, totals, demo=False, runner=None, routes=())
     print(f"  launches: { {k: v for k, v in launches.items() if v} }"
           + (f"; K15 by kernel {dict(cp.ROUTE_LAUNCHES)}"
              if any(cp.ROUTE_LAUNCHES.values()) else ""), flush=True)
-    for k, v in launches.items():
-        totals[k] += v
+    totals.update(launches)
     return runs
 
 
@@ -1268,39 +1008,16 @@ def plain_solver(n, dtype, rtol, extra):
                            dtype=dtype, grid=grid)
 
 
-def warm_ms(fns: dict, reps: int = 3) -> dict:
-    """Median wall time (ms) of each solve, ending in a synchronise, with
-    the variants taken in turns."""
-    ts = {k: [] for k in fns}
-    for _ in range(reps):
-        for k, fn in fns.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            ts[k].append((time.perf_counter() - t0) * 1e3)
-    return {k: statistics.median(v) for k, v in ts.items()}
-
-
-def compare_paths(runs, cases, smi, roll_runs=None):
-    """Each solve against the plain path on the card (same iteration
-    count), then warm solve medians: kernels, kernels with roll transfers
-    (where given), plain."""
-    for i, ((solver, b, its), (n, dtype, rtol, extra, _)) in enumerate(zip(runs, cases)):
-        plain = plain_solver(n, dtype, rtol, extra)
-        p_its = int(plain(b).iterations)
+def compare_paths(runs, cases):
+    """Each solve against the plain path on the card: the same iteration
+    count."""
+    for (solver, b, its), (n, dtype, rtol, extra, _) in zip(runs, cases):
+        p_its = int(plain_solver(n, dtype, rtol, extra)(b).iterations)
         if p_its != its:
             raise AssertionError(f"plain {n}^3 {extra}: {p_its} iterations, "
                                  f"kernel path {its}")
-        fns = {"kernels": lambda: solver.solve(b)}
-        if roll_runs is not None:
-            rsolver, rb, _ = roll_runs[i]
-            fns["kernels, roll transfers"] = lambda: rsolver.solve(rb)
-        fns["plain"] = lambda: plain(b)
-        med = warm_ms(fns)
-        print(f"  {n}^3 {dtype} {' '.join(extra)}: {its} iterations both; warm "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-              + f" ({smi})", flush=True)
+        print(f"  {n}^3 {dtype} {' '.join(extra)}: {its} iterations, the plain path's "
+              "too", flush=True)
 
 
 def smooth_u(grid, dtype):
@@ -1332,11 +1049,8 @@ def solve6_case(n, dtype, rtol, argv):
     opts = Options(argv + ["-ksp_rtol", str(rtol), "-ksp_max_it", "200"])
     solver = PoissonSolver((n,) * 3, options=opts, dtype=dtype, device=DEVICE, order=6)
     b = solver.rhs_for(smooth_u(solver.grid, dtype))
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     res = solver.solve(b)
     its = int(res.iterations)
-    t_solve = time.perf_counter() - t0
     rel = solver.residual_norm(res.x, b)
     if tuple(res.x.shape) != (n,) * 3 or not bool(torch.isfinite(res.x).all()):
         raise AssertionError(f"order 6 {n}^3: bad solution tensor")
@@ -1345,7 +1059,7 @@ def solve6_case(n, dtype, rtol, argv):
                              f"iterations, {res.reason_enum().name}, relative "
                              f"residual {rel:.3e} (rtol {rtol:g})")
     print(f"  order 6 {n}^3 {dtype} rtol {rtol:g} {' '.join(argv)}: {its} iterations, "
-          f"relative residual {rel:.3e}, first solve {t_solve * 1e3:.2f} ms", flush=True)
+          f"relative residual {rel:.3e}", flush=True)
     return solver, b, its
 
 
@@ -1360,19 +1074,17 @@ def plain6(n, dtype, rtol, argv):
     return A, ksp.make_solver(A, SolverOptions.from_options(opts), dtype=dtype, grid=grid)
 
 
-def compare6(runs, cases, smi) -> None:
-    """Each order-6 solve against the plain path on the card (same
-    iteration count), then warm solve medians, in turns."""
+def compare6(runs, cases) -> None:
+    """Each order-6 solve against the plain path on the card: the same
+    iteration count."""
     for (solver, b, its), (n, dtype, rtol, argv) in zip(runs, cases):
         A, plain = plain6(n, dtype, rtol, argv)
         p_its = int(plain(b).iterations)
         if p_its != its:
             raise AssertionError(f"order 6 plain {n}^3 {dtype} {argv}: {p_its} "
                                  f"iterations, kernel path {its}")
-        med = warm_ms({"kernels": lambda: solver.solve(b), "plain": lambda: plain(b)})
-        print(f"  order 6 {n}^3 {dtype} {' '.join(argv)}: {its} iterations both; warm "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-              + f" ({smi})", flush=True)
+        print(f"  order 6 {n}^3 {dtype} {' '.join(argv)}: {its} iterations, the plain "
+              "path's too", flush=True)
 
 
 def solve6_thomas_case(n, dtype, rtol, argv):
@@ -1385,11 +1097,8 @@ def solve6_thomas_case(n, dtype, rtol, argv):
     opts = Options(argv + ["-ksp_rtol", str(rtol), "-ksp_max_it", "200"])
     solver = ksp.make_solver(A, SolverOptions.from_options(opts), dtype=dtype, grid=grid)
     b = make_compact_laplacian_operator(grid)(smooth_u(grid, dtype))
-    torch.cuda.synchronize()
-    before = dict(sc.LAUNCHES)
-    t0 = time.perf_counter()
+    before = collections.Counter(sc.LAUNCHES)
     res = solver(b)
-    t_solve = time.perf_counter() - t0
     its = int(res.iterations)
     k17 = {k: v - before[k] for k, v in sc.LAUNCHES.items()
            if k.startswith("tridiag.") and v != before[k]}
@@ -1399,14 +1108,13 @@ def solve6_thomas_case(n, dtype, rtol, argv):
         raise AssertionError(f"order 6 K17 {n}^3 {dtype}: {its} iterations, "
                              f"{res.reason_enum().name}, relative residual {rel:.3e}")
     print(f"  order 6 through K17 {n}^3 {dtype} rtol {rtol:g}: {its} iterations, relative "
-          f"residual {rel:.3e}, first solve {t_solve * 1e3:.2f} ms; K17 launches at this "
-          f"size {k17}", flush=True)
+          f"residual {rel:.3e}; K17 launches at this size {k17}", flush=True)
     return solver, b, its
 
 
-def compare6_thomas(runs, cases, smi) -> None:
+def compare6_thomas(runs, cases) -> None:
     """Path (l) against the K15 path (d), PoissonSolver(order=6), on the
-    same b: equal iterations, then warm walls in turns."""
+    same b: equal iterations."""
     for (solver, b, its), (n, dtype, rtol, argv) in zip(runs, cases):
         opts = Options(argv + ["-ksp_rtol", str(rtol), "-ksp_max_it", "200"])
         k15 = PoissonSolver((n,) * 3, options=opts, dtype=dtype, device=DEVICE, order=6)
@@ -1414,86 +1122,34 @@ def compare6_thomas(runs, cases, smi) -> None:
         if k15_its != its:
             raise AssertionError(f"order 6 {n}^3 {dtype}: K17 path {its} iterations, "
                                  f"K15 path {k15_its}")
-        med = warm_ms({"K17 (method=pallas)": lambda: solver(b),
-                       "K15 (auto)": lambda: k15.solve(b)})
-        print(f"  order 6 {n}^3 {dtype}: {its} iterations both; warm "
-              + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
-              flush=True)
+        print(f"  order 6 {n}^3 {dtype}: {its} iterations, the K15 path's too", flush=True)
 
 
-def lapl_pairs(smi, n: int = 512) -> None:
-    """The deciding measurement: K17's Laplacian (method="pallas", kernels
-    and transposes) against K15's (method="auto") at n^3 in f32 and f64,
-    seven pairs in turns, each call's time between CUDA events; the
-    kernel launches of one call beside it."""
+def lapl_k17(n: int = 512) -> None:
+    """K17's Laplacian (method="pallas", kernels and transposes) against
+    K15's (method="auto") at n^3 in f32 and f64, with the kernel launches
+    of each."""
     for dtype in (torch.float32, torch.float64):
         grid = Grid3D((n,) * 3, device=DEVICE)
         g = torch.Generator(device=DEVICE).manual_seed(11)
         f = torch.rand((n,) * 3, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
-        d = grid.deltas
-        fns = {"K17": lambda: compact.lapl(f, d, method="pallas"),
-               "K15": lambda: compact.lapl(f, d, method="auto")}
         outs, launches = {}, {}
-        for k, fn in fns.items():
-            before = dict(sc.LAUNCHES)
-            outs[k] = fn()
+        for k, method in (("K17", "pallas"), ("K15", "auto")):
+            before = collections.Counter(sc.LAUNCHES)
+            outs[k] = compact.lapl(f, grid.deltas, method=method)
             torch.cuda.synchronize()
             launches[k] = {c: v - before[c] for c, v in sc.LAUNCHES.items() if v != before[c]}
         rel = float((outs["K17"] - outs["K15"]).abs().max() / outs["K15"].abs().max())
         if not rel <= 10 * FIELD_TOL[dtype]:
             raise AssertionError(f"K17 lapl vs K15 lapl {n}^3 {dtype}: relative {rel:.3e}")
-        del outs
-        ts = {k: [] for k in fns}
-        for _ in range(7):
-            for k, fn in fns.items():
-                a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-                torch.cuda.synchronize()
-                a.record()
-                fn()
-                b.record()
-                torch.cuda.synchronize()
-                ts[k].append(a.elapsed_time(b))
-        wins = sum(x < y for x, y in zip(ts["K17"], ts["K15"]))
-        print(f"  compact lapl {n}^3 {str(dtype).replace('torch.', '')}, K17 vs K15 "
-              f"(relative diff {rel:.2e}): median [min, max] of 7 in turns "
-              + ", ".join(f"{k} {statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}] ms "
-                          f"({sum(launches[k].values())} counted launches: {launches[k]})"
-                          for k, v in ts.items())
-              + f"; K17 faster in {wins} of 7 ({smi})", flush=True)
-        del f
+        print(f"  compact lapl {n}^3 {str(dtype).replace('torch.', '')}, K17 against K15: "
+              f"relative diff {rel:.2e}; launches K17 {launches['K17']}, K15 "
+              f"{launches['K15']}", flush=True)
+        del f, outs
         torch.cuda.empty_cache()
 
 
-def sweep_pairs(smi) -> None:
-    """KB's one-launch general sweep against the same sweep as two K11
-    colour updates, at 256^3 f32 and 512^3 bf16: equal outputs, then seven
-    pairs in turns, each call's device time between CUDA events (the mean
-    of 10 back-to-back calls)."""
-    for n, dtype in ((256, torch.float32), (512, BF16)):
-        g = torch.Generator(device=DEVICE).manual_seed(n + 17)
-        u, b = ((torch.rand((n,) * 3, generator=g, device=DEVICE) * 2 - 0.75).to(dtype)
-                for _ in range(2))
-        d = Grid3D((n,) * 3, device=DEVICE).deltas
-        fns = {"one-pass sweep": lambda: sc.sor_rb_sweep_cuda(u, b, d, W),
-               "two K11 launches": lambda: sc.sor_sweep_cuda(
-                   sc.sor_sweep_cuda(u, b, d, W, 0), b, d, W, 1)}
-        if not torch.equal(fns["one-pass sweep"](), fns["two K11 launches"]()):
-            raise AssertionError(f"sweep {n}^3 {dtype}: one pass differs from two K11 launches")
-        ts = {k: [] for k in fns}
-        for _ in range(7):
-            for k, fn in fns.items():
-                ts[k].append(loop_ms(fn, reps=10))
-        wins = sum(x < y for x, y in zip(ts["one-pass sweep"], ts["two K11 launches"]))
-        print(f"  general sweep {n}^3 {str(dtype).replace('torch.', '')}, equal outputs; "
-              "median [min, max] of 7 in turns "
-              + ", ".join(f"{k} {statistics.median(v):.4f} [{min(v):.4f}, {max(v):.4f}] ms"
-                          for k, v in ts.items())
-              + f"; one pass faster in {wins} of 7 ({smi})", flush=True)
-        del u, b
-        torch.cuda.empty_cache()
-
-
-def log_view_demo(smi) -> None:
+def log_view_demo() -> None:
     """The demo with -log_view on the card, outside any counted path: the
     table's event lines must be there."""
     from poissbox_tpu_torch import demo as demo_mod
@@ -1507,10 +1163,10 @@ def log_view_demo(smi) -> None:
         raise AssertionError(f"demo -log_view: events {names}, relative residual {rel:.3e}")
     for ln in lines:
         print(f"  {ln}")
-    print(f"  demo -n 64 -log_view: relative residual {rel:.3e} ({smi})", flush=True)
+    print(f"  demo -n 64 -log_view: relative residual {rel:.3e}", flush=True)
 
 
-def utils_on_card(run, smi) -> None:
+def utils_on_card(run) -> None:
     """The utils on the card, outside any counted path: check_field on
     path (a)'s 64^3 f64 solution; then one NaN in its b: check_field
     refuses it, the solve with the NaN checks on raises FloatingPointError
@@ -1542,59 +1198,13 @@ def utils_on_card(run, smi) -> None:
                              f"{int(res.iterations)} iterations")
     print(f"  utils {n}^3 f64: check_field passed the solution and refused a NaN b; NaN "
           f"checks on: {msg!r}; off: {res.reason_enum().name} after "
-          f"{int(res.iterations)} iterations ({smi})", flush=True)
+          f"{int(res.iterations)} iterations", flush=True)
 
 
-# kernel name -> group of the device-time breakdown (first match wins)
-GROUPS = (("KB", ("sweep_kernel",)), ("K11", ("colour_kernel",)), ("K6", ("restrict_kernel",)),
-          ("K7", ("prolong_add_kernel",)), ("KA", ("stencil7_kernel",)),
-          ("K8", ("cgupd",)), ("K15", ("compact_reg_kernel", "compact_kernel")),
-          ("contractions", ("gemm", "cutlass", "xmma", "sm90")))
-
-
-def profile_solve(label, solver, b, smi) -> None:
-    """One warm solve under torch.profiler: device time by group (the
-    rest is torch's elementwise and reduction kernels), the kernel count,
-    the wall of the profiled solve and the busy share: device time over
-    the median wall of three unprofiled warm solves (the profiled wall
-    carries the profiler's own host cost)."""
-    solver.solve(b)
-    torch.cuda.synchronize()
-    walls = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        solver.solve(b)
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    warm = statistics.median(walls)
-    with profiling.trace() as prof:
-        t0 = time.perf_counter()
-        solver.solve(b)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    times = profiling.device_times(prof)
-    if not times:
-        print(f"  profile {label}: the profiler saw no device time", flush=True)
-        return
-    groups = {name: 0.0 for name, _ in GROUPS}
-    groups["elementwise and other"] = 0.0
-    for kname, (_, us) in times.items():
-        grp = next((name for name, keys in GROUPS if any(k in kname for k in keys)),
-                   "elementwise and other")
-        groups[grp] += us / 1e3
-    dev = sum(groups.values())
-    count = sum(c for c, _ in times.values())
-    print(f"  profile {label}: {count} kernels, {dev:.2f} ms device; unprofiled warm "
-          f"wall {warm:.2f} ms (busy {100 * dev / warm:.1f} %), profiled wall "
-          f"{wall:.2f} ms: "
-          + ", ".join(f"{k} {v:.2f}" for k, v in groups.items()) + f" ms ({smi})", flush=True)
-
-
-def fft_case(order: int, n: int, dtype, smi) -> None:
+def fft_case(order: int, n: int, dtype) -> None:
     """-ksp_type fft through PoissonSolver on the card: the relative
     residual, bounded by twice the plain path's on the same b (the plain
-    operator measures it: roll for order 2, pscan for order 6), the warm
-    solves in turns and the direct solve's own time."""
+    operator measures it: roll for order 2, pscan for order 6)."""
     solver = PoissonSolver((n,) * 3, options=Options(["-ksp_type", "fft"]),
                            dtype=dtype, device=DEVICE, order=order)
     grid = solver.grid
@@ -1603,11 +1213,9 @@ def fft_case(order: int, n: int, dtype, smi) -> None:
         u = torch.rand(grid.n, generator=g, dtype=dtype, device=DEVICE) * 2 - 1
         u = u - u.mean()
         A = make_laplacian_operator(grid, impl="roll")
-        direct = lambda v: fft.poisson_solve_fft(v, grid.deltas)
     else:
         u = smooth_u(grid, dtype)
         A = make_compact_laplacian_operator(grid, method="pscan")
-        direct = lambda v: fft.compact_poisson_solve_fft(v, grid.deltas)
     b = solver.rhs_for(u)
     res = solver.solve(b)
     rel = solver.residual_norm(res.x, b)
@@ -1619,40 +1227,20 @@ def fft_case(order: int, n: int, dtype, smi) -> None:
     if not ok:
         raise AssertionError(f"fft order {order} {n}^3: relative residual {rel:.3e}, "
                              f"plain path {rel_p:.3e}")
-    del xp
-    med = warm_ms({"kernels": lambda: solver.solve(b), "plain": lambda: plain(b)})
-    solve_ms = median_ms(lambda: direct(b))
     print(f"  fft order {order} {n}^3 {dtype}: relative residual {rel:.3e} (plain path "
-          f"{rel_p:.3e}); direct solve {solve_ms:.4f} ms; warm -ksp_type fft "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
-          flush=True)
+          f"{rel_p:.3e})", flush=True)
 
 
-def loop_ms(fn, reps: int = 200) -> float:
-    """Device time of one call from `reps` back-to-back calls between two
-    CUDA events: the kernel's time where it outlasts the host's enqueue of
-    a call (about 10 us through the wrapper), the host's where it does not."""
-    fn()
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / reps
-
-
-def tridiag_path(smi, n: int = 512, dtype=torch.float32):
+def tridiag_path(n: int = 512, dtype=torch.float32) -> None:
     """Path (f): the JAX package's bench_tridiag case on the card, through
     CudaTridiagFactor: the periodic (alpha, 1, alpha) system at n^3
     solved along axis 0, by PCR (what "auto" picks), by Thomas and by the
     twisted factorization (K16); each against its plain version and by its
-    own residual. Returns (factors by algorithm, d, tag) for tridiag_pairs."""
+    own residual."""
     g = torch.Generator(device=DEVICE).manual_seed(2)
     d = torch.rand((n,) * 3, generator=g, dtype=dtype, device=DEVICE)
     a, bb, c = tridiag_system(n, dtype)
     tag = f"{n}^3 {str(dtype).replace('torch.', '')}"
-    facs = {}
     for alg in ("auto", "thomas", "babe"):
         fac = CudaTridiagFactor(a, bb, c, periodic=True, algorithm=alg)
         x = fac.solve(d, 0)
@@ -1664,32 +1252,10 @@ def tridiag_path(smi, n: int = 512, dtype=torch.float32):
         if not rel <= (1e-5 if dtype == torch.float32 else 1e-12):
             raise AssertionError(f"tridiag {fac.algorithm}: residual {rel:.3e}")
         print(f"  tridiag {alg} -> {fac.algorithm} {tag}: max residual "
-              f"{rel:.2e} of max|d| ({smi})", flush=True)
-        facs[alg] = fac
-    return facs, d, tag
+              f"{rel:.2e} of max|d|", flush=True)
 
 
-def tridiag_pairs(runs, smi) -> None:
-    """K16 against K13, both on their strip kernels, on path (f)'s
-    systems, outside the path's counted run: the median of 25 calls
-    between CUDA events and back-to-back launches, in turns (K13, K16,
-    K16, K13)."""
-    show = lambda v: " / ".join(f"{t:.4f}" for t in v)
-    for facs, d, tag in runs:
-        d2 = d.reshape(d.shape[0], -1)
-        ev = {"thomas": [], "babe": []}
-        loop = {"thomas": [], "babe": []}
-        for alg in ("thomas", "babe", "babe", "thomas"):
-            fac = facs[alg]
-            ev[alg].append(median_ms(lambda: fac.solve(d, 0)))
-            loop[alg].append(loop_ms(lambda: fac._solve_lines(d2, False)))
-        print(f"  K16 vs K13 {tag} (strip kernels), in turns: median of 25 calls thomas "
-              f"{show(ev['thomas'])} ms, babe {show(ev['babe'])} ms; back-to-back "
-              f"launches thomas {show(loop['thomas'])} ms, babe {show(loop['babe'])} "
-              f"ms ({smi})", flush=True)
-
-
-def gmres_none_case(smi, n: int = 64, its: int = 60) -> None:
+def gmres_none_case(n: int = 64, its: int = 60) -> None:
     """Path (g), -pc_type none: GMRES(30) at 64^3 f64 for a fixed 60
     iterations (rtol 1e-14 is out of reach). The kernel operator hands
     <V_j, A V_j> from K2 to the Gram-Schmidt step (use_fused); the plain
@@ -1709,15 +1275,12 @@ def gmres_none_case(smi, n: int = 64, its: int = 60) -> None:
     if int(res.iterations) != its or int(ref.iterations) != its or not worst <= 1e-10:
         raise AssertionError(f"gmres none: {int(res.iterations)}/{int(ref.iterations)} "
                              f"iterations, history relative diff {worst:.3e}")
-    med = warm_ms({"kernels": lambda: solver.solve(b), "plain": lambda: plain(b)})
     print(f"  gmres -pc_type none {n}^3 f64, {its} iterations both: monitored "
           f"{float(res.residual_norm):.3e} (x{float(res.residual_norm / h[0]):.3e}), "
-          f"history max relative diff {worst:.3e}; warm "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
-          flush=True)
+          f"history max relative diff {worst:.3e}", flush=True)
 
 
-def gmres_bf16_case(smi, n: int = 512) -> None:
+def gmres_bf16_case(n: int = 512) -> None:
     """Why GMRES keeps a float32 pre-smooth at 512^3 f32 (solvers/ksp.py):
     the same solve with the JAX package's bf16 pre-smooth asked for. GMRES
     stops on its estimate of ||M r||, which a nonlinear M breaks; printed,
@@ -1731,8 +1294,7 @@ def gmres_bf16_case(smi, n: int = 512) -> None:
     print(f"  gmres + MG with a bf16 pre-smooth, {n}^3 f32 rtol 1e-6: "
           f"{int(res.iterations)} iterations, {res.reason_enum().name} by its "
           f"estimate ({float(res.residual_norm / res.history[0]):.3e} of the "
-          f"first), true relative residual {s.residual_norm(res.x, b):.3e} ({smi})",
-          flush=True)
+          f"first), true relative residual {s.residual_norm(res.x, b):.3e}", flush=True)
     del s, b, res
     torch.cuda.empty_cache()
 
@@ -1772,10 +1334,9 @@ def deferred_case(n, dtype, rtol, extra, expect_its):
     return solver, b, its, res.x
 
 
-def compare_deferred(runs, cases, smi) -> None:
+def compare_deferred(runs, cases) -> None:
     """Path (i) against the eager kernel path (PoissonSolver) and the plain
-    path on the card: equal iterations; then the deciding measurement,
-    warm deferred against eager, five each in turns."""
+    path on the card: equal iterations."""
     for (dsolver, b, its, x), (n, dtype, rtol, extra, _) in zip(runs, cases):
         argv = ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", str(rtol),
                 "-ksp_max_it", "50", *extra]
@@ -1786,26 +1347,17 @@ def compare_deferred(runs, cases, smi) -> None:
             raise AssertionError(f"deferred {n}^3 {extra}: {its} iterations, eager "
                                  f"{int(e.iterations)}, plain {p_its}")
         dx = float((e.x - x).abs().max())
-        ts = {"deferred (K12)": [], "eager": []}
-        for _ in range(7):      # pairs, in turns
-            ts["deferred (K12)"].append(_wall(lambda: dsolver(b)) * 1e3)
-            ts["eager"].append(_wall(lambda: eager.solve(b)) * 1e3)
-        wins = sum(d < e_ for d, e_ in zip(ts["deferred (K12)"], ts["eager"]))
         print(f"  {n}^3 {dtype} {' '.join(extra)}: {its} iterations deferred, eager and "
-              f"plain; max|x_deferred - x_eager| {dx:.3e}; warm (median [min, max] of 7) "
-              + ", ".join(f"{k} {statistics.median(v):.2f} [{min(v):.2f}, {max(v):.2f}] ms"
-                          for k, v in ts.items())
-              + f"; deferred faster in {wins} of 7 pairs ({smi})", flush=True)
+              f"plain; max|x_deferred - x_eager| {dx:.3e}", flush=True)
         del e, eager
         torch.cuda.empty_cache()
 
 
-def refine_case(n, smi, against_plain: bool):
+def refine_case(n, against_plain: bool):
     """Path (j): solve_refined to 1e-12 on b = A u in float64 (u from numpy
-    seed 1). At 512^3 beside float64 MG-CG to the same rtol (warm walls,
-    the MG setup timed apart); with `against_plain` the plain path's
-    refinement (roll operator, roll MG) takes the same outer and inner
-    counts."""
+    seed 1). At 512^3 beside float64 MG-CG to the same rtol; with
+    `against_plain` the plain path's refinement (roll operator, roll MG)
+    takes the same outer and inner counts."""
     f64 = torch.float64
     s = PoissonSolver((n,) * 3, dtype=f64, device=DEVICE)
     b = rhs(s, n, f64)
@@ -1836,10 +1388,6 @@ def refine_case(n, smi, against_plain: bool):
               f"{ref.inner_iterations} inner, relative residual "
               f"{float(ref.residual_norm) / bnorm:.3e}", flush=True)
         return
-    setup = statistics.median(
-        _wall(lambda: mg.make_mg_preconditioner(s.grid.n, s.grid.deltas, mg.MGConfig(),
-                                                dtype=torch.float32, device=DEVICE))
-        for _ in range(3))
     s64 = PoissonSolver((n,) * 3, options=Options(
         ["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-12", "-ksp_max_it", "100"]),
         dtype=f64, device=DEVICE)
@@ -1847,32 +1395,20 @@ def refine_case(n, smi, against_plain: bool):
     rel64 = s64.residual_norm(r64.x, b)
     if not (r64.reason_enum() > 0 and rel64 <= 1e-12 * 1.01):
         raise AssertionError(f"f64 MG-CG {n}^3: {r64.reason_enum().name}, {rel64:.3e}")
-    med = warm_ms({"solve_refined": lambda: s.solve_refined(b, rtol=1e-12, max_outer=4),
-                   "f64 MG-CG": lambda: s64.solve(b)})
     print(f"  f64 MG-CG {n}^3 rtol 1e-12: {int(r64.iterations)} iterations, relative "
-          f"residual {rel64:.3e}; warm "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items())
-          + f"; MG setup per solve_refined call {setup * 1e3:.2f} ms ({smi})", flush=True)
-
-
-def _wall(fn) -> float:
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0
+          f"residual {rel64:.3e}", flush=True)
 
 
 class Killed(Exception):
     """Raised by the chunk hook to stand for a preempted run."""
 
 
-def checkpoint_case(n, smi, every: int = 2) -> None:
+def checkpoint_case(n, every: int = 2) -> None:
     """Path (k): solve_checkpointed at n^3 f32 (rtol 1e-6) in a temporary
     directory. A run killed after chunk 0 and resumed must give the
     uninterrupted run's total iterations and x exactly; a b changed in one
     element by one ulp must start fresh (the exact guard); the plain path
-    takes the same total. Prints the wall against the plain solve."""
+    takes the same total."""
     f32 = torch.float32
     s = PoissonSolver((n,) * 3, dtype=f32, device=DEVICE)
     b = rhs(s, n, f32)
@@ -1919,18 +1455,10 @@ def checkpoint_case(n, smi, every: int = 2) -> None:
             raise AssertionError(f"checkpointed plain path: {total_p} iterations, "
                                  f"kernel path {total}")
         size = os.path.getsize(os.path.join(tmp, "full.npz"))
-        walls = {"solve_checkpointed": [], "solve": []}
-        for i in range(3):
-            walls["solve_checkpointed"].append(_wall(lambda: s.solve_checkpointed(
-                b, os.path.join(tmp, f"timed{i}"), **kw)))
-            walls["solve"].append(_wall(lambda: s.solve(b)))
-        med = {k: statistics.median(v) * 1e3 for k, v in walls.items()}
     print(f"  solve_checkpointed {n}^3 f32 every {every}: {total} iterations in "
           f"{-(-total // every)} chunks, killed after chunk 0 and resumed: same total, "
           f"max|dx| {diff:.1f}; a b one ulp away started fresh ({total_f} iterations); "
-          f"plain path {total_p}; npz {size / 1e6:.1f} MB; warm "
-          + ", ".join(f"{k} {v:.2f} ms" for k, v in med.items()) + f" ({smi})",
-          flush=True)
+          f"plain path {total_p}; npz {size / 1e6:.1f} MB", flush=True)
 
 # ---------------------------------------------------------------------------
 # phase 7: distributed MG-CG, one process a rank
@@ -2062,18 +1590,18 @@ DIST_K15: dict = {}
 def check_dist_blocks(stats: dict) -> None:
     """K1, K2, K8, K9, K10 and K11 at the local block shapes of the
     distributed phase against their plain versions (K11 bit for bit; its
-    bf16 form and its times: check_colour_update)."""
+    bf16 form: check_colour_update)."""
     for shape, n, dtype in DIST_BLOCKS:
         d = (1.0 / n,) * 3
         f = fields(shape, dtype, seed=sum(shape) + 3)
-        for name, ins, ops, kern, plain in mode_calls(d, False):
+        for name, kern, plain in mode_calls(d, False):
             key = name.split("/")[0]
             if key in DIST_MODES:
                 err = compare(f"{name} block {shape} {dtype}", kern(f), plain(f))
                 if key.startswith(BIT_EQUAL) and err != 0.0:
                     raise AssertionError(f"{name} block {shape} {dtype}: field max|diff| "
                                          f"{err:.3e}, not bit-equal")
-                stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+                record(stats, key, err)
         del f
         print(f"  the distributed path's kernels agree on the block {shape} {dtype}",
               flush=True)
@@ -2083,21 +1611,17 @@ def check_dist_blocks(stats: dict) -> None:
 # K11's shapes: the distributed blocks (DIST_BLOCKS, down to the coarse
 # (4, 4, 8)), odd and ragged tiles, odd x and z extents, 256^3 and 512^3;
 # each in f32, f64 (below 256^3) and bf16, both colours, cubic cells and not
-K11_KEYS = ("rbsor.general", "rbsor.general.bf16")
 K11_SHAPES = [shape for shape, _, _ in DIST_BLOCKS] + [
     (6, 5, 7), (9, 6, 5), (40, 36, 52), (64, 32, 48), (256,) * 3, (512,) * 3]
-# (shape, dtype) where K11 is timed: bf16 at the (2, 2, 1) block of 512^3
-# (the distributed fine level, the counter's row) and at 512^3; f32 at
-# 256^3 (the counter's row) and at the fine block
-K11_TIMED = [((256, 256, 512), BF16), ((512,) * 3, BF16), ((256,) * 3, torch.float32),
-             ((256, 256, 512), torch.float32)]
+# where KB's one-launch general sweep is held equal to two K11 launches
+SWEEP_CASES = (((256,) * 3, torch.float32), ((512,) * 3, BF16))
 
 
 def check_colour_update(stats: dict) -> None:
     """K11 against its plain version bit for bit at every shape of
     K11_SHAPES, in f32, f64 and bf16, both colours, with cubic cells and
-    with three spacings that differ; then kernel, plain and bound times at
-    K11_TIMED, with the share of the bound."""
+    with three spacings that differ; at SWEEP_CASES KB's one-launch
+    general sweep equal to the two K11 launches of its colours."""
     for shape in K11_SHAPES:
         big = math.prod(shape) >= 256 ** 3
         for dtype in (torch.float32, torch.float64, BF16):
@@ -2118,18 +1642,16 @@ def check_colour_update(stats: dict) -> None:
                     if err != 0.0:
                         raise AssertionError(f"K11 {shape} {dtype} colour {colour}: field "
                                              f"max|diff| {err:.3e}, not bit-equal")
-                    stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+                    record(stats, key, err)
                     del got
-            if (shape, dtype) in K11_TIMED:
-                kern = lambda: sc.sor_sweep_cuda(u, b, iso, W, 0)
-                plain = lambda: sc.sor_sweep_plain(u, b, iso, W, 0)
-                ms, plain_ms = median_ms(kern), median_ms(plain)
-                bd = bound(3 * u.nbytes, 7 * u.numel())
-                print(f"  K11 {key} {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                      f"bound {bd['bound_ms']:.4f} ms ({bd['bound_by']}), {share(bd, ms)}",
+            if (shape, dtype) in SWEEP_CASES:
+                two = sc.sor_sweep_cuda(sc.sor_sweep_cuda(u, b, iso, W, 0), b, iso, W, 1)
+                if not torch.equal(sc.sor_rb_sweep_cuda(u, b, iso, W), two):
+                    raise AssertionError(f"sweep {shape} {dtype}: one launch differs from "
+                                         "two K11 launches")
+                print(f"  general sweep {shape} {dtype}: one launch equal to two K11 launches",
                       flush=True)
-                if (shape, dtype) in K11_TIMED[:1] + K11_TIMED[2:3]:
-                    stats[key].update(ms=ms, plain_ms=plain_ms, **bd)
+                del two
             del u, b
         torch.cuda.empty_cache()
         print(f"  K11 bit-equal to its plain version at {shape} (f32"
@@ -2161,7 +1683,7 @@ def check_pencil_blocks(stats: dict) -> None:
             if err != 0.0:
                 raise AssertionError(f"{key} pencil block {shape}: max|diff| {err:.3e}, "
                                      "not bit-equal")
-            stats[key]["max_abs_err"] = max(stats[key]["max_abs_err"], err)
+            record(stats, key, err)
             print(f"  {key} on the pencil block {shape} ({cp.route(shape[axis])} kernel) of "
                   f"{n} on {pgrid} {dtype}: bit-equal to the plain sweep", flush=True)
             del ins
@@ -2207,7 +1729,7 @@ def log_view_events(lines) -> list:
 def _dist_reference(case, tmp: str, idx: int, shared: dict) -> dict:
     """The one-rank run of `case` on the card (the parent's): u, b = A u
     (K1) and x saved for the ranks (u and b once a size and dtype), its
-    iterations and warm wall; for "logview" the one-rank table's events."""
+    iterations and residual; for "logview" the one-rank table's events."""
     n, dtype_name, rtol, extra, _, _, kind = case
     dtype = getattr(torch, dtype_name)
     solver = PoissonSolver((n,) * 3, options=Options(dist_argv(case)), dtype=dtype,
@@ -2228,9 +1750,6 @@ def _dist_reference(case, tmp: str, idx: int, shared: dict) -> dict:
         res, its = dist_kind_run(kind, solver, b, rtol, os.path.join(ck, "one"))
         np.save(files["x"], res.x.cpu().numpy())
         out = {"its": its, "files": files, "rel": solver.residual_norm(res.x, b)}
-        fresh = itertools.count()
-        out["wall_ms"] = warm_ms({"one rank": lambda: dist_kind_run(
-            kind, solver, b, rtol, os.path.join(ck, f"warm{next(fresh)}"))})["one rank"]
     if kind == "logview":
         lines, _ = log_view_table(solver.A, b, dist_argv(case), solver.grid)
         out["events"] = log_view_events(lines)
@@ -2272,8 +1791,6 @@ def dist_worker(spec_path: str, rank: int) -> int:
         dist.barrier()
         sc.reset_launches()
         halo.reset_counts()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         b = solver.rhs_for(u)
         lines = []
         if kind == "logview":
@@ -2283,13 +1800,13 @@ def dist_worker(spec_path: str, rank: int) -> int:
             res, its = dist_kind_run(kind, solver, b, rtol, os.path.join(ck, "full"))
         rel = solver.residual_norm(res.x, b)
         torch.cuda.synchronize()
-        first_ms = (time.perf_counter() - t0) * 1e3
         counts = dict(sc.LAUNCHES)
         hcounts = dict(halo.COUNTS)
         by_rank = [None] * g.mesh.size
         dist.all_gather_object(by_rank, {k: v for k, v in counts.items() if v})
-        keys = sorted(k for k in counts)
-        vec = torch.tensor([counts[k] for k in keys], dtype=torch.float64,
+        # every rank reduces the same keys, whichever it launched
+        keys = sorted(KERNELS)
+        vec = torch.tensor([counts.get(k, 0) for k in keys], dtype=torch.float64,
                            device=g.device)
         csum = halo.allreduce_sum(vec, g.mesh)
         cmin = -halo.allreduce_max(-vec, g.mesh)
@@ -2314,18 +1831,6 @@ def dist_worker(spec_path: str, rank: int) -> int:
         if solver._solver.M is not None and kind == "solve":
             solver._solver.M(b)
         v_bytes = halo.COUNTS["bytes"]
-        walls = []
-        # three warm runs over NCCL; one where the ranks share a card
-        for rep in range(3 if halo.transport(b) == "nccl" else 1):
-            dist.barrier()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            dist_kind_run("solve" if kind == "logview" else kind, solver, b, rtol,
-                          os.path.join(ck, f"warm{rep}"))
-            torch.cuda.synchronize()
-            walls.append(halo.allreduce_max(torch.tensor(
-                [(time.perf_counter() - t0) * 1e3], dtype=torch.float64,
-                device=g.device), g.mesh))
         results.append({
             # solve_refined has no reason: its residual check stands for it
             "its": its, "rel": rel, "reason": 1 if kind == "refine" else int(res.reason),
@@ -2342,10 +1847,7 @@ def dist_worker(spec_path: str, rank: int) -> int:
             "halo_rank0": hcounts,
             "halo_sum": {k: int(v) for k, v in zip(sorted(hcounts), hsum.tolist())},
             "mv_bytes": mv_bytes, "v_bytes": v_bytes,
-            "lines": lines, "printed_by_rank": printed,
-            "first_ms": first_ms,
-            "warm_ms": statistics.median(float(w) for w in walls),
-            "warm_reps": len(walls), **extra_out})
+            "lines": lines, "printed_by_rank": printed, **extra_out})
         del solver, u, b1, x1, res
         torch.cuda.empty_cache()
         key = census_key(case)
@@ -2411,14 +1913,14 @@ def census_iteration(shape, dtype, argv, b, g, dist, length=(1.0, 1.0, 1.0)) -> 
     diff = ([str(c) for c in (got - want).elements()][:6],
             [str(c) for c in (want - got).elements()][:6])
     if any(nd % p for nd, p in zip(shape, pgrid)):
-        bound = esize * math.prod(pgrid) * math.prod(-(-nd // p) for nd, p in zip(shape, pgrid))
+        limit = esize * math.prod(pgrid) * math.prod(-(-nd // p) for nd, p in zip(shape, pgrid))
     else:
         field = next((sh for sh, d in model.levels if not d), model.levels[-1][0])
-        bound = esize * math.prod(field)
+        limit = esize * math.prod(field)
     msgs = collections.Counter(census.exchange_messages(windows[1]))
     msgs.subtract(census.exchange_messages(windows[0]))
     verdict = {"equal": got == want, "diff": diff,
-               "max_gather": census.max_gather_bytes(windows[1]), "gather_bound": bound}
+               "max_gather": census.max_gather_bytes(windows[1]), "gather_limit": limit}
     by_rank = [None] * g.mesh.size
     dist.all_gather_object(by_rank, verdict)
     return {"by_rank": by_rank, "config": dataclasses.asdict(cfg),
@@ -2435,10 +1937,10 @@ def census_iteration(shape, dtype, argv, b, g, dist, length=(1.0, 1.0, 1.0)) -> 
 
 def weak_case(pgrid, halo, dist) -> dict:
     """The weak-scaling rung: WEAK_SHAPE f32 on `pgrid` (a 512^3 block a
-    rank, the box WEAK_LENGTH), MG-CG to rtol 1e-6 with the default cycle, b = A u for u
-    uniform (-1, 1) drawn on each rank's card (seed WEAK_SEED + rank): the
-    first solve's iterations and true residual, three warm solves (the
-    slowest rank's median), and one iteration's census."""
+    rank, the box WEAK_LENGTH), MG-CG to rtol 1e-6 with the default cycle,
+    b = A u for u uniform (-1, 1) drawn on each rank's card (seed
+    WEAK_SEED + rank): the solve's iterations and true residual, and one
+    iteration's census."""
     dtype = torch.float32
     solver = PoissonSolver(WEAK_SHAPE, WEAK_LENGTH, options=Options(WEAK_ARGV), dtype=dtype,
                            device=DEVICE, shard=pgrid)
@@ -2449,30 +1951,15 @@ def weak_case(pgrid, halo, dist) -> dict:
     b = solver.rhs_for(u)
     del u
     dist.barrier()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     res = solver.solve(b)
-    torch.cuda.synchronize()
-    first_ms = (time.perf_counter() - t0) * 1e3
     its, reason = int(res.iterations), int(res.reason)
     rel = solver.residual_norm(res.x, b)
     finite = bool(torch.isfinite(res.x).all())
     del res
-    walls = []
-    for _ in range(3):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver.solve(b)
-        torch.cuda.synchronize()
-        walls.append(float(halo.allreduce_max(torch.tensor(
-            [(time.perf_counter() - t0) * 1e3], dtype=torch.float64, device=g.device),
-            g.mesh)))
     cen = census_iteration(WEAK_SHAPE, dtype, WEAK_ARGV, b, g, dist, WEAK_LENGTH)
     del solver, b
     torch.cuda.empty_cache()
     return {"its": its, "reason": reason, "rel": rel, "finite": finite,
-            "first_ms": first_ms, "walls": walls, "warm_ms": statistics.median(walls),
             "local_shape": list(g.local_shape), "census": cen}
 
 
@@ -2536,16 +2023,13 @@ def pencil_solver(case, shard=False):
 
 
 def _pencil_reference(case) -> dict:
-    """The one-rank solve of a path (n) case on the card: iterations,
-    relative residual and warm wall."""
+    """The one-rank solve of a path (n) case on the card: iterations and
+    relative residual."""
     solver = pencil_solver(case)
     u = pencil_u(case, solver.grid, solver)
     b = solver.rhs_for(u)
     res = solver.solve(b)
-    out = {"its": int(res.iterations), "rel": solver.residual_norm(res.x, b),
-           "wall_ms": warm_ms({"one rank": lambda: solver.solve(b)})["one rank"],
-           **warm_ms({"lapl_ms": lambda: solver.A(u),
-                      "fft_ms": lambda: solver.A.direct_solve(u)}, reps=5)}
+    out = {"its": int(res.iterations), "rel": solver.residual_norm(res.x, b)}
     del solver, u, b, res
     torch.cuda.empty_cache()
     return out
@@ -2556,7 +2040,7 @@ def pencil_worker_case(case, halo, dist) -> dict:
     gathered against the one-rank K15 Laplacian of the same u (order 6),
     the pencil counters of one operator application and one direct solve
     alone, then the counted run (counters set to 0 before rhs_for + solve
-    + residual_norm, read after) and the warm walls."""
+    + residual_norm, read after)."""
     label, pgrid, n, dtype_name, order, argv, rtol, _ = case
     solver = pencil_solver(case, shard=True)
     g, A = solver.grid, solver.A
@@ -2578,58 +2062,26 @@ def pencil_worker_case(case, halo, dist) -> dict:
     A.direct_solve(u)
     out["fft_counts"] = counted()
     out["route"] = fft.fft_route(g.n, g.pgrid)
-    reps = 5 if halo.transport(u) == "nccl" else 1
-    out["lapl_ms"] = slowest_ms(lambda: A(u), g, halo, dist, reps)
-    out["fft_ms"] = slowest_ms(lambda: A.direct_solve(u), g, halo, dist, reps)
     out["pencil_ok"] = pencil_ok(g.n, g.pgrid)
     dist.barrier()
     sc.reset_launches()
     halo.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     b = solver.rhs_for(u)
     res = solver.solve(b)
     rel = solver.residual_norm(res.x, b)
     torch.cuda.synchronize()
-    out["first_ms"] = (time.perf_counter() - t0) * 1e3
     mine = {k: v for k, v in sc.LAUNCHES.items() if v}
     every = [None] * g.mesh.size
     dist.all_gather_object(every, mine)
     out["launches_by_rank"] = every
     out["halo_rank0"] = dict(halo.COUNTS)
-    walls = []
-    for _ in range(3 if halo.transport(b) == "nccl" else 1):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        solver.solve(b)
-        torch.cuda.synchronize()
-        walls.append(halo.allreduce_max(torch.tensor(
-            [(time.perf_counter() - t0) * 1e3], dtype=torch.float64,
-            device=g.device), g.mesh))
     out.update({
         "its": int(res.iterations), "rel": rel, "reason": int(res.reason),
         "shape": list(res.x.shape), "local_shape": list(g.local_shape),
-        "finite": bool(torch.isfinite(res.x).all()), "transport": halo.transport(b),
-        "warm_ms": statistics.median(float(w) for w in walls), "warm_reps": len(walls)})
+        "finite": bool(torch.isfinite(res.x).all()), "transport": halo.transport(b)})
     del solver, u, b, res
     torch.cuda.empty_cache()
     return out
-
-
-def slowest_ms(fn, g, halo, dist, reps: int) -> float:
-    """The slowest rank's median wall (ms) of `fn` over `reps` warm calls,
-    each started together (a barrier) and ended by a synchronise."""
-    walls = []
-    for _ in range(reps):
-        dist.barrier()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    return float(halo.allreduce_max(torch.tensor([statistics.median(walls)],
-                                                 dtype=torch.float64, device=g.device), g.mesh))
 
 
 def pencil_window(case, its: int, esize: int) -> tuple[int, int]:
@@ -2650,7 +2102,7 @@ def pencil_window(case, its: int, esize: int) -> tuple[int, int]:
     return (nl * lapl[0] + nf * solve[0], nl * lapl[1] + nf * solve[1])
 
 
-def _check_pencil_case(case, ref, r, backend, smi, totals) -> None:
+def _check_pencil_case(case, ref, r, backend, totals) -> None:
     label, pgrid, n, dtype_name, order, argv, rtol, expect = case
     esize = 4 if dtype_name == "float32" else 8
     eps = float(torch.finfo(getattr(torch, dtype_name)).eps)
@@ -2701,16 +2153,6 @@ def _check_pencil_case(case, ref, r, backend, smi, totals) -> None:
           f"{fft_model}); rhs_for + solve + residual_norm: {got_w} (model {window}); "
           f"rank 0 counters {r['halo_rank0']}", flush=True)
     print(f"  K15 launches by rank: {k15}", flush=True)
-    print(f"  warm, the slowest rank (median of {5 if r['transport'] == 'nccl' else 1}): "
-          + (f"a Laplacian {r['lapl_ms']:.2f} ms (one rank {ref['lapl_ms']:.2f}), "
-             if order == 6 else "")
-          + f"a direct solve {r['fft_ms']:.2f} ms (one rank {ref['fft_ms']:.2f}; median of "
-          "5 on one rank, host clock around a synchronise)", flush=True)
-    print(f"  walls: rhs_for + first solve + residual_norm {r['first_ms']:.1f} ms, warm "
-          f"solve {r['warm_ms']:.2f} ms (the slowest rank, median of {r['warm_reps']}); "
-          f"one-rank warm solve {ref['wall_ms']:.2f} ms ({smi})"
-          + ("; ranks share one card, staged through the host: no speed figure"
-             if r["transport"] == "gloo-staged" else ""), flush=True)
     if order == 6:
         DIST_K15[f"{label} over {backend}"] = k15
     for lc in r["launches_by_rank"]:
@@ -2778,9 +2220,8 @@ def dist_phase(smi: str, totals: dict, backends) -> None:
     cards skipped): path (m)'s cases, each against the one-rank solve of
     the parent, then in the same group path (n)'s (PENCIL_CASES)."""
     if "nccl" not in backends or torch.cuda.device_count() < math.prod(WEAK_PGRID):
-        print(f"-- path (n) over nccl (the 512^3 cases), and the strong- and weak-scaling "
-              f"predictions against measurement (four cards over NCCL): skipped, "
-              f"{torch.cuda.device_count()} card(s)", flush=True)
+        print(f"-- path (n) over nccl (the 512^3 cases), and the weak-scaling rung (four "
+              f"cards over NCCL): skipped, {torch.cuda.device_count()} card(s)", flush=True)
     with tempfile.TemporaryDirectory() as tmp:
         for label, pgrid, cases in DIST_GROUPS:
             world = int(np.prod(pgrid))
@@ -2798,27 +2239,24 @@ def dist_phase(smi: str, totals: dict, backends) -> None:
                 print(f"-- path (m) distributed Krylov solves {label}, {world} ranks over "
                       f"{backend}" + (f"; then path (n), {len(cases_n)} cases of order 6 "
                                       "and the FFT" if cases_n else ""), flush=True)
-                t0 = time.perf_counter()
                 # the weak-scaling rung rides the (2,2,1) group over NCCL
                 weak = backend == "nccl" and pgrid == WEAK_PGRID
                 results = _spawn_group(label, pgrid, cases, refs, cases_n, backend, tmp,
                                        weak)
-                print(f"  group wall {time.perf_counter() - t0:.1f} s (spawn, imports "
-                      "and all cases)", flush=True)
                 cards = smi.replace("\n", "; ")     # one line a card
-                for idx, (case, ref, r) in enumerate(zip(cases, refs, results["m"])):
-                    _check_dist_case(label, pgrid, case, ref, r, backend, cards, totals)
+                for case, ref, r in zip(cases, refs, results["m"]):
+                    _check_dist_case(label, pgrid, case, ref, r, backend, totals)
                     check_census(label, pgrid, case, r, cases[r["census_of"]], cards)
                 if weak:
-                    scaling_report(pgrid, cases, refs, results, cards)
+                    check_weak(pgrid, results["weak"], cards)
                 if cases_n:
                     print(f"-- path (n) order 6 and the FFT across ranks over {backend}",
                           flush=True)
                 for case, ref, r in zip(cases_n, refs_n, results["n"]):
-                    _check_pencil_case(case, ref, r, backend, cards, totals)
+                    _check_pencil_case(case, ref, r, backend, totals)
 
 
-def _check_dist_case(label, pgrid, case, ref, r, backend, smi, totals) -> None:
+def _check_dist_case(label, pgrid, case, ref, r, backend, totals) -> None:
     n, dtype_name, rtol, extra, expect_its, required, kind = case
     argv = dist_argv(case)
     method = SolverOptions.from_options(Options(argv)).ksp_type if kind == "solve" else kind
@@ -2911,13 +2349,6 @@ def _check_dist_case(label, pgrid, case, ref, r, backend, smi, totals) -> None:
               f"against the uninterrupted run; a b one ulp away on rank 1: every rank "
               f"fresh (first norm {r['foreign_r0']:.9f} of ||b||, {r['foreign_total']} "
               f"iterations, a fresh run {r['fresh_total']})", flush=True)
-    run = {"solve": "solve", "refine": "solve_refined", "ckpt": "solve_checkpointed",
-           "logview": "solve"}[kind]
-    print(f"  walls: rhs_for + first {run} + residual_norm {r['first_ms']:.1f} ms, warm "
-          f"{run} {r['warm_ms']:.2f} ms (the slowest rank, median of {r['warm_reps']}); "
-          f"one-rank warm {run} {ref['wall_ms']:.2f} ms ({smi})"
-          + ("; ranks share one card and stage every face through the host: no "
-             "speed figure" if r["route"] == "gloo-staged" else ""), flush=True)
     DIST_M[f"{pgrid} {n}^3 {dtype_name} {what} over {backend}"] = {
         k: [lc.get(k, 0) for lc in r["launches_by_rank"]] for k in r["launches_sum"]}
     for k, v in r["launches_sum"].items():
@@ -2936,7 +2367,7 @@ def check_census(label, pgrid, case, r, held_by, smi) -> None:
         return
     c = r["census"]
     bad = [rk for rk, v in enumerate(c["by_rank"]) if not v["equal"]]
-    over = [rk for rk, v in enumerate(c["by_rank"]) if v["max_gather"] > v["gather_bound"]]
+    over = [rk for rk, v in enumerate(c["by_rank"]) if v["max_gather"] > v["gather_limit"]]
     if bad or over:
         raise AssertionError(
             f"distributed {label} {kind} {' '.join(extra)}: one iteration's census differs "
@@ -2950,7 +2381,7 @@ def check_census(label, pgrid, case, r, held_by, smi) -> None:
           f"rank 0 {m['exchange_count']} exchanges, {m['permute_count']} face messages, "
           f"{m['permute_bytes']} B, {m['allreduce_count']} all-reduces, gathers "
           f"{m['gather_bytes']} B; largest gather of the solve {c['by_rank'][0]['max_gather']}"
-          f" B (the replicated field: {c['by_rank'][0]['gather_bound']} B)", flush=True)
+          f" B (the replicated field: {c['by_rank'][0]['gather_limit']} B)", flush=True)
     if not (n == 512 and tuple(pgrid) == (2, 2, 1) and kind == "solve" and not extra):
         return
     print(f"  census by level, rank 0, one iteration of {n}^3 {dtype_name} MG-CG on "
@@ -2966,34 +2397,10 @@ def check_census(label, pgrid, case, r, held_by, smi) -> None:
           f"message under {SMALL_MESSAGE // 1024} KiB", flush=True)
 
 
-def scaling_report(pgrid, cases, refs, results, smi) -> None:
-    """The strong- and weak-scaling predictions (scaling.predict_efficiency
-    on this card's LINK_BW, fed the census-checked model) beside the
-    measured efficiencies over NCCL: strong on the 512^3 f32 MG-CG case
-    (compute an iteration: one card's warm wall / iterations / ranks;
-    measured: one card's wall / (ranks x the slowest rank's wall)); weak on
-    WEAK_SHAPE (compute: one card's 512^3 wall / its iterations;
-    measured: one card's 512^3 wall / the four-card wall). Checks the weak
-    solve: finite, converged, true residual <= 1.01 rtol."""
-    card = torch.cuda.get_device_name(0)
-    world = math.prod(pgrid)
-    idx = next(i for i, c in enumerate(cases)
-               if c[0] == 512 and c[1] == "float32" and c[6] == "solve" and not c[3])
-    case, ref, r = cases[idx], refs[idx], results["m"][idx]
-    cfg = mg.MGConfig(**r["census"]["config"])
-    n3 = (512,) * 3
-    t_it = ref["wall_ms"] / 1e3 / ref["its"]
-    strong = scaling.predict_efficiency(n3, pgrid, t_it / world, card, cfg=cfg, itemsize=4)
-    measured = ref["wall_ms"] / (world * r["warm_ms"])
-    print(f"-- strong scaling, 512^3 f32 MG-CG on {tuple(pgrid)} over NCCL ({smi}): "
-          f"predicted {strong.efficiency_overlapped!r} overlapped, "
-          f"{strong.efficiency_serial!r} serial (compute {strong.compute_s * 1e3:.4f} ms "
-          f"an iteration = one card's {ref['wall_ms']:.2f} ms / {ref['its']} its / {world}, "
-          f"wire {strong.comm_s * 1e3:.5f} ms, gather {strong.gather_s * 1e3:.7f} ms at "
-          f"{scaling.link_bandwidth(card):.3g} B/s); measured {measured!r} = "
-          f"{ref['wall_ms']:.2f} / ({world} x {r['warm_ms']:.2f} ms, the slowest rank's "
-          f"warm solve)", flush=True)
-    w = results["weak"]
+def check_weak(pgrid, w: dict, smi) -> None:
+    """The weak-scaling rung's solve: finite, converged, true residual <=
+    1.01 rtol, and one iteration's census equal to the model on every
+    rank."""
     limit = 1.01 * 1e-6
     if not (w["finite"] and w["reason"] > 0 and w["rel"] <= limit):
         raise AssertionError(f"weak-scaling solve {WEAK_SHAPE}: {w['its']} iterations, "
@@ -3004,24 +2411,11 @@ def scaling_report(pgrid, cases, refs, results, smi) -> None:
     if bad:
         raise AssertionError(f"weak-scaling solve: one iteration's census differs from the "
                              f"model on ranks {bad}: {wc['by_rank'][bad[0]]['diff']}")
-    wcfg = mg.MGConfig(**wc["config"])
-    weak = scaling.predict_efficiency(WEAK_SHAPE, pgrid, t_it, card, cfg=wcfg, itemsize=4)
-    measured_w = ref["wall_ms"] / w["warm_ms"]
-    per_it = (ref["wall_ms"] / ref["its"]) / (w["warm_ms"] / w["its"])
     print(f"-- weak scaling, {WEAK_SHAPE} f32 MG-CG on {tuple(pgrid)} over NCCL (box "
-          f"{WEAK_LENGTH}, a "
-          f"{tuple(w['local_shape'])} block a card; {smi}): {w['its']} iterations, true "
-          f"relative residual {w['rel']:.3e}, first solve {w['first_ms']:.1f} ms, warm "
-          f"{w['warm_ms']:.2f} ms (the slowest rank, median of {len(w['walls'])}: "
-          f"{[round(x, 2) for x in w['walls']]}); census equals the model on every rank "
-          f"({wc['model']['exchange_count']} exchanges, {wc['model']['permute_bytes']} B an "
-          f"iteration on rank 0)", flush=True)
-    print(f"   predicted {weak.efficiency_overlapped!r} overlapped, "
-          f"{weak.efficiency_serial!r} serial (compute {weak.compute_s * 1e3:.4f} ms an "
-          f"iteration = one card's 512^3 {ref['wall_ms']:.2f} ms / {ref['its']} its, wire "
-          f"{weak.comm_s * 1e3:.5f} ms, gather {weak.gather_s * 1e3:.7f} ms); measured "
-          f"{measured_w!r} = {ref['wall_ms']:.2f} / {w['warm_ms']:.2f} ms "
-          f"({per_it!r} an iteration)", flush=True)
+          f"{WEAK_LENGTH}, a {tuple(w['local_shape'])} block a card; {smi}): {w['its']} "
+          f"iterations, true relative residual {w['rel']:.3e}; census equals the model on "
+          f"every rank ({wc['model']['exchange_count']} exchanges, "
+          f"{wc['model']['permute_bytes']} B an iteration on rank 0)", flush=True)
 
 
 def gdofs_check(lines, n: int):
@@ -3056,11 +2450,9 @@ def native_planner_phase() -> None:
     (m) and (n) and the weak-scaling case: the process grid decompose_3d
     picks for the rank count, every owned box, the DoF counts and the
     halo bytes (f32 and f64)."""
-    t0 = time.perf_counter()
     path = native.build()
-    print(f"  {path.name}: built in "
-          f"{native.build_seconds if native.build_seconds is not None else 'cached'} s "
-          f"({time.perf_counter() - t0:.2f} s with the hash)", flush=True)
+    print(f"  {path.name}: {'cached' if native.build_seconds is None else 'built'}",
+          flush=True)
     decomps = {(pgrid, (n,) * 3) for _, pgrid, cases in DIST_GROUPS for n, *_ in cases}
     decomps |= {(c[1], tuple(c[2])) for cases in PENCIL_CASES.values() for c in cases}
     decomps.add((WEAK_PGRID, WEAK_SHAPE))
@@ -3116,13 +2508,9 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, {kind}")
-    t_start = time.perf_counter()
 
     phase("build")
-    t0 = time.perf_counter()
-    path = _build.load()._name
-    print(f"  {path}: load {time.perf_counter() - t0:.1f} s, nvcc "
-          f"{_build.build_seconds if _build.build_seconds is not None else 'cached'} s")
+    print(f"  {_build.load()._name}: {'cached' if _build.build_seconds is None else 'built'}")
     log = _build.library_path().with_suffix(".log")
     if log.exists():
         for line in log.read_text().splitlines():
@@ -3136,17 +2524,18 @@ def main() -> int:
         # phase 7 alone: over NCCL, one rank a card, where there are cards
         # for it, against the one-card solve
         phase("distributed MG-CG, order 6 and the FFT (alone)")
-        dist_phase(smi, {}, ["nccl"] if torch.cuda.device_count() >= 2 else ["gloo"])
+        dist_phase(smi, collections.Counter(),
+                   ["nccl"] if torch.cuda.device_count() >= 2 else ["gloo"])
         phase("native options database")
         native_options_phase()
-        print(f"  chip_smoke wall {time.perf_counter() - t_start:.1f} s")
         print(smi)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
         return 0
 
     phase("kernels against plain versions")
-    stats = check_kernels()
+    stats = {}
+    check_kernels(stats)
     check_dist_blocks(stats)
     check_colour_update(stats)
     check_pencil_blocks(stats)
@@ -3157,21 +2546,17 @@ def main() -> int:
     phase("GMRES's Gram-Schmidt kernels against their plain versions")
     check_gmres(stats)
 
-    phase("the one-pass sweep against two K11 launches")
-    sweep_pairs(smi)
-
     phase("banded-matrix transfers against the roll form")
     check_contractions()
 
-    phase("compact and tridiagonal kernels against plain versions")
-    check_compact(stats)
-
-    phase("K16's and K17's strip kernels: variants and long lines")
-    strip_variants(stats, smi)
-    check_long(stats)
+    phase("compact and tridiagonal kernels against plain versions, on every strip route")
+    reached = {}
+    check_compact(stats, reached)
+    check_long(stats, reached)
+    check_strip_routes(reached)
 
     phase("paths")
-    totals = {k: 0 for k in sc.LAUNCHES}
+    totals = collections.Counter()
     f64, f32 = torch.float64, torch.float32
     cases_a = [(64, f64, 1e-8, [], 6), (256, f32, 1e-6, [], 5)]
     roll = ["-mg_transfers", "roll"]
@@ -3186,11 +2571,10 @@ def main() -> int:
                       totals, demo=True)
     runs_ar = run_path("(a/r) roll transfers through the kernels", cases_ar,
                        base + ["stencil7.residual", "rbsor.zero_update"], totals)
-    compare_paths(runs_a, cases_a, smi, runs_ar)
-    profile_solve("(a) 256^3 f32", *runs_a[1][:2], smi)
-    utils_on_card(runs_a[0], smi)
+    compare_paths(runs_a, cases_a)
+    utils_on_card(runs_a[0])
     del runs_a, runs_ar
-    log_view_demo(smi)
+    log_view_demo()
     torch.cuda.empty_cache()
     runs_b = run_path("(b) 512^3 f32, bf16 pre-smooth", cases_b,
                       base + ["rbsor.zero_update.narrow", "rbsor.zero.bf16",
@@ -3199,14 +2583,13 @@ def main() -> int:
     runs_br = run_path("(b/r) 512^3 f32, roll transfers", cases_br,
                        base + ["cgupd", "stencil7.residual",
                                "rbsor.zero.bf16"], totals)
-    compare_paths(runs_b, cases_b, smi, runs_br)
-    profile_solve("(b) 512^3 f32", *runs_b[0][:2], smi)
+    compare_paths(runs_b, cases_b)
     del runs_b, runs_br
     torch.cuda.empty_cache()
     runs_c = run_path("(c) 256^3 f32, Jacobi smoother", cases_c,
                       ["stencil7.apply", "stencil7.apply_dot", "stencil7.jacobi",
                        "cgupd", "xfer.restrict", "xfer.prolong_add"], totals)
-    compare_paths(runs_c, cases_c, smi)
+    compare_paths(runs_c, cases_c)
     del runs_c
     run_path("(b/s) 512^3 f32, bf16 pre-smooths of Chebyshev, two-sweep "
              "Jacobi and two-sweep SOR",
@@ -3227,28 +2610,24 @@ def main() -> int:
     runs_d = run_path("(d) order 6, CG + GMG", cases_d,
                       lapl_keys + ["rbsor.sweep", "xfer.restrict", "xfer.prolong_add"],
                       totals, runner=solve6_case, routes=("registers", "tile"))
-    compare6(runs_d, cases_d, smi)
-    profile_solve("(d) order 6 256^3 f32", *runs_d[1][:2], smi)
+    compare6(runs_d, cases_d)
     del runs_d
     torch.cuda.empty_cache()
     fcg = ["-ksp_type", "fcg", "-pc_type", "fft"]
     cases_e = [(256, f32, 1e-3, fcg), (256, f64, 1e-8, fcg)]
     run_path("(e) -ksp_type fft at 512^3 f32, order 2 and 6",
-             [(2, 512, f32, smi), (6, 512, f32, smi)],
+             [(2, 512, f32), (6, 512, f32)],
              ["stencil7.apply", "spectral.sum", "spectral.compact"] + lapl_keys, totals,
              runner=fft_case)
     torch.cuda.empty_cache()
     runs_e = run_path("(e) order 6, FCG + -pc_type fft", cases_e,
                       lapl_keys + ["spectral.sum"], totals, runner=solve6_case)
-    compare6(runs_e, cases_e, smi)
+    compare6(runs_e, cases_e)
     del runs_e
     torch.cuda.empty_cache()
-    runs_f = run_path("(f) the bench's periodic tridiagonal solve, 512^3 f32 and "
-                      "64^3 f64", [(smi,), (smi, 64, f64)],
-                      ["tridiag.pcr", "tridiag.thomas", "tridiag.babe"], totals,
-                      runner=tridiag_path)
-    tridiag_pairs(runs_f, smi)
-    del runs_f
+    run_path("(f) the bench's periodic tridiagonal solve, 512^3 f32 and 64^3 f64",
+             [(), (64, f64)], ["tridiag.pcr", "tridiag.thomas", "tridiag.babe"], totals,
+             runner=tridiag_path)
     torch.cuda.empty_cache()
 
     gm = ["-ksp_type", "gmres", "-gmres_restart", "30"]
@@ -3264,10 +2643,10 @@ def main() -> int:
           f"(basis {31 * b512.nbytes / 1e9:.1f} GB, budget half of "
           f"{torch.cuda.mem_get_info(b512.device)[1] / 2**30:.1f} GiB)", flush=True)
     del b512
-    compare_paths(runs_g, cases_g, smi)
+    compare_paths(runs_g, cases_g)
     del runs_g
     torch.cuda.empty_cache()
-    gmres_bf16_case(smi)
+    gmres_bf16_case()
     fgm = ["-ksp_type", "fgmres", "-gmres_restart", "30"]
     runs_fg = run_path("(g) FGMRES(30) + MG, 64^3 f64 + 512^3 f32 (bf16 pre-smooth), "
                        "the true residual", [(64, f64, 1e-8, fgm, None),
@@ -3283,8 +2662,8 @@ def main() -> int:
     del runs_fg, inner
     torch.cuda.empty_cache()
     run_path("(g) GMRES(30) -pc_type none, 64^3 f64, 60 iterations (K2 in the "
-             "Gram-Schmidt step)", [(smi,)], ["stencil7.apply", "stencil7.apply_dot",
-                                              "gmres.dots", "gmres.update"],
+             "Gram-Schmidt step)", [()], ["stencil7.apply", "stencil7.apply_dot",
+                                         "gmres.dots", "gmres.update"],
              totals, runner=gmres_none_case)
     cases_h = [(64, f64, 1e-8, ["-ksp_type", "pipecg"], 6),
                (256, f32, 1e-6, ["-ksp_type", "pipecg"], None),
@@ -3293,7 +2672,7 @@ def main() -> int:
                       "(256^3 f32)", cases_h,
                       ["stencil7.apply", "rbsor.zero", "rbsor.sweep",
                        "xfer.restrict", "xfer.prolong_add"], totals)
-    compare_paths(runs_h, cases_h, smi)
+    compare_paths(runs_h, cases_h)
     del runs_h
     torch.cuda.empty_cache()
     cases_i = [(256, f32, 1e-6, [], 5), (512, f32, 1e-6, [], 7),
@@ -3302,44 +2681,42 @@ def main() -> int:
                       "transfers", cases_i,
                       ["stencil7.pupd_dot", "rbsor.zero_update", "cgupd",
                        "xfer.restrict.bf16u"], totals, runner=deferred_case)
-    compare_deferred(runs_i, cases_i, smi)
+    compare_deferred(runs_i, cases_i)
     del runs_i
     torch.cuda.empty_cache()
     run_path("(j) solve_refined: 512^3 beside f64 MG-CG, 128^3 against the plain "
-             "path", [(512, smi, False), (128, smi, True)],
+             "path", [(512, False), (128, True)],
              ["stencil7.apply", "rbsor.zero_update", "rbsor.zero_update.narrow",
               "xfer.restrict"], totals, runner=refine_case)
     torch.cuda.empty_cache()
-    run_path("(k) solve_checkpointed, 256^3 f32, every 2", [(256, smi)],
+    run_path("(k) solve_checkpointed, 256^3 f32, every 2", [(256,)],
              ["stencil7.apply", "rbsor.zero_update", "xfer.restrict"], totals,
              runner=checkpoint_case)
     cases_l = [(64, f64, 1e-8, mgcg), (256, f32, 1e-3, mgcg), (96, f32, 1e-3, mgcg)]
     runs_l = run_path("(l) order 6 through K17 (method=pallas), CG + GMG", cases_l,
                       ["tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
                        "rbsor.sweep", "xfer.restrict"], totals, runner=solve6_thomas_case)
-    compare6_thomas(runs_l, cases_l, smi)
+    compare6_thomas(runs_l, cases_l)
     del runs_l
     torch.cuda.empty_cache()
-    lapl_pairs(smi)
+    lapl_k17()
 
     phase("distributed MG-CG; order 6 and the FFT across ranks")
     dist_phase(smi, totals, ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else []))
     idle = [k for k in KERNELS if totals[k] == 0 and k not in OFF_PATH]
     if idle:
         raise AssertionError(f"kernels no path launched: {idle}")
+    unchecked = [k for k in KERNELS if k not in stats]
+    if unchecked:
+        raise AssertionError(f"kernels never held to their plain versions: {unchecked}")
     phase("native options database")
     native_options_phase()
-    print(f"  chip_smoke wall so far {time.perf_counter() - t_start:.1f} s")
 
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    unmeasured = [k for k in KERNELS if any(f not in stats[k] for f in keys)]
-    if unmeasured:
-        raise AssertionError(f"kernels without a time or a bound: {unmeasured}")
     print(smi)
     print(json.dumps({"kernels": [
         {"name": key, "route": "cuda",
          "source": f"poissbox_tpu_torch/csrc/{src}", "replaces": replaces,
-         "launches": totals[key], **{k: stats[key][k] for k in keys},
+         "launches": totals[key], "max_abs_err": stats[key],
          **({"dist_launches": dist_launches(key)} if dist_launches(key) else {})}
         for key, (src, replaces) in KERNELS.items()]}))
     print(json.dumps({"ok": True, "device": {

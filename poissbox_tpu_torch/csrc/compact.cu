@@ -97,7 +97,7 @@
 // in the Laplacian's y sweep, so 121 a point, 0.48 ms of f32 issue at 512^3
 // with --fmad=false (every multiply and add issued alone) against 0.64 ms of
 // HBM; the register kernel adds about 2 shuffles a point an operator. On
-// an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py) the register kernel runs
+// an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6) the register kernel runs
 // the 512^3 f32 sweeps at 48-66 % of their floors (the Laplacian 3.0 ms, 53
 // %), bound by instruction issue: each add, multiply and shuffle is one
 // instruction, and the x and y sweeps add their tile phases and barriers.

@@ -56,7 +56,7 @@
 // inlined sequence. Each input is read from HBM about once: the halo
 // cells of neighbouring tiles and chunk ends come from L2.
 //
-// On an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py) the kernel
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6) the kernel
 // runs at 51-67 % of its byte bound in f32 (general sweep 0.111 ms at 256^3,
 // bound 0.060) and about 35 % in bf16 (0.69 ms at 512^3, bound 0.24): it
 // issues the same instructions a point in either type, so halving the bytes
@@ -102,7 +102,7 @@
 // extent the last one of a row is the lone cell nz - 1, updated or copied by
 // its own parity, its z+1 neighbour the window's wrapped cell 0.
 //
-// On an NVIDIA H100 80GB HBM3 at 700.00 W (k11_times.py) K11 takes
+// On an NVIDIA H100 80GB HBM3 at 700.00 W (PERF.md section 6) K11 takes
 // 0.1094 ms in bf16 on the (256, 256, 512) block of the distributed 512^3
 // level, 54.9 % of its bound (the one-thread-a-point kernel it replaced:
 // 0.1770 ms, 34.0 %), 0.3996 ms in bf16 at 512^3 (60.2 %), 0.0827 ms in

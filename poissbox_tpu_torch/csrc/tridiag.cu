@@ -1071,19 +1071,10 @@ inline int max_workers(const SmemLimits& lim, int mode, int lanes, int n, size_t
   return w < 0 ? 0 : w > kMaxWorkers ? kMaxWorkers : (int)w;
 }
 
-// What poissbox_strip_force sets for chip_smoke.py's comparison of the
-// variants: the lanes every route takes (-1: strip_lanes' choice) and the
-// stagger of every strip launch (-1: launch_strip's rule).
-struct StripForce {
-  int lanes = -1, stagger = -1;
-};
-static StripForce g_force;
-
 // Lanes of a worker for Q lines of n rows: 32 when a block holds three
 // 32-lane workers and the lines make two strips an SM, else 16 when a
 // block holds two 16-lane workers, else 0 (the streaming kernel).
 inline int strip_lanes(const SmemLimits& lim, int mode, int n, long long Q, size_t tsize) {
-  if (g_force.lanes >= 0) return g_force.lanes;
   if (max_workers(lim, mode, 32, n, tsize) >= 3 && Q >= 2LL * lim.sms * 32) return 32;
   if (max_workers(lim, mode, 16, n, tsize) >= 2) return 16;
   return 0;
@@ -1126,8 +1117,7 @@ cudaError_t launch_strip(Kernel* kernel, const SmemLimits& lim, int device, int 
   const long long grid = strips < lim.sms ? strips : lim.sms;
   const long long need = (strips + grid - 1) / grid;
   const int workers = need < wmax ? (int)need : wmax;
-  const int stagger =
-      g_force.stagger >= 0 ? g_force.stagger : workers <= 4 && strips >= 8 * grid * workers;
+  const int stagger = workers <= 4 && strips >= 8 * grid * workers;
   const size_t bytes = table_bytes(mode, n, tsize) + workers * strip_bytes(mode, lanes, n, tsize);
   // all of the SM's shared memory to the block
   const cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel), device, bytes);
@@ -1226,28 +1216,6 @@ int poissbox_strip_lanes(int dtype, int mode, int n, long long Q, int device) {
   const cudaError_t err = poissbox::smem_limits(device, &lim);
   if (err != cudaSuccess) return -(int)err;
   return poissbox::strip_lanes(lim, mode, n, Q, dtype == poissbox::kF32 ? 4 : 8);
-}
-
-// For chip_smoke.py's comparison of the variants only: from now on every
-// K13, K16 and K17 route takes `lanes` (32 or 16 the strip kernel, 0 the
-// streaming one) and every strip launch `stagger` (1 the workers in turn,
-// 0 at once, -1 launch_strip's rule); lanes -1 gives the routes back
-// their own choice. Returns 1 when that is set, 0 when a strip of `lanes`
-// lanes of lines of n rows of dtype does not fit one worker a block of
-// mode `mode` (as poissbox_strip_lanes's; nothing is set then), and a
-// negative cudaError_t on a bad argument.
-int poissbox_strip_force(int dtype, int mode, int n, int lanes, int stagger, int device) {
-  if ((dtype != poissbox::kF32 && dtype != poissbox::kF64) || mode < 0 || mode > 5 || n < 1 ||
-      (lanes != -1 && lanes != 0 && lanes != 16 && lanes != 32) || stagger < -1 || stagger > 1)
-    return -(int)cudaErrorInvalidValue;
-  if (lanes > 0) {
-    poissbox::SmemLimits lim;
-    const cudaError_t err = poissbox::smem_limits(device, &lim);
-    if (err != cudaSuccess) return -(int)err;
-    if (poissbox::max_workers(lim, mode, lanes, n, dtype == poissbox::kF32 ? 4 : 8) < 1) return 0;
-  }
-  poissbox::g_force = poissbox::StripForce{lanes, lanes < 0 ? -1 : stagger};
-  return 1;
 }
 
 // K16: as poissbox_thomas, with the twisted factorization's wv, binv and

@@ -38,7 +38,7 @@
 // fine residuals, 2I+1 and 2I+2; 2I-1 and 2I stay in registers from the
 // plane before. b is read once, by the thread that owns the point; the u
 // halo cells of neighbouring tiles come from L2. On an NVIDIA H100 80GB HBM3
-// at 700.00 W (chip_smoke.py): 0.088 ms at 256^3 f32 (57 % of the
+// at 700.00 W (PERF.md section 6): 0.088 ms at 256^3 f32 (57 % of the
 // bound), 0.600 at 512^3 (67 %), 0.536 with a bf16 u (60 %). prolong_add
 // keeps one thread per fine point, the launch geometry of common.cuh.
 #include "common.cuh"

@@ -4,7 +4,7 @@ compact_pcr; across ranks compact_dist) and its tridiagonal solvers
 (tridiag, tridiag_cuda), and the
 Hopper kernels with their plain versions (stencil_cuda, transfer_cuda,
 compact_pcr, tridiag_cuda, spectral_cuda, gmres_cuda; sources in
-../csrc, built by _build)."""
+../csrc, built, loaded and launched by _build)."""
 
 from poissbox_tpu_torch.ops import (
     assemble,

@@ -12,10 +12,20 @@ The library lands in ``poissbox_tpu_torch/_build/`` (listed in
 edited source rebuilds and an unchanged one loads the cached file. A
 missing ``nvcc`` or a failed build raises: nothing falls back to the plain
 PyTorch versions.
+
+This module is the only one that knows the library's C interface: besides
+the entries' ``argtypes`` it holds the dtype codes, the pointer and stream
+marshalling, the error strings and the launch counts. Each wrapper
+(``stencil_cuda``, ``transfer_cuda``, ``compact_pcr``, ``tridiag_cuda``,
+``spectral_cuda``, ``gmres_cuda``) checks its own arguments and calls
+:func:`launch`, which counts every launch in :data:`LAUNCHES` under the key
+the wrapper names (its kernel and mode), so a run can show which kernels
+its path went through.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import hashlib
 import os
@@ -24,6 +34,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Optional
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -39,6 +51,11 @@ LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lib: Optional[ctypes.CDLL] = None
 build_seconds: Optional[float] = None   # wall time of the last nvcc run
+
+# dtype codes of the C interface (csrc/common.cuh DType)
+DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+# successful launches by key ("<kernel>.<mode>", as each wrapper names them)
+LAUNCHES: collections.Counter = collections.Counter()
 
 
 def find_nvcc() -> str:
@@ -147,8 +164,6 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_compact_thomas.restype = i
     lib.poissbox_strip_lanes.argtypes = [i, i, i, ll, i]
     lib.poissbox_strip_lanes.restype = i
-    lib.poissbox_strip_force.argtypes = [i] * 6
-    lib.poissbox_strip_force.restype = i
     lib.poissbox_symbol_scale.argtypes = [i, i, i, p, p, p, p, d] + [i] * 6
     lib.poissbox_symbol_scale.restype = i
     lib.poissbox_gmres_blocks.argtypes = [i, i, i, i, ll, i]
@@ -166,3 +181,34 @@ def load() -> ctypes.CDLL:
         _declare(lib)
         _lib = lib
     return _lib
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's data pointer (None: a null pointer)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    """The current CUDA stream of t's device."""
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def raise_on(err: int, what: str) -> None:
+    """Raise RuntimeError naming `what` if a library call returned the
+    CUDA error `err`."""
+    if err != 0:
+        msg = load().poissbox_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def launch(entry: str, key: str, *args) -> None:
+    """Call the library's `entry` with `args`; raise naming `key` if it
+    fails, else count one launch of `key`."""
+    err = getattr(load(), entry)(*args)
+    if err:
+        raise_on(err, key)
+    LAUNCHES[key] += 1
+
+
+def reset_launches() -> None:
+    LAUNCHES.clear()

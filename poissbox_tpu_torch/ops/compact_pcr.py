@@ -39,7 +39,7 @@ the other.
 
 A CPU tensor runs the plain versions (:func:`sweep_plain`); a CUDA tensor
 launches a kernel or raises. Launches count in
-:data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES` as ``compact.x``,
+:data:`poissbox_tpu_torch.ops._build.LAUNCHES` as ``compact.x``,
 ``compact.y`` and ``compact.z`` by the sweep's axis, and in
 :data:`ROUTE_LAUNCHES` by kernel. The Mosaic-safe extent gate of the JAX
 package (``_tile_ok``) has no counterpart.
@@ -57,12 +57,6 @@ from poissbox_tpu_torch.ops import _build
 from poissbox_tpu_torch.ops.coefficients import (
     compact_grad_coeffs,
     compact_interp_coeffs,
-)
-from poissbox_tpu_torch.ops.stencil_cuda import (
-    DTYPE_CODE,
-    LAUNCHES,
-    _raise_on,
-    _stream,
 )
 
 Tensor = torch.Tensor
@@ -333,16 +327,13 @@ def sweep(program, inputs: Sequence[Tensor], axis: int,
     outs = [torch.empty_like(f0) for _ in program]
     ins = list(inputs) + [None] * (3 - len(inputs))
     optr = outs + [None] * (3 - len(outs))
-    ptr = lambda t: ctypes.c_void_p(None if t is None else t.data_ptr())
-    lib = _build.load()
-    err = lib.poissbox_compact(
-        DTYPE_CODE[f0.dtype], f0.device.index or 0, _stream(f0),
-        (ctypes.c_double * len(code))(*code), len(code),
-        *map(ptr, ins), *map(ptr, optr), P, n, Q, width, nbuf)
     if key is None:   # by the lines' layout: the axis's counter for 3-D
         key = "compact.z" if Q == 1 else ("compact.x" if P == 1 else "compact.y")
-    _raise_on(lib, err, f"{key} ({kernel} kernel)")
-    LAUNCHES[key] += 1
+    ptr = _build.ptr
+    _build.launch(
+        "poissbox_compact", key, _build.DTYPE_CODE[f0.dtype], f0.device.index or 0,
+        _build.stream(f0), (ctypes.c_double * len(code))(*code), len(code),
+        *map(ptr, ins), *map(ptr, optr), P, n, Q, width, nbuf)
     ROUTE_LAUNCHES[kernel] += 1
     return outs
 

@@ -22,7 +22,7 @@ takes them; a CUDA tensor launches the kernel or raises. Both return
 sums local to the tensors given (over a process grid the caller
 all-reduces them). ``h`` and the partials stay on the device, so the
 host never waits. Launches count in
-:data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES` (``gmres.dots``,
+:data:`poissbox_tpu_torch.ops._build.LAUNCHES` (``gmres.dots``,
 ``gmres.update``).
 """
 
@@ -31,18 +31,12 @@ from __future__ import annotations
 import torch
 
 from poissbox_tpu_torch.ops import _build
-from poissbox_tpu_torch.ops.stencil_cuda import (
-    DTYPE_CODE,
-    LAUNCHES,
-    _ptr,
-    _raise_on,
-    _stream,
-    check_dtype,
-)
+from poissbox_tpu_torch.ops.stencil_cuda import check_dtype
 
 Tensor = torch.Tensor
 
 _KIND = {"gmres.dots": 0, "gmres.update": 1}   # csrc/gmres.cu GsKind
+DTYPES = dict.fromkeys(_KIND, (torch.float32, torch.float64))
 
 
 def gs_dots_plain(V: Tensor, rows: int, w: Tensor) -> Tensor:
@@ -64,7 +58,7 @@ def gs_update_norm_plain(V: Tensor, rows: int, h: Tensor, w: Tensor,
 
 def _check(mode: str, V: Tensor, rows: int, w: Tensor, *more: Tensor) -> None:
     """Raise on anything the kernel does not take."""
-    check_dtype(mode, V.dtype)
+    check_dtype(mode, V.dtype, DTYPES)
     for t in (V, w, *more):
         if t.device.type != "cuda":
             raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
@@ -86,11 +80,11 @@ def _pack(*fields: Tensor) -> int:
     return vec
 
 
-def _blocks(lib, mode: str, V: Tensor, vec: int, rows: int) -> int:
-    nblk = lib.poissbox_gmres_blocks(_KIND[mode], DTYPE_CODE[V.dtype], vec, rows,
-                                     V[0].numel(), V.device.index or 0)
+def _blocks(mode: str, V: Tensor, vec: int, rows: int) -> int:
+    nblk = _build.load().poissbox_gmres_blocks(_KIND[mode], _build.DTYPE_CODE[V.dtype], vec,
+                                               rows, V[0].numel(), V.device.index or 0)
     if nblk < 1:
-        _raise_on(lib, -nblk, mode)
+        _build.raise_on(-nblk, mode)
     return nblk
 
 
@@ -101,13 +95,12 @@ def gs_dots(V: Tensor, rows: int, w: Tensor) -> Tensor:
         return gs_dots_plain(V, rows, w)
     _check("gmres.dots", V, rows, w)
     vec = _pack(w, V)
-    lib = _build.load()
-    nblk = _blocks(lib, "gmres.dots", V, vec, rows)
+    nblk = _blocks("gmres.dots", V, vec, rows)
     part = torch.empty((nblk, rows), dtype=V.dtype, device=V.device)
-    err = lib.poissbox_gmres_dots(DTYPE_CODE[V.dtype], vec, V.device.index or 0, _stream(V),
-                                  _ptr(V), _ptr(w), _ptr(part), rows, w.numel(), nblk)
-    _raise_on(lib, err, "gmres.dots")
-    LAUNCHES["gmres.dots"] += 1
+    ptr = _build.ptr
+    _build.launch("poissbox_gmres_dots", "gmres.dots", _build.DTYPE_CODE[V.dtype], vec,
+                  V.device.index or 0, _build.stream(V), ptr(V), ptr(w), ptr(part), rows,
+                  w.numel(), nblk)
     return torch.sum(part, 0)
 
 
@@ -125,12 +118,10 @@ def gs_update_norm(V: Tensor, rows: int, h: Tensor, w: Tensor, out: Tensor) -> T
     if out.data_ptr() < read[1] and read[0] < out.data_ptr() + out.nbytes:
         raise ValueError("out overlaps the basis rows the update reads")
     vec = _pack(w, V, out)
-    lib = _build.load()
-    nblk = _blocks(lib, "gmres.update", V, vec, rows)
+    nblk = _blocks("gmres.update", V, vec, rows)
     part = torch.empty(nblk, dtype=V.dtype, device=V.device)
-    err = lib.poissbox_gmres_update(DTYPE_CODE[V.dtype], vec, V.device.index or 0,
-                                    _stream(V), _ptr(V), _ptr(h), _ptr(w), _ptr(out),
-                                    _ptr(part), rows, w.numel(), nblk)
-    _raise_on(lib, err, "gmres.update")
-    LAUNCHES["gmres.update"] += 1
+    ptr = _build.ptr
+    _build.launch("poissbox_gmres_update", "gmres.update", _build.DTYPE_CODE[V.dtype], vec,
+                  V.device.index or 0, _build.stream(V), ptr(V), ptr(h), ptr(w), ptr(out),
+                  ptr(part), rows, w.numel(), nblk)
     return torch.sum(part)

@@ -20,8 +20,9 @@ values); ``peak`` is a 0-d tensor on the field's device, so the host never
 waits for it. The half spectrum may lie in memory in any axis order, as
 long as it is dense: cuFFT's ``rfftn`` leaves the half axis outermost.
 The plain version below is the kernel's arithmetic and grouping. A CPU
-tensor takes it; a CUDA tensor launches the kernel or raises. Launches count in :data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES`
-(``spectral.compact``, ``spectral.sum``).
+tensor takes it; a CUDA tensor launches the kernel or raises. Launches
+count in :data:`poissbox_tpu_torch.ops._build.LAUNCHES` (``spectral.compact``,
+``spectral.sum``).
 """
 
 from __future__ import annotations
@@ -29,19 +30,12 @@ from __future__ import annotations
 import torch
 
 from poissbox_tpu_torch.ops import _build
-from poissbox_tpu_torch.ops.stencil_cuda import (
-    DTYPE_CODE,
-    LAUNCHES,
-    _ptr,
-    _raise_on,
-    _stream,
-    check_dtype,
-)
 
 Tensor = torch.Tensor
 
 FORMS = {"compact": 0, "sum": 1}   # csrc/spectral.cu SymbolForm
 ROWS = {"compact": 2, "sum": 1}
+# the half spectra the kernel takes, and the real dtype of their tables
 _REAL = {torch.complex64: torch.float32, torch.complex128: torch.float64}
 
 
@@ -103,7 +97,6 @@ def _check(xhat: Tensor, tables: Tensor, peak: Tensor, form: str) -> tuple[int, 
     if xhat.dtype not in _REAL:
         raise TypeError(f"expected a complex64 or complex128 half spectrum, got {xhat.dtype}")
     real = _REAL[xhat.dtype]
-    check_dtype(f"spectral.{form}", real)
     for t in (xhat, tables, peak):
         if t.device != xhat.device:
             raise ValueError(f"tensors on {xhat.device} and {t.device}")
@@ -129,10 +122,8 @@ def symbol_scale(xhat: Tensor, tables: Tensor, peak: Tensor, rel: float,
     if xhat.device.type == "cpu":
         return symbol_scale_plain(xhat, tables, peak, rel, form)
     dims = _check(xhat, tables, peak, form)
-    lib = _build.load()
-    err = lib.poissbox_symbol_scale(DTYPE_CODE[_REAL[xhat.dtype]], FORMS[form],
-                                    xhat.device.index or 0, _stream(xhat), _ptr(xhat),
-                                    _ptr(tables), _ptr(peak), float(rel), *dims)
-    _raise_on(lib, err, f"spectral.{form}")
-    LAUNCHES[f"spectral.{form}"] += 1
+    ptr = _build.ptr
+    _build.launch("poissbox_symbol_scale", f"spectral.{form}",
+                  _build.DTYPE_CODE[_REAL[xhat.dtype]], FORMS[form], xhat.device.index or 0,
+                  _build.stream(xhat), ptr(xhat), ptr(tables), ptr(peak), float(rel), *dims)
     return xhat

@@ -53,20 +53,13 @@ This is the port's definition of the
 bf16 result (the Pallas kernels compute in bf16 throughout). :data:`DTYPES`
 says which mode takes which input dtype.
 
-:data:`LAUNCHES` counts kernel launches by kernel and mode (``stencil7.*``
-for the star's epilogues and K12's prologue, ``rbsor.general`` for K11's
-colour update, ``rbsor.zero``/``sweep``/``dots``/``zero_update`` for KB's
-sweeps (one launch a sweep: K3, K4, K4 with dots, K5), ``xfer.*`` for the
-transfer legs, ``cgupd`` for K8, ``compact.x|y|z`` for K15's line kernel
-by axis (ops/compact_pcr.py), ``tridiag.*`` for K13/K14/K16 and K17's
-four modes (ops/tridiag_cuda.py), ``spectral.compact|sum`` for the
-spectral solves' symbol multiply by form (ops/spectral_cuda.py) and
-``gmres.dots|update`` for GMRES's Gram-Schmidt step (ops/gmres_cuda.py);
-``.bf16`` marks a bf16 launch, ``.narrow`` K5 storing its swept iterate
-in bf16, ``.bf16u`` a transfer leg reading a bf16 iterate and ``.long``
-K13, K16 or K17 on lines too long for their strip kernel); a wrapper
-adds one where it launches, so a
-run can show which kernels its path went through.
+Launches count in :data:`poissbox_tpu_torch.ops._build.LAUNCHES` by
+kernel and mode (``stencil7.*`` for the star's epilogues and K12's
+prologue, ``rbsor.general`` for K11's colour update,
+``rbsor.zero``/``sweep``/``dots``/``zero_update`` for KB's sweeps (one
+launch a sweep: K3, K4, K4 with dots, K5), ``cgupd`` for K8; ``.bf16``
+marks a bf16 launch, ``.narrow`` K5 storing its swept iterate in bf16);
+:data:`LAUNCHES` and :func:`reset_launches` here are the same objects.
 Reductions come back as per-block partials that the wrapper sums with
 ``torch.sum``, as the JAX wrappers sum theirs. KA streams x planes
 through a (y, z) tile, as KB's sweeps and K6 do (:func:`ka_blocks`): one
@@ -75,63 +68,39 @@ partial a block, a few thousand at 512^3.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Sequence
 
 import torch
 
 from poissbox_tpu_torch.ops import _build
 
-LAUNCHES: dict[str, int] = {k: 0 for k in (
-    "stencil7.apply", "stencil7.apply_dot", "stencil7.pupd_dot",
-    "stencil7.residual", "stencil7.jacobi", "stencil7.residual.bf16",
-    "stencil7.jacobi.bf16",
-    "rbsor.general", "rbsor.general.bf16",
-    "rbsor.zero", "rbsor.zero.bf16", "rbsor.sweep", "rbsor.sweep.bf16",
-    "rbsor.dots", "rbsor.zero_update", "rbsor.zero_update.narrow",
-    "xfer.restrict", "xfer.restrict.bf16u",
-    "xfer.prolong_add", "xfer.prolong_add.bf16u",
-    "cgupd",
-    "compact.x", "compact.y", "compact.z", "tridiag.thomas", "tridiag.pcr",
-    "tridiag.babe", "tridiag.compact", "tridiag.dual", "tridiag.chain", "tridiag.sum",
-    "tridiag.thomas.long", "tridiag.babe.long", "tridiag.compact.long", "tridiag.dual.long", "tridiag.chain.long",
-    "tridiag.sum.long", "spectral.compact", "spectral.sum", "gmres.dots", "gmres.update",
-)}
+LAUNCHES = _build.LAUNCHES
+reset_launches = _build.reset_launches
 
 _EPI = {"stencil7.apply": 0, "stencil7.apply_dot": 1, "stencil7.residual": 2,
         "stencil7.jacobi": 3}
 # KB's sweep modes (csrc/rbsor.cu SweepMode)
 _SWEEP = {"rbsor.sweep": 0, "rbsor.dots": 1, "rbsor.zero": 2,
           "rbsor.zero_update": 3}
-# dtype codes of the C interface (csrc/common.cuh DType)
-DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
-
 _WIDE = (torch.float32, torch.float64)
 _WIDE_OR_BF16 = _WIDE + (torch.bfloat16,)
-# the input dtypes each kernel mode takes (for the transfer legs: of the
-# iterate u; b, e and the output are float32 or float64)
+# the input dtypes each kernel mode of this module takes
 DTYPES: dict[str, tuple] = {
     "stencil7.apply": _WIDE, "stencil7.apply_dot": _WIDE,
     "stencil7.pupd_dot": _WIDE,
     "stencil7.residual": _WIDE_OR_BF16, "stencil7.jacobi": _WIDE_OR_BF16,
     "rbsor.general": _WIDE_OR_BF16, "rbsor.zero": _WIDE_OR_BF16,
     "rbsor.sweep": _WIDE_OR_BF16, "rbsor.zero_update": _WIDE,
-    "rbsor.dots": _WIDE,
-    "xfer.restrict": _WIDE_OR_BF16, "xfer.prolong_add": _WIDE_OR_BF16,
-    "cgupd": _WIDE, "spectral.compact": _WIDE, "spectral.sum": _WIDE,
-    "gmres.dots": _WIDE, "gmres.update": _WIDE,
+    "rbsor.dots": _WIDE, "cgupd": _WIDE,
 }
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def check_dtype(mode: str, dtype: torch.dtype) -> None:
-    """Raise TypeError unless kernel mode `mode` takes input `dtype`."""
-    if dtype not in DTYPES[mode]:
-        names = ", ".join(str(d).replace("torch.", "") for d in DTYPES[mode])
+def check_dtype(mode: str, dtype: torch.dtype, dtypes: dict = DTYPES) -> None:
+    """Raise TypeError unless kernel mode `mode` takes input `dtype`
+    (`dtypes`: the wrapper's table of its modes, this module's by
+    default)."""
+    if dtype not in dtypes[mode]:
+        names = ", ".join(str(d).replace("torch.", "") for d in dtypes[mode])
         raise TypeError(f"the CUDA kernel mode {mode} takes {names}, not "
                         f"{str(dtype).replace('torch.', '')}")
 
@@ -140,7 +109,7 @@ def check_dtype(mode: str, dtype: torch.dtype) -> None:
 # plain PyTorch versions (Pallas grouping)
 # ---------------------------------------------------------------------------
 
-def _invs(deltas: Sequence[float]) -> tuple[float, float, float]:
+def inv_squares(deltas: Sequence[float]) -> tuple[float, float, float]:
     return tuple(1.0 / float(d) ** 2 for d in deltas)
 
 
@@ -165,7 +134,7 @@ def _star(u: torch.Tensor, invs) -> torch.Tensor:
     return acc - (2.0 * (ivx + ivy + ivz)) * u
 
 
-def _star_ext(u: torch.Tensor, invs) -> torch.Tensor:
+def star_ext(u: torch.Tensor, invs) -> torch.Tensor:
     """The 7-point star in `_star_ext`'s grouping, the one K6 uses: for
     cubic cells the six-neighbour sum scaled once, s*ivx - (6*ivx)*u."""
     ivx, ivy, ivz = invs
@@ -221,11 +190,11 @@ def _colours(reverse: bool) -> tuple[int, int]:
 
 
 def apply_laplacian_plain(u, deltas):
-    return _star(u, _invs(deltas))
+    return _star(u, inv_squares(deltas))
 
 
 def apply_laplacian_dot_plain(u, deltas):
-    y = _star(u, _invs(deltas))
+    y = _star(u, inv_squares(deltas))
     return y, torch.sum(u * y)
 
 
@@ -233,19 +202,19 @@ def pupdate_lapl_dot_plain(v, p_old, beta, zshift, deltas):
     """(p', A p', <p', A p'>) for p' = (v - zshift) + beta * p_old, in
     `_pupd_lapl_dot_kernel_fy`'s grouping."""
     pn = (v - zshift) + beta * p_old
-    y = _star(pn, _invs(deltas))
+    y = _star(pn, inv_squares(deltas))
     return pn, y, torch.sum(pn * y)
 
 
 def residual_plain(u, b, deltas):
     """bf16 fields: computed in float32, rounded once at the store."""
-    return (_wide(b) - _star(_wide(u), _invs(deltas))).to(u.dtype)
+    return (_wide(b) - _star(_wide(u), inv_squares(deltas))).to(u.dtype)
 
 
 def jacobi_sweep_plain(u, b, deltas, weight):
     """u + winv*(b - A u), `_upd_jacobi` on `_star_into`'s star; bf16
     fields are computed in float32 and rounded once at the store."""
-    invs = _invs(deltas)
+    invs = inv_squares(deltas)
     uw = _wide(u)
     return (uw + _winv(invs, weight) * (_wide(b) - _star(uw, invs))).to(u.dtype)
 
@@ -263,7 +232,7 @@ def sor_sweep_plain(u, b, deltas, weight, color):
     x + winv (b - A x), the others are copied, in `_rb_halfstep`'s grouping
     (KB's general mode); bf16 fields compute in float32 and round at the
     store."""
-    invs = _invs(deltas)
+    invs = inv_squares(deltas)
     bw = _wide(b)
     w = _colour_weight(bw, _winv(invs, weight), color)
     return _halfstep(_wide(u), bw, w, invs).to(u.dtype)
@@ -271,7 +240,7 @@ def sor_sweep_plain(u, b, deltas, weight, color):
 
 def sor_rb_zero_sweep_plain(b, deltas, weight, reverse=False):
     """A bf16 b: each colour computes in float32 and rounds at its store."""
-    invs = _invs(deltas)
+    invs = inv_squares(deltas)
     bw = _wide(b)
     w1, w2 = _colour_weights(bw, _winv(invs, weight), reverse)
     x1 = (w1 * bw).to(b.dtype)
@@ -281,7 +250,7 @@ def sor_rb_zero_sweep_plain(b, deltas, weight, reverse=False):
 def sor_rb_zero_update_plain(r, ap, alpha, deltas, weight, reverse=False,
                              out_dtype=None):
     """`out_dtype` rounds the swept iterate once, at its store."""
-    invs = _invs(deltas)
+    invs = inv_squares(deltas)
     a = torch.as_tensor(alpha, dtype=r.dtype, device=r.device)
     b = r - a * ap
     w1, w2 = _colour_weights(b, _winv(invs, weight), reverse)
@@ -343,20 +312,6 @@ def _check(mode: str, *ts: torch.Tensor) -> None:
     check_dtype(mode, t0.dtype)
 
 
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
-
-
-def _raise_on(lib, err: int, what: str) -> None:
-    if err != 0:
-        msg = lib.poissbox_error_string(err).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
 # KA's geometry (csrc/stencil7.cu ka_chunk, csrc/common.cuh): a block owns
 # a TILE_Z x TILE_Y (z, y) tile and walks a chunk of x planes
 TILE_Z, TILE_Y, KA_MIN_BLOCKS = 32, 16, 4096
@@ -382,22 +337,21 @@ def _partials(u: torch.Tensor) -> torch.Tensor:
 
 
 def _stencil7(key: str, u, b, y, part, deltas, weight: float = 0.0) -> None:
-    lib = _build.load()
-    invs = _invs(deltas)
+    invs = inv_squares(deltas)
     ivx, ivy, ivz = invs
-    err = lib.poissbox_stencil7(
-        DTYPE_CODE[u.dtype], _EPI[key], u.device.index or 0, _stream(u),
-        _ptr(u), _ptr(b), _ptr(y), _ptr(part), *u.shape, ivx, ivy, ivz,
-        2.0 * (ivx + ivy + ivz), _winv(invs, weight))
+    epi = _EPI[key]
     if u.dtype == torch.bfloat16:
         key += ".bf16"
-    _raise_on(lib, err, key)
-    LAUNCHES[key] += 1
+    ptr = _build.ptr
+    _build.launch(
+        "poissbox_stencil7", key, _build.DTYPE_CODE[u.dtype], epi, u.device.index or 0,
+        _build.stream(u), ptr(u), ptr(b), ptr(y), ptr(part), *u.shape, ivx, ivy, ivz,
+        2.0 * (ivx + ivy + ivz), _winv(invs, weight))
 
 
 def _coefs(deltas, weight) -> tuple:
     """(ivx, ivy, ivz, center, 6*ivx, winv) and iso, as KB takes them."""
-    invs = _invs(deltas)
+    invs = inv_squares(deltas)
     ivx, ivy, ivz = invs
     return ((ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz), 6.0 * ivx,
              _winv(invs, weight)), int(ivx == ivy == ivz))
@@ -409,25 +363,24 @@ def _sweep(mode: str, like, out, reverse: bool, deltas, weight, *, x=None,
     """One launch of KB's sweep kernel; `like` carries the input dtype,
     `out` the output dtype. With `sums`, returns the two reductions
     (their per-block partials summed)."""
-    lib = _build.load()
     part0 = part1 = None
     if sums:
-        nblk = lib.poissbox_rbsor_sweep_blocks(*like.shape)
+        nblk = _build.load().poissbox_rbsor_sweep_blocks(*like.shape)
         part0, part1 = (torch.empty(nblk, dtype=like.dtype, device=like.device)
                         for _ in range(2))
     coefs, iso = _coefs(deltas, weight)
-    err = lib.poissbox_rbsor_sweep(
-        DTYPE_CODE[like.dtype], DTYPE_CODE[out.dtype], _SWEEP[mode], iso,
-        like.device.index or 0, _stream(like), _ptr(x), _ptr(b), _ptr(r),
-        _ptr(ap), _ptr(alpha), _ptr(out), _ptr(bout), _ptr(part0),
-        _ptr(part1), *like.shape, *coefs, _colours(reverse)[0])
     key = mode
     if like.dtype == torch.bfloat16:
         key += ".bf16"
     elif out.dtype != like.dtype:
         key += ".narrow"
-    _raise_on(lib, err, key)
-    LAUNCHES[key] += 1
+    ptr = _build.ptr
+    code = _build.DTYPE_CODE
+    _build.launch(
+        "poissbox_rbsor_sweep", key, code[like.dtype], code[out.dtype], _SWEEP[mode], iso,
+        like.device.index or 0, _build.stream(like), ptr(x), ptr(b), ptr(r),
+        ptr(ap), ptr(alpha), ptr(out), ptr(bout), ptr(part0), ptr(part1), *like.shape, *coefs,
+        _colours(reverse)[0])
     if sums:
         return torch.sum(part0), torch.sum(part1)
     return None
@@ -467,18 +420,16 @@ def pupdate_lapl_dot_cuda(v: torch.Tensor, p_old: torch.Tensor, beta, zshift,
     if _on_cpu(v):
         return pupdate_lapl_dot_plain(v, p_old, beta, zshift, deltas)
     _check("stencil7.pupd_dot", v, p_old)
-    lib = _build.load()
     sc = torch.stack([torch.as_tensor(beta, dtype=v.dtype, device=v.device),
                       torch.as_tensor(zshift, dtype=v.dtype, device=v.device)])
     pn, y = torch.empty_like(v), torch.empty_like(v)
     part = _partials(v)
-    ivx, ivy, ivz = _invs(deltas)
-    err = lib.poissbox_pupd_dot(
-        DTYPE_CODE[v.dtype], v.device.index or 0, _stream(v), _ptr(v),
-        _ptr(p_old), _ptr(sc), _ptr(pn), _ptr(y), _ptr(part), *v.shape,
-        ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz))
-    _raise_on(lib, err, "stencil7.pupd_dot")
-    LAUNCHES["stencil7.pupd_dot"] += 1
+    ivx, ivy, ivz = inv_squares(deltas)
+    ptr = _build.ptr
+    _build.launch(
+        "poissbox_pupd_dot", "stencil7.pupd_dot", _build.DTYPE_CODE[v.dtype],
+        v.device.index or 0, _build.stream(v), ptr(v), ptr(p_old), ptr(sc), ptr(pn), ptr(y),
+        ptr(part), *v.shape, ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz))
     return pn, y, torch.sum(part)
 
 
@@ -513,15 +464,13 @@ def sor_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas, weight: float,
     if _on_cpu(u):
         return sor_sweep_plain(u, b, deltas, weight, color)
     _check("rbsor.general", u, b)
-    lib = _build.load()
     x = torch.empty_like(u)
     coefs, iso = _coefs(deltas, weight)
-    err = lib.poissbox_rbsor_colour(
-        DTYPE_CODE[u.dtype], iso, u.device.index or 0, _stream(u), _ptr(u),
-        _ptr(b), _ptr(x), *u.shape, *coefs, int(color))
     key = "rbsor.general" + (".bf16" if u.dtype == torch.bfloat16 else "")
-    _raise_on(lib, err, key)
-    LAUNCHES[key] += 1
+    ptr = _build.ptr
+    _build.launch(
+        "poissbox_rbsor_colour", key, _build.DTYPE_CODE[u.dtype], iso, u.device.index or 0,
+        _build.stream(u), ptr(u), ptr(b), ptr(x), *u.shape, *coefs, int(color))
     return x
 
 
@@ -596,16 +545,14 @@ def cg_fused_update_cuda(alpha, x: torch.Tensor, p: torch.Tensor,
     if _on_cpu(x):
         return cg_fused_update_plain(alpha, x, p, r, ap)
     _check("cgupd", x, p, r, ap)
-    lib = _build.load()
     dev = x.device.index or 0
     a = torch.as_tensor(alpha, dtype=x.dtype, device=x.device).reshape(1)
     xo, ro = torch.empty_like(x), torch.empty_like(r)
-    nblk = lib.poissbox_cgupd_blocks(x.numel(), dev)
+    nblk = _build.load().poissbox_cgupd_blocks(x.numel(), dev)
     prr = torch.empty(nblk, dtype=x.dtype, device=x.device)
     psr = torch.empty(nblk, dtype=x.dtype, device=x.device)
-    err = lib.poissbox_cgupd(DTYPE_CODE[x.dtype], dev, _stream(x), _ptr(a),
-                             _ptr(x), _ptr(p), _ptr(r), _ptr(ap), _ptr(xo),
-                             _ptr(ro), _ptr(prr), _ptr(psr), x.numel())
-    _raise_on(lib, err, "cgupd")
-    LAUNCHES["cgupd"] += 1
+    ptr = _build.ptr
+    _build.launch("poissbox_cgupd", "cgupd", _build.DTYPE_CODE[x.dtype], dev, _build.stream(x),
+                  ptr(a), ptr(x), ptr(p), ptr(r), ptr(ap), ptr(xo), ptr(ro), ptr(prr),
+                  ptr(psr), x.numel())
     return xo, ro, torch.sum(prr), torch.sum(psr)

@@ -21,7 +21,7 @@ The plain versions follow the Pallas grouping: K6's star is
 ``_star_ext``'s, and the x-transfers are the roll formulation's along
 axis 0. A CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. Launches count in
-:data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES` (``xfer.restrict``,
+:data:`poissbox_tpu_torch.ops._build.LAUNCHES` (``xfer.restrict``,
 ``xfer.prolong_add``, with ``.bf16u`` for a bf16 iterate).
 """
 
@@ -30,18 +30,12 @@ from __future__ import annotations
 import torch
 
 from poissbox_tpu_torch.ops import _build
-from poissbox_tpu_torch.ops.stencil_cuda import (
-    DTYPE_CODE,
-    LAUNCHES,
-    _invs,
-    _ptr,
-    _raise_on,
-    _star_ext,
-    _stream,
-    check_dtype,
-)
+from poissbox_tpu_torch.ops.stencil_cuda import check_dtype, inv_squares, star_ext
 
 _XMODE = {"xfer.restrict": 0, "xfer.prolong_add": 1}
+# the dtypes of the iterate u each mode takes (b, e and the output are
+# float32 or float64)
+DTYPES = dict.fromkeys(_XMODE, (torch.float32, torch.float64, torch.bfloat16))
 
 
 # ---------------------------------------------------------------------------
@@ -72,7 +66,7 @@ def prolong_axis(c: torch.Tensor, ax: int) -> torch.Tensor:
 def residual_xrestrict_plain(u, b, deltas):
     """(b - A u) restricted along x to (nx/2, ny, nz); u upcast to b's
     dtype first."""
-    return restrict_axis(b - _star_ext(u.to(b.dtype), _invs(deltas)), 0)
+    return restrict_axis(b - star_ext(u.to(b.dtype), inv_squares(deltas)), 0)
 
 
 def xprolong_add_plain(u, e_yz):
@@ -103,7 +97,7 @@ def _check(mode: str, u: torch.Tensor, be: torch.Tensor) -> None:
     if tuple(be.shape) != want:
         raise ValueError(f"{mode}: u {tuple(u.shape)} needs a field of "
                          f"shape {want}, got {tuple(be.shape)}")
-    check_dtype(mode, u.dtype)
+    check_dtype(mode, u.dtype, DTYPES)
     if be.dtype not in (torch.float32, torch.float64) or (
             u.dtype != be.dtype and u.dtype != torch.bfloat16):
         raise TypeError(f"{mode}: u {u.dtype} with {be.dtype}; the second "
@@ -113,16 +107,13 @@ def _check(mode: str, u: torch.Tensor, be: torch.Tensor) -> None:
 
 def _xfer(mode: str, u, be, out, deltas=(1.0, 1.0, 1.0)) -> None:
     """One launch; the spacing is read by the restriction only."""
-    lib = _build.load()
-    ivx, ivy, ivz = _invs(deltas)
-    err = lib.poissbox_xfer(
-        DTYPE_CODE[u.dtype], DTYPE_CODE[be.dtype], _XMODE[mode],
-        int(ivx == ivy == ivz), u.device.index or 0, _stream(u), _ptr(u),
-        _ptr(be), _ptr(out), *u.shape, ivx, ivy, ivz,
-        2.0 * (ivx + ivy + ivz), 6.0 * ivx)
+    ivx, ivy, ivz = inv_squares(deltas)
     key = mode + (".bf16u" if u.dtype != be.dtype else "")
-    _raise_on(lib, err, key)
-    LAUNCHES[key] += 1
+    code, ptr = _build.DTYPE_CODE, _build.ptr
+    _build.launch(
+        "poissbox_xfer", key, code[u.dtype], code[be.dtype], _XMODE[mode],
+        int(ivx == ivy == ivz), u.device.index or 0, _build.stream(u), ptr(u), ptr(be),
+        ptr(out), *u.shape, ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz), 6.0 * ivx)
 
 
 def residual_xrestrict_cuda(u: torch.Tensor, b: torch.Tensor,

@@ -50,7 +50,7 @@ A CPU tensor runs the plain versions (:func:`thomas_plain`,
 :func:`babe_plain`, :func:`compact_thomas_plain`, ``compact_pcr._vop``):
 the Pallas kernels' row loops on (n, B) tensors. A CUDA tensor launches the
 kernel or raises; any other device raises. Launches count in
-:data:`poissbox_tpu_torch.ops.stencil_cuda.LAUNCHES` as ``tridiag.thomas``,
+:data:`poissbox_tpu_torch.ops._build.LAUNCHES` as ``tridiag.thomas``,
 ``tridiag.pcr``, ``tridiag.babe``, ``tridiag.compact``, ``tridiag.dual``,
 ``tridiag.chain`` and ``tridiag.sum``, with ``.long`` for the streaming
 kernels of K13, K16 and K17.
@@ -58,20 +58,12 @@ kernels of K13, K16 and K17.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
 import torch
 
 from poissbox_tpu_torch.ops import _build, compact_pcr
-from poissbox_tpu_torch.ops.stencil_cuda import (
-    DTYPE_CODE,
-    LAUNCHES,
-    _ptr,
-    _raise_on,
-    _stream,
-)
 from poissbox_tpu_torch.ops.tridiag import TridiagFactor
 
 Tensor = torch.Tensor
@@ -607,27 +599,7 @@ def strip_lanes(mode: str, n: int, Q: int, dtype: torch.dtype, device) -> int:
     holds three 32-lane workers beside its factor tables and the lines make
     two strips an SM, else 16 when it holds two 16-lane workers, else 0
     (the streaming kernel)."""
-    return _strip_lanes(DTYPE_CODE[dtype], _MODES[mode], n, Q, _index(device))
-
-
-@contextlib.contextmanager
-def _forced_strip(mode: str, n: int, dtype: torch.dtype, device, lanes: int, stagger: int):
-    """For chip_smoke.py's comparison of the variants: inside, every K13,
-    K16 and K17 launch takes `lanes` (32 or 16 the strip kernel, 0 the
-    streaming one) and `stagger` (1 a block's workers in turn, 0 at once).
-    Yields False, and forces nothing, when a strip of `lanes` lanes of
-    lines of n rows does not fit one worker a block of `mode`."""
-    lib = _build.load()
-    code = DTYPE_CODE[dtype]
-    fits = lib.poissbox_strip_force(code, _MODES[mode], n, lanes, stagger, _index(device))
-    if fits < 0:
-        raise RuntimeError(f"poissbox_strip_force: error {-fits}")
-    _strip_lanes.cache_clear()
-    try:
-        yield bool(fits)
-    finally:
-        lib.poissbox_strip_force(code, _MODES[mode], n, -1, -1, _index(device))
-        _strip_lanes.cache_clear()
+    return _strip_lanes(_build.DTYPE_CODE[dtype], _MODES[mode], n, Q, _index(device))
 
 
 def _launch_compact(mode: str, ins, fvs, specs):
@@ -641,14 +613,12 @@ def _launch_compact(mode: str, ins, fvs, specs):
     pad = lambda seq, k: list(seq) + [None] * (k - len(seq))
     fv2 = fvs[1] if len(fvs) > 1 else (None,) * 4
     sp2 = specs[1] if len(specs) > 1 else (0.0, 0.0, 1, 0)
-    lib = _build.load()
-    err = lib.poissbox_compact_thomas(
-        DTYPE_CODE[f0.dtype], _MODES[mode], f0.device.index or 0, _stream(f0),
-        *map(_ptr, pad(ins, 3)), *map(_ptr, pad(outs, 2)), _ptr(mid), *map(_ptr, fvs[0]),
-        *map(_ptr, fv2), *specs[0], *sp2, n, Q)
-    key = f"tridiag.{mode}" + ("" if lanes else ".long")
-    _raise_on(lib, err, key)
-    LAUNCHES[key] += 1
+    ptr = _build.ptr
+    _build.launch(
+        "poissbox_compact_thomas", f"tridiag.{mode}" + ("" if lanes else ".long"),
+        _build.DTYPE_CODE[f0.dtype], _MODES[mode], f0.device.index or 0, _build.stream(f0),
+        *map(ptr, pad(ins, 3)), *map(ptr, pad(outs, 2)), ptr(mid), *map(ptr, fvs[0]),
+        *map(ptr, fv2), *specs[0], *sp2, n, Q)
     return tuple(outs) if mode == "dual" else outs[0]
 
 
@@ -767,16 +737,12 @@ class CudaTridiagFactor:
         name = "babe" if babe else "thomas"
         lanes = strip_lanes(name, self.n, d2.shape[1], d2.dtype, d2.device)
         x = torch.empty_like(d2)
-        lib = _build.load()
-        head = (DTYPE_CODE[d2.dtype], d2.device.index or 0, _stream(d2), _ptr(d2), _ptr(x),
-                *map(_ptr, v), self.n)
-        if babe:
-            err = lib.poissbox_babe(*head, self.babe_m, d2.shape[1])
-        else:
-            err = lib.poissbox_thomas(*head, d2.shape[1])
-        key = f"tridiag.{name}" + ("" if lanes else ".long")
-        _raise_on(lib, err, key)
-        LAUNCHES[key] += 1
+        ptr = _build.ptr
+        head = (_build.DTYPE_CODE[d2.dtype], d2.device.index or 0, _build.stream(d2), ptr(d2),
+                ptr(x), *map(ptr, v), self.n)
+        tail = (self.babe_m, d2.shape[1]) if babe else (d2.shape[1],)
+        _build.launch("poissbox_babe" if babe else "poissbox_thomas",
+                      f"tridiag.{name}" + ("" if lanes else ".long"), *head, *tail)
         return x
 
     def solve(self, d: Tensor, axis: int = 0, *, plain: bool = False) -> Tensor:

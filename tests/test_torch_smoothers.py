@@ -17,7 +17,7 @@ import torch
 from poissbox_tpu.ops import stencil_pallas as jpallas
 from poissbox_tpu.solvers import mg as jmg
 from poissbox_tpu_torch.mesh import Grid3D
-from poissbox_tpu_torch.ops import stencil_cuda
+from poissbox_tpu_torch.ops import gmres_cuda, stencil_cuda, transfer_cuda
 from poissbox_tpu_torch.solvers import mg
 
 GRIDS = [((16, 16, 16), (1.0, 1.0, 1.0)),
@@ -281,18 +281,20 @@ def test_kernel_dtype_table():
     iterate, KA's residual and Jacobi epilogues), refused where none does
     (KA's apply forms, K8, K5's inputs, KB dots)."""
     bf16 = torch.bfloat16
-    for mode in ("rbsor.zero", "rbsor.general", "xfer.restrict",
-                 "xfer.prolong_add", "stencil7.residual", "stencil7.jacobi"):
+    for mode in ("rbsor.zero", "rbsor.general", "stencil7.residual", "stencil7.jacobi"):
         stencil_cuda.check_dtype(mode, bf16)
+    for mode in ("xfer.restrict", "xfer.prolong_add"):
+        stencil_cuda.check_dtype(mode, bf16, transfer_cuda.DTYPES)
     for mode in ("stencil7.apply", "stencil7.apply_dot", "cgupd",
                  "rbsor.zero_update", "rbsor.dots"):
         with pytest.raises(TypeError, match="bfloat16"):
             stencil_cuda.check_dtype(mode, bf16)
-    for mode in stencil_cuda.DTYPES:
-        for dt in (torch.float32, torch.float64):
-            stencil_cuda.check_dtype(mode, dt)
-        with pytest.raises(TypeError):
-            stencil_cuda.check_dtype(mode, torch.float16)
+    for table in (stencil_cuda.DTYPES, transfer_cuda.DTYPES, gmres_cuda.DTYPES):
+        for mode in table:
+            for dt in (torch.float32, torch.float64):
+                stencil_cuda.check_dtype(mode, dt, table)
+            with pytest.raises(TypeError):
+                stencil_cuda.check_dtype(mode, torch.float16, table)
 
 
 # ---------------------------------------------------------------------------
@@ -345,7 +347,7 @@ def tiled_sweep(mode, f, deltas, reverse, tile, out_dtype=None):
     src = f["r"] if mode == "zero_update" else f["b"]
     shape, ti = tuple(src.shape), src.dtype
     wide = lambda t: t.float() if t.dtype == torch.bfloat16 else t
-    invs = stencil_cuda._invs(deltas)
+    invs = stencil_cuda.inv_squares(deltas)
     winv = stencil_cuda._winv(invs, W)
     c0, c1 = (1, 0) if reverse else (0, 1)
     out = torch.empty(shape, dtype=out_dtype or ti)

@@ -239,7 +239,7 @@ def streamed_restrict(u, b, deltas, tile):
     combines 2I-1 .. 2I+2 in K6's grouping."""
     shape = tuple(u.shape)
     nx, ny, nz = shape
-    ivx, ivy, ivz = stencil_cuda._invs(deltas)
+    ivx, ivy, ivz = stencil_cuda.inv_squares(deltas)
     out = torch.empty((nx // 2, ny, nz), dtype=b.dtype)
     ch, ty, tz = tile
     for I0 in range(0, nx // 2, ch):

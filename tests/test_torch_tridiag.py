@@ -250,10 +250,6 @@ class _FakeLib:
         self.calls.append(("strip_lanes",) + args)
         return self.lanes
 
-    def poissbox_strip_force(self, *args):
-        self.calls.append(("strip_force",) + args)
-        return 1
-
     def poissbox_thomas(self, *args):
         self.calls.append(("thomas",) + args)
         return self.err
@@ -271,7 +267,7 @@ def fake_lib(monkeypatch):
     def install(lanes, err=0):
         lib = _FakeLib(lanes, err)
         monkeypatch.setattr(_build, "load", lambda: lib)
-        monkeypatch.setattr(tridiag_cuda, "_stream", lambda t: None)
+        monkeypatch.setattr(_build, "stream", lambda t: None)
         monkeypatch.setattr(tridiag_cuda, "_index", lambda device: 0)
         tridiag_cuda._strip_lanes.cache_clear()
         return lib
@@ -297,9 +293,6 @@ def test_thomas_route_asks_strip_lanes(fake_lib, lanes, key):
     assert stencil_cuda.LAUNCHES[key] == 1 and sum(stencil_cuda.LAUNCHES.values()) == 1
     name, *args = lib.calls[-1]
     assert name == "thomas" and len(args) == 11 and args[0] == 1 and args[-2:] == [64, 96]
-    with tridiag_cuda._forced_strip("thomas", 64, torch.float32, "cuda:0", 16, 0) as fits:
-        assert fits
-    assert ("strip_force", 0, 5, 64, 16, 0, 0) in lib.calls
 
 
 def test_thomas_launch_error_raises(fake_lib):
