@@ -21,11 +21,13 @@ the benchmark's traced runs (`perfbench/run.py --trace 1`, the ledger's
      list the run parsed);
   3. kernels: every stencil7 epilogue (K12's p-update prologue
      included), rbsor mode (K11's single colour update and the one-launch
-     sweeps), xfer leg and the CG update against its plain PyTorch version
-     on the same card (64^3 f64, 256^3 f32, an anisotropic grid; the bf16
-     modes on the f32 cases and 512^3; the stencil7 epilogues, bf16 too, at
-     (48, 40, 96) f32; KA, KB and K6 also at a ragged (40, 36, 52) in f64
-     and f32, at 4^3 and 8^3 f64 and at odd (6, 5, 7) extents; KA's grid
+     sweeps), xfer leg (K6 and K7, each the whole 3-D transfer) and the
+     CG update against its plain PyTorch version on the same card (64^3
+     f64, 256^3 f32, an anisotropic grid; the bf16 modes on the f32 cases
+     and 512^3; the stencil7 epilogues and the xfer legs, bf16 too, at
+     (48, 40, 96) f32; KA, KB, K6 and K7 also at a ragged (40, 36, 52) in
+     f64 and f32 and at 4^3 and 8^3 f64, KA and KB at odd (6, 5, 7)
+     extents; the xfer legs bit for bit; KA's grid
      against ops/stencil_cuda.ka_blocks); the kernels of path (m) at every
      distributed block (DIST_BLOCKS); K11 bit for bit at those blocks,
      (6, 5, 7), (9, 6, 5), (40, 36, 52), (64, 32, 48), 256^3 and 512^3 in
@@ -41,8 +43,9 @@ the benchmark's traced runs (`perfbench/run.py --trace 1`, the ledger's
      gs_dots and gs_update_norm against their plain versions on a 31-row
      basis for 1 to 30 rows, at (33, 20, 27) f32 and f64 (single-value
      loads), 64^3 f64 and 512^3 f32;
-  4. transfers: the banded-matrix y/z transfers against the roll form in
-     f32 with TF32 allowed globally (the contractions must not use it);
+  4. transfers: the banded-matrix transfers (the "matmul" transfers of
+     levels that run no kernels) against the roll form in f32 with TF32
+     allowed globally (the contractions must not use it);
   5. compact and tridiagonal kernels: K15 (lapl, grad, div, interp, op_1d:
      compact.z/y/x; the register kernel for lines of 32 m points, the tile
      kernel for the rest, each case printing the kernels it took and the
@@ -253,15 +256,17 @@ RED_TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # banded-matrix transfers against the roll form, float32
 MM_TOL = 1e-6
 # the kernels whose fields must equal their plain versions bit for bit
-# (KA's epilogues, K11's colour update, K15 on both of its kernels, K14,
-# K13, K16 and K17 on their strip and streaming kernels, and the spectral
-# symbol multiply)
-BIT_EQUAL = ("stencil7.", "rbsor.general", "compact.", "tridiag.", "spectral.")
+# (KA's epilogues, K11's colour update, K6 and K7, K15 on both of its
+# kernels, K14, K13, K16 and K17 on their strip and streaming kernels, and
+# the spectral symbol multiply)
+BIT_EQUAL = ("stencil7.", "rbsor.general", "xfer.", "compact.", "tridiag.",
+             "spectral.")
 
 PALLAS = "poissbox_tpu/ops/stencil_pallas.py"
 INPLACE = "poissbox_tpu/ops/stencil_inplace.py"
 PCR = "poissbox_tpu/ops/compact_pcr.py"
 TRI = "poissbox_tpu/ops/tridiag_pallas.py"
+MG = "poissbox_tpu/solvers/mg.py"
 KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "stencil7.apply": ("stencil7.cu", f"{PALLAS}:348, {INPLACE}:389"),
     "stencil7.apply_dot": ("stencil7.cu", f"{PALLAS}:369, {PALLAS}:409, {INPLACE}:389"),
@@ -279,10 +284,10 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "rbsor.dots": ("rbsor.cu", f"{PALLAS}:848, {INPLACE}:275"),
     "rbsor.zero_update": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
     "rbsor.zero_update.narrow": ("rbsor.cu", f"{PALLAS}:758, {INPLACE}:679"),
-    "xfer.restrict": ("xfer.cu", f"{PALLAS}:971"),
-    "xfer.restrict.bf16u": ("xfer.cu", f"{PALLAS}:971"),
-    "xfer.prolong_add": ("xfer.cu", f"{PALLAS}:1044"),
-    "xfer.prolong_add.bf16u": ("xfer.cu", f"{PALLAS}:1044"),
+    "xfer.restrict": ("xfer.cu", f"{PALLAS}:971, {MG}:297 (axes (1, 2))"),
+    "xfer.restrict.bf16u": ("xfer.cu", f"{PALLAS}:971, {MG}:297 (axes (1, 2))"),
+    "xfer.prolong_add": ("xfer.cu", f"{PALLAS}:1044, {MG}:314 (axes (1, 2))"),
+    "xfer.prolong_add.bf16u": ("xfer.cu", f"{PALLAS}:1044, {MG}:314 (axes (1, 2))"),
     "cgupd": ("cgupd.cu", f"{PALLAS}:596"),
     "compact.z": ("compact.cu", f"{PCR}:282"),
     "compact.y": ("compact.cu", f"{PCR}:282"),
@@ -367,10 +372,10 @@ def mode_calls(deltas, narrow: bool):
          lambda f: sc.residual_plain(f["u"], f["b"], d)),
         ("stencil7.jacobi", lambda f: sc.jacobi_sweep_cuda(f["u"], f["b"], d, WJ),
          lambda f: sc.jacobi_sweep_plain(f["u"], f["b"], d, WJ)),
-        ("xfer.restrict", lambda f: tc.residual_xrestrict_cuda(f["u"], f["b"], d),
-         lambda f: tc.residual_xrestrict_plain(f["u"], f["b"], d)),
-        ("xfer.prolong_add", lambda f: tc.xprolong_add_cuda(f["u"], f["e"]),
-         lambda f: tc.xprolong_add_plain(f["u"], f["e"])),
+        ("xfer.restrict", lambda f: tc.residual_restrict_cuda(f["u"], f["b"], d),
+         lambda f: tc.residual_restrict_plain(f["u"], f["b"], d)),
+        ("xfer.prolong_add", lambda f: tc.prolong_add_cuda(f["u"], f["e"]),
+         lambda f: tc.prolong_add_plain(f["u"], f["e"])),
         ("cgupd",
          lambda f: sc.cg_fused_update_cuda(f["alpha"], f["u"], f["p"], f["r"], f["ap"]),
          lambda f: sc.cg_fused_update_plain(f["alpha"], f["u"], f["p"], f["r"],
@@ -421,10 +426,10 @@ def mode_calls(deltas, narrow: bool):
     if narrow:
         calls += [
             ("xfer.restrict.bf16u",
-             lambda f: tc.residual_xrestrict_cuda(f["u16"], f["b"], d),
-             lambda f: tc.residual_xrestrict_plain(f["u16"], f["b"], d)),
-            ("xfer.prolong_add.bf16u", lambda f: tc.xprolong_add_cuda(f["u16"], f["e"]),
-             lambda f: tc.xprolong_add_plain(f["u16"], f["e"])),
+             lambda f: tc.residual_restrict_cuda(f["u16"], f["b"], d),
+             lambda f: tc.residual_restrict_plain(f["u16"], f["b"], d)),
+            ("xfer.prolong_add.bf16u", lambda f: tc.prolong_add_cuda(f["u16"], f["e"]),
+             lambda f: tc.prolong_add_plain(f["u16"], f["e"])),
             ("stencil7.residual.bf16", lambda f: sc.residual_cuda(f["u16"], f["b16"], d),
              lambda f: sc.residual_plain(f["u16"], f["b16"], d)),
             ("stencil7.jacobi.bf16",
@@ -440,7 +445,7 @@ def fields(shape, dtype, seed):
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     mk = lambda s=shape: torch.rand(s, generator=g, dtype=dtype, device=DEVICE) * 2 - 0.75
     f = {"u": mk(), "b": mk(), "r": mk(), "ap": mk(), "p": mk(),
-         "e": mk((shape[0] // 2,) + tuple(shape[1:])),
+         "e": mk(tuple(n // 2 for n in shape)),
          "alpha": torch.tensor(ALPHA, dtype=dtype, device=DEVICE),
          "beta": torch.tensor(BETA, dtype=dtype, device=DEVICE),
          "zs": torch.tensor(ZSHIFT, dtype=dtype, device=DEVICE)}
@@ -480,10 +485,11 @@ def record(stats: dict, key: str, err: float) -> None:
     stats[key] = max(stats.get(key, 0.0), err)
 
 
-# KB's and K6's cases beyond the path shapes: a ragged (y, z) tile in f64
-# and f32 (the bf16 modes too), the 4^3 and 8^3 levels, where the 2-cell
-# halo wraps past the whole axis, and odd (y, z) extents, cubic cells and
-# not, where two z-adjacent cells across the wrap share a colour
+# KB's, K6's and K7's cases beyond the path shapes: a ragged (y, z) tile in
+# f64 and f32 (the bf16 modes too), the 4^3 and 8^3 levels, where the
+# 2-cell halo wraps past the whole axis, and (KA and KB only: the legs
+# take even extents) odd (y, z) extents, cubic cells and not, where two
+# z-adjacent cells across the wrap share a colour
 SMALL_CASES = [((40, 36, 52), (1.0, 1.0, 1.0), torch.float64),
                ((40, 36, 52), (1.0, 1.0, 1.0), torch.float32),
                ((4, 4, 4), (1.0, 1.0, 1.0), torch.float64),
@@ -517,11 +523,13 @@ def check_kernels(stats: dict) -> None:
                     ("xfer.", "cgupd", "stencil7.jacobi", "stencil7.apply_dot",
                      "stencil7.pupd_dot")):
                 continue      # at 512^3, only the modes of the 512^3 paths
-            if shape == (48, 40, 96) and not key.startswith("stencil7."):
-                continue      # the compact cases' shape: KA's epilogues, bf16 too
+            if shape == (48, 40, 96) and not key.startswith(("stencil7.", "xfer.")):
+                continue      # the compact cases' shape: KA's epilogues and the legs
             if (shape, length, dtype) in SMALL_CASES and not key.startswith(
-                    ("rbsor.", "xfer.restrict", "stencil7.")):
-                continue      # KA's, KB's and K6's ragged and wrapped-halo cases
+                    ("rbsor.", "xfer.", "stencil7.")):
+                continue      # KA's, KB's, K6's and K7's ragged and wrapped-halo cases
+            if key.startswith("xfer.") and any(n % 2 for n in shape):
+                continue      # the legs take even extents only
             err = compare(f"{name} {shape} {dtype}", kern(f), plain(f))
             torch.cuda.synchronize()
             if key.startswith(BIT_EQUAL) and err != 0.0:

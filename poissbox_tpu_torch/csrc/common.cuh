@@ -69,14 +69,15 @@ __device__ __forceinline__ int pmod(int i, int n) {
   return r < 0 ? r + n : r;
 }
 
-// The streaming kernels (rbsor.cu's sweep, xfer.cu's restriction): a block
-// of kTZ x kTileRows threads owns a kTZ x kTY (y, z) tile, z fastest (in the
-// restriction a warp is one row of 32 z values and a thread owns rows ty
-// and ty + kTileRows; in the sweep a thread owns a z-adjacent pair),
-// and walks a chunk of x planes, staging each plane's tile with a periodic
-// halo in shared memory. A thread issues the loads of the next plane into
-// registers right after the step's barrier, so they are in flight while it
-// computes.
+// The streaming kernels (rbsor.cu's sweep, stencil7.cu's KA): a block of
+// kTZ x kTileRows threads owns a kTZ x kTY (y, z) tile, z fastest (in KA a
+// warp is one row of 32 z values and a thread owns rows ty and
+// ty + kTileRows; in the sweep a thread owns a z-adjacent pair), and walks
+// a chunk of x planes, staging each plane's tile with a periodic halo in
+// shared memory (xfer.cu's transfer legs walk coarse planes with the same
+// block over a coarse kTileRows x kTZ tile). A thread issues the loads of
+// the next plane into registers right after the step's barrier, so they
+// are in flight while it computes.
 constexpr int kTZ = 32;
 constexpr int kTY = 16;
 constexpr int kTileRows = 8;

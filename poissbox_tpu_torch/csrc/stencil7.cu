@@ -42,10 +42,10 @@
 // reads v and p_old and writes p' and A p', 4 passes: 0.080 ms at 256^3
 // f32, 0.641 ms at 512^3.
 //
-// Design: streamed along x, on the geometry of rbsor.cu's sweep and
-// xfer.cu's restriction (common.cuh: tile_block, tile_grid, tile_chunk,
-// TileWindow). A block of 256 threads owns a 32 x 16 (y, z) tile, z
-// fastest, two rows a thread, and walks a chunk of x planes (ka_chunk:
+// Design: streamed along x, on the geometry of rbsor.cu's sweep
+// (common.cuh: tile_block, tile_grid, tile_chunk, TileWindow). A block of
+// 256 threads owns a 32 x 16 (y, z) tile, z fastest, two rows a thread,
+// and walks a chunk of x planes (ka_chunk:
 // about kKaMinBlocks = 4096 blocks, 64 planes at 512^3, 8 at 256^3; at most
 // 40 registers a thread, so six blocks share an SM). The plane at
 // hand sits in shared memory with a 1-cell periodic (y, z) halo, in a ring

@@ -1,28 +1,35 @@
-"""Hopper kernels of the multigrid transfer legs fused along x.
+"""Hopper kernels of the multigrid transfer legs, each leg whole in one
+launch.
 
 The port of the two transfer kernels of :mod:`poissbox_tpu.ops.stencil_pallas`
-(``csrc/xfer.cu``, two modes):
+together with the y/z transfers that follow and precede them in the JAX
+package (``restrict_mm`` / ``prolong_mm`` over axes (1, 2)); ``csrc/xfer.cu``,
+two modes:
 
-  =========================  ===========================  ===
-  wrapper                    Pallas counterpart           TPU
-  =========================  ===========================  ===
-  residual_xrestrict_cuda    residual_xrestrict_pallas    K6
-  xprolong_add_cuda          xprolong_add_pallas          K7
-  =========================  ===========================  ===
+  ======================  ======================================  ===
+  wrapper                 JAX counterpart                         TPU
+  ======================  ======================================  ===
+  residual_restrict_cuda  restrict_mm(residual_xrestrict_pallas,  K6
+                          axes=(1, 2))
+  prolong_add_cuda        xprolong_add_pallas(u, prolong_mm(e,    K7
+                          axes=(1, 2)))
+  ======================  ======================================  ===
 
 With ``transfers="matmul"`` every kernel level of the V-cycle goes down
-through K6 and the y/z restriction ``restrict_mm(axes=(1, 2))``, and up
-through ``prolong_mm(axes=(1, 2))`` and K7 (:mod:`poissbox_tpu_torch.solvers.mg`),
-so the full-size residual and the full-size prolonged correction are never
-stored. The iterate u may be bf16 (the 512^3-class bf16 pre-smooth): both
-legs upcast it before any arithmetic and return b's (e's) dtype.
+through K6, from (u, b) straight to the coarse residual, and up through K7,
+from the coarse correction straight to u + P e
+(:mod:`poissbox_tpu_torch.solvers.mg`): neither the full-size residual, nor
+the prolonged correction, nor a half-size intermediate is stored. The
+iterate u may be bf16 (the 512^3-class bf16 pre-smooth): both legs upcast
+it before any arithmetic and return b's (e's) dtype.
 
-The plain versions follow the Pallas grouping: K6's star is
-``_star_ext``'s, and the x-transfers are the roll formulation's along
-axis 0. A CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises. Launches count in
-:data:`poissbox_tpu_torch.ops._build.LAUNCHES` (``xfer.restrict``,
-``xfer.prolong_add``, with ``.bf16u`` for a bf16 iterate).
+The plain versions compose the roll formulation one axis at a time: K6's
+star is ``_star_ext``'s, then full weighting along x, y and z; K7 prolongs
+along y, z and then x and adds u. The kernels round every sum as they do.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel or
+raises. Launches count in :data:`poissbox_tpu_torch.ops._build.LAUNCHES`
+(``xfer.restrict``, ``xfer.prolong_add``, with ``.bf16u`` for a bf16
+iterate).
 """
 
 from __future__ import annotations
@@ -65,13 +72,26 @@ def prolong_axis(c: torch.Tensor, ax: int) -> torch.Tensor:
 
 def residual_xrestrict_plain(u, b, deltas):
     """(b - A u) restricted along x to (nx/2, ny, nz); u upcast to b's
-    dtype first."""
+    dtype first (the Pallas K6, residual_xrestrict_pallas)."""
     return restrict_axis(b - star_ext(u.to(b.dtype), inv_squares(deltas)), 0)
 
 
 def xprolong_add_plain(u, e_yz):
-    """u + P_x(e_yz), in e_yz's dtype; e_yz is (nx/2, ny, nz)."""
+    """u + P_x(e_yz), in e_yz's dtype; e_yz is (nx/2, ny, nz) (the Pallas
+    K7, xprolong_add_pallas)."""
     return u.to(e_yz.dtype) + prolong_axis(e_yz, 0)
+
+
+def residual_restrict_plain(u, b, deltas):
+    """K6: (b - A u) restricted along x, then y, then z, to
+    (nx/2, ny/2, nz/2) in b's dtype."""
+    return restrict_axis(restrict_axis(residual_xrestrict_plain(u, b, deltas), 1), 2)
+
+
+def prolong_add_plain(u, e):
+    """K7: u + P e, e at (nx/2, ny/2, nz/2) prolonged along y, then z,
+    then x; in e's dtype."""
+    return xprolong_add_plain(u, prolong_axis(prolong_axis(e, 1), 2))
 
 
 # ---------------------------------------------------------------------------
@@ -79,9 +99,9 @@ def xprolong_add_plain(u, e_yz):
 # ---------------------------------------------------------------------------
 
 def _check(mode: str, u: torch.Tensor, be: torch.Tensor) -> None:
-    """u: the fine iterate, (nx, ny, nz) with nx even; be: b (fine shape)
-    or e (nx/2, ny, nz), float32 or float64; all contiguous on one CUDA
-    device."""
+    """u: the fine iterate, (nx, ny, nz) with every extent even; be: b
+    (fine shape) or e (nx/2, ny/2, nz/2), float32 or float64; all
+    contiguous on one CUDA device."""
     for t in (u, be):
         if t.device.type != "cuda":
             raise ValueError(f"expected a CUDA tensor, got one on {t.device}")
@@ -89,11 +109,10 @@ def _check(mode: str, u: torch.Tensor, be: torch.Tensor) -> None:
             raise ValueError("the CUDA kernels take contiguous fields")
     if u.device != be.device:
         raise ValueError(f"tensors on {u.device} and {be.device}")
-    if u.dim() != 3 or u.shape[0] % 2:
-        raise ValueError(f"{mode}: u must be 3-D with an even nx, got "
+    if u.dim() != 3 or any(n % 2 for n in u.shape):
+        raise ValueError(f"{mode}: u must be 3-D with even extents, got "
                          f"{tuple(u.shape)}")
-    nx, ny, nz = u.shape
-    want = (nx, ny, nz) if mode == "xfer.restrict" else (nx // 2, ny, nz)
+    want = tuple(u.shape) if mode == "xfer.restrict" else tuple(n // 2 for n in u.shape)
     if tuple(be.shape) != want:
         raise ValueError(f"{mode}: u {tuple(u.shape)} needs a field of "
                          f"shape {want}, got {tuple(be.shape)}")
@@ -116,24 +135,24 @@ def _xfer(mode: str, u, be, out, deltas=(1.0, 1.0, 1.0)) -> None:
         ptr(out), *u.shape, ivx, ivy, ivz, 2.0 * (ivx + ivy + ivz), 6.0 * ivx)
 
 
-def residual_xrestrict_cuda(u: torch.Tensor, b: torch.Tensor,
-                            deltas) -> torch.Tensor:
-    """(b - A u) restricted along x, (nx/2, ny, nz) in b's dtype (K6)."""
+def residual_restrict_cuda(u: torch.Tensor, b: torch.Tensor,
+                           deltas) -> torch.Tensor:
+    """(b - A u) restricted along x, y and z, (nx/2, ny/2, nz/2) in b's
+    dtype (K6)."""
     if u.device.type == "cpu":
-        return residual_xrestrict_plain(u, b, deltas)
+        return residual_restrict_plain(u, b, deltas)
     _check("xfer.restrict", u, b)
-    nx, ny, nz = u.shape
-    out = torch.empty((nx // 2, ny, nz), dtype=b.dtype, device=b.device)
+    out = torch.empty(tuple(n // 2 for n in u.shape), dtype=b.dtype, device=b.device)
     _xfer("xfer.restrict", u, b, out, deltas)
     return out
 
 
-def xprolong_add_cuda(u: torch.Tensor, e_yz: torch.Tensor) -> torch.Tensor:
-    """u + P_x(e_yz) at u's shape, in e_yz's dtype (K7). The output is a
-    new tensor: u is not written."""
+def prolong_add_cuda(u: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """u + P e at u's shape, in e's dtype (K7), e at (nx/2, ny/2, nz/2).
+    The output is a new tensor: u is not written."""
     if u.device.type == "cpu":
-        return xprolong_add_plain(u, e_yz)
-    _check("xfer.prolong_add", u, e_yz)
-    out = torch.empty(u.shape, dtype=e_yz.dtype, device=e_yz.device)
-    _xfer("xfer.prolong_add", u, e_yz, out)
+        return prolong_add_plain(u, e)
+    _check("xfer.prolong_add", u, e)
+    out = torch.empty(u.shape, dtype=e.dtype, device=e.device)
+    _xfer("xfer.prolong_add", u, e, out)
     return out

@@ -7,8 +7,9 @@ part of :mod:`poissbox_tpu.solvers.mg`).
   * smoothers: red-black SOR (the post-smoother runs the colours in
     reverse, so one cycle is symmetric), damped Jacobi, or Chebyshev;
   * transfers: cell-centred full weighting and trilinear prolongation
-    (P = 2 R^T), in the roll formulation or as banded-matrix
-    contractions ("matmul");
+    (P = 2 R^T), in the roll formulation, as banded-matrix contractions
+    ("matmul"), or, on kernel levels with "matmul", as one fused kernel
+    each way;
   * coarse solve: the SVD pseudo-inverse of the assembled coarse
     Laplacian, computed once with the JAX package's numpy code.
 
@@ -18,8 +19,13 @@ package's ``min(shape) >= 16`` Pallas gate is a TPU tiling rule and has no
 counterpart. ``transfers="auto"`` resolves to "matmul" on a CUDA device,
 as the JAX package resolves it on its accelerator, so every non-coarsest
 kernel level takes the fused legs of
-:mod:`poissbox_tpu_torch.ops.transfer_cuda` (K6 down, K7 up) with the y/z
-transfers as contractions; on the CPU it resolves to "roll".
+:mod:`poissbox_tpu_torch.ops.transfer_cuda`: K6 goes from (x, b) straight
+to the coarse residual, K7 from the coarse correction straight to x + P e,
+the whole 3-D transfer in one launch each (the JAX package does x in its
+kernels and y/z as contractions; the sums are the same, rounded as the roll
+form rounds them). The other "matmul" levels, ``impl="roll"``, contract
+with the banded matrices (`restrict_mm`, `prolong_mm`). On the CPU "auto"
+resolves to "roll".
 ``impl="cuda"`` on CPU tensors runs the kernels' plain versions on every
 level, so ``impl="cuda", transfers="matmul"`` walks the card's call graph
 on the CPU. ``impl="roll"`` is the plain formulation on any device.
@@ -62,10 +68,10 @@ from poissbox_tpu_torch.ops.stencil_cuda import (
     sor_rb_zero_update_cuda,
 )
 from poissbox_tpu_torch.ops.transfer_cuda import (
+    prolong_add_cuda,
     prolong_axis,
-    residual_xrestrict_cuda,
+    residual_restrict_cuda,
     restrict_axis,
-    xprolong_add_cuda,
 )
 from poissbox_tpu_torch.parallel import dist_stencil as ds
 from poissbox_tpu_torch.parallel.halo import halo_pad_local, pad_from_global
@@ -168,11 +174,12 @@ def _transfers(cfg: MGConfig, device) -> str:
 
 def _fused_leg(levels: Sequence[_Level], cfg: MGConfig, idx: int,
                device) -> bool:
-    """True when level `idx` goes down through K6 and up through K7 (the
-    path that takes a narrow pre-smooth iterate as it is): every
-    non-coarsest kernel level with matmul transfers whose own and next
-    level run on one device or replicated (never across a distributed
-    level, as in the JAX package)."""
+    """True when level `idx` goes down through K6 and up through K7, one
+    launch each way with the whole 3-D transfer in it (the path that takes
+    a narrow pre-smooth iterate as it is): every non-coarsest kernel level
+    with matmul transfers whose own and next level run on one device or
+    replicated (never across a distributed level, as in the JAX
+    package)."""
     return (idx < len(levels) - 1 and _transfers(cfg, device) == "matmul"
             and _kernels(cfg, device) and levels[idx].grid is None
             and levels[idx + 1].grid is None)
@@ -357,8 +364,9 @@ def _contract(f: Tensor, axes, transpose: bool) -> Tensor:
 
 
 def restrict_mm(f: Tensor, axes=(0, 1, 2)) -> Tensor:
-    """restrict() as one banded-matrix contraction per axis of `axes` (the
-    fused leg K6 restricts along x itself and passes axes=(1, 2))."""
+    """restrict() as one banded-matrix contraction per axis of `axes`: the
+    "matmul" transfers of levels that run no kernels (``impl="roll"``); a
+    kernel level's fused legs restrict and prolong inside K6 and K7."""
     return _contract(f, axes, transpose=False)
 
 
@@ -570,13 +578,12 @@ def _v_cycle_rest(levels: Sequence[_Level], coarse_pinv: Tensor,
     correction, prolong, post-smooth (shared with apply_update_dots)."""
     lvl = levels[idx]
     if _fused_leg(levels, cfg, idx, b.device):
-        # down: residual and x-restriction in one kernel (K6), then the y/z
-        # restriction on the half-size field; up: the y/z prolongation,
-        # then x-prolongation and the add in one kernel (K7). Neither the
-        # full-size residual nor the prolonged correction is stored.
-        rc = restrict_mm(residual_xrestrict_cuda(x, b, lvl.deltas), axes=(1, 2))
+        # down: the residual restricted along x, y and z in one kernel
+        # (K6); up: the correction prolonged along y, z and x and added in
+        # one kernel (K7). No fine or half-size intermediate is stored.
+        rc = residual_restrict_cuda(x, b, lvl.deltas)
         ec = _coarse_correct(levels, coarse_pinv, cfg, rc, idx + 1)
-        x = xprolong_add_cuda(x, prolong_mm(ec, axes=(1, 2)))
+        x = prolong_add_cuda(x, ec)
     elif lvl.grid is not None:
         # a distributed level: the roll-form transfers on halo-padded
         # blocks, with a gather or a cut where the next level is replicated

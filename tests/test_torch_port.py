@@ -80,9 +80,10 @@ WRAPPERS = {
         u, u, 0.5, 0.1, d),
     "cg_fused_update_cuda": lambda u, d: stencil_cuda.cg_fused_update_cuda(
         0.5, u, u, u, u),
-    "residual_xrestrict_cuda": lambda u, d: transfer_cuda.residual_xrestrict_cuda(
+    "residual_restrict_cuda": lambda u, d: transfer_cuda.residual_restrict_cuda(
         u, u, d),
-    "xprolong_add_cuda": lambda u, d: transfer_cuda.xprolong_add_cuda(u, u[:4]),
+    "prolong_add_cuda": lambda u, d: transfer_cuda.prolong_add_cuda(
+        u, u[:4, :4, :4]),
     "gs_dots": lambda u, d: gmres_cuda.gs_dots(u, 2, u[0]),
     "gs_update_norm": lambda u, d: gmres_cuda.gs_update_norm(u, 2, u[0, 0, :2], u[0],
                                                              u[3]),

@@ -1,11 +1,16 @@
 """The port's multigrid transfers against the JAX package.
 
-The plain versions of the fused legs, K6 (residual + x-restriction) and K7
-(x-prolongation + add), are held to the Pallas kernels in interpret mode,
-in f64 and with a bf16 iterate; restrict_mm/prolong_mm to JAX's and to the
+The x-only plain versions of the Pallas K6 (residual + x-restriction) and
+K7 (x-prolongation + add) are held to the Pallas kernels in interpret
+mode, in f64 and with a bf16 iterate; the fused legs' plain versions (the
+whole 3-D transfer, which K6 and K7 compute in one launch each) to JAX's
+roll-form restrict and prolong; restrict_mm/prolong_mm to JAX's and to the
 roll form; the fused-leg cycle (transfers="matmul", impl="cuda": the card's
-call graph on CPU tensors) to JAX's impl="pallas" cycle; and MG-CG with
-the fused legs to JAX's iteration count.
+call graph on CPU tensors) to JAX's impl="pallas" cycle, without reaching
+the contractions; MG-CG with the fused legs to JAX's iteration count; and
+the kernels' block decomposition, mirrored on the CPU, to the plain
+versions bit for bit. The kernels themselves are held to the plain
+versions on the card in tests/test_torch_transfers_card.py.
 """
 
 import jax
@@ -16,6 +21,7 @@ import torch
 
 from poissbox_tpu.mesh import Grid3D as JGrid3D
 from poissbox_tpu.ops import stencil_pallas as jpallas
+from poissbox_tpu.ops.stencil import apply_laplacian as japply_laplacian
 from poissbox_tpu.ops.stencil import make_laplacian_operator as jmake_operator
 from poissbox_tpu.solvers import mg as jmg
 from poissbox_tpu.solvers.cg import cg as jcg
@@ -119,14 +125,69 @@ def test_transfer_contractions_match_jax_and_roll(shape, axes):
 
 def test_transfer_wrappers_take_plain_version_on_cpu():
     u, b = (t(a) for a in fields((8, 8, 8), 49, 2))
-    (e,) = (t(a) for a in fields((4, 8, 8), 50))
+    (e,) = (t(a) for a in fields((4, 4, 4), 50))
     d = (0.125,) * 3
     stencil_cuda.reset_launches()
-    assert torch.equal(transfer_cuda.residual_xrestrict_cuda(u, b, d),
-                       transfer_cuda.residual_xrestrict_plain(u, b, d))
-    assert torch.equal(transfer_cuda.xprolong_add_cuda(u, e),
-                       transfer_cuda.xprolong_add_plain(u, e))
+    assert torch.equal(transfer_cuda.residual_restrict_cuda(u, b, d),
+                       transfer_cuda.residual_restrict_plain(u, b, d))
+    assert torch.equal(transfer_cuda.prolong_add_cuda(u, e),
+                       transfer_cuda.prolong_add_plain(u, e))
     assert not any(stencil_cuda.LAUNCHES.values())
+
+
+# the fused legs' plain versions against JAX's roll form: cubic cells at
+# 8^3 and 16^3, anisotropic cells, and uneven even extents
+FUSED_GRIDS = [((8, 8, 8), (1.0, 1.0, 1.0)), ((16, 16, 16), (1.0, 1.0, 1.0)),
+               ((32, 16, 24), (1.0, 0.75, 1.5)), ((12, 20, 6), (0.5, 1.0, 0.25))]
+FUSED_IDS = ["8^3", "16^3", "aniso", "12x20x6"]
+
+
+@pytest.mark.parametrize("shape,length", FUSED_GRIDS, ids=FUSED_IDS)
+def test_residual_restrict_plain_matches_jax_roll(shape, length):
+    """K6's plain version is JAX's restrict(b - A u), in f64."""
+    u, b = fields(shape, 54, 2)
+    d = Grid3D(shape, length, device="cpu").deltas
+    ref = jmg.restrict(jnp.asarray(b) - japply_laplacian(jnp.asarray(u), d))
+    got = transfer_cuda.residual_restrict_plain(t(u), t(b), d)
+    assert tuple(got.shape) == tuple(n // 2 for n in shape)
+    close(got.numpy(), ref, 1e-13)
+
+
+@pytest.mark.parametrize("shape,length", FUSED_GRIDS, ids=FUSED_IDS)
+def test_prolong_add_plain_matches_jax_roll(shape, length):
+    """K7's plain version is JAX's u + prolong(e), in f64."""
+    (u,) = fields(shape, 55)
+    (e,) = fields(tuple(n // 2 for n in shape), 56)
+    ref = jnp.asarray(u) + jmg.prolong(jnp.asarray(e))
+    got = transfer_cuda.prolong_add_plain(t(u), t(e))
+    assert tuple(got.shape) == shape
+    close(got.numpy(), ref, 1e-13)
+
+
+@pytest.mark.parametrize("pre_dtype", ["", "bfloat16"])
+def test_fused_branch_never_contracts(monkeypatch, pre_dtype):
+    """A cycle whose every transfer goes through the fused legs (the card's
+    call graph on CPU tensors, f32, with and without the bf16 pre-smooth)
+    reaches neither restrict_mm nor prolong_mm, and gives the cycle of
+    the roll transfers to f32 rounding (the roll form prolongs along x
+    first, the fused leg last)."""
+    def refuse(*args, **kwargs):
+        raise AssertionError("a fused leg reached the banded contractions")
+
+    n = 16
+    shape, d = (n,) * 3, (1.0 / n,) * 3
+    kw = dict(impl="cuda", pre_smooth=1, post_smooth=1, pre_dtype=pre_dtype)
+    r = t(fields(shape, 57)[0]).float()
+    roll = mg.make_mg_preconditioner(shape, d, mg.MGConfig(transfers="roll", **kw),
+                                     torch.float32, device="cpu")
+    monkeypatch.setattr(mg, "_contract", refuse)
+    M = mg.make_mg_preconditioner(shape, d, mg.MGConfig(transfers="matmul", **kw),
+                                  torch.float32, device="cpu")
+    levels = M.levels
+    assert all(mg._fused_leg(levels, M.config, i, "cpu")
+               for i in range(len(levels) - 1))
+    got, ref = M(r), roll(r)
+    assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
 
 
 def test_transfers_resolve_by_device():
@@ -229,78 +290,152 @@ def test_mgcg_fused_legs_iteration_parity_32():
 
 
 # ---------------------------------------------------------------------------
-# K6 streamed along x (csrc/xfer.cu restrict_kernel): its premise on the CPU
+# K6 and K7 as csrc/xfer.cu's blocks compute them: their premise on the CPU
 # ---------------------------------------------------------------------------
 
+def star_of(uw, ivx, ivy, ivz):
+    """The 7-point star at the interior of a window, in K6's grouping."""
+    c = uw[1:-1, 1:-1, 1:-1]
+    xm, xp = uw[:-2, 1:-1, 1:-1], uw[2:, 1:-1, 1:-1]
+    ym, yp = uw[1:-1, :-2, 1:-1], uw[1:-1, 2:, 1:-1]
+    zm, zp = uw[1:-1, 1:-1, :-2], uw[1:-1, 1:-1, 2:]
+    if ivx == ivy == ivz:
+        s = ((xm + xp) + (ym + yp)) + (zm + zp)
+        return s * ivx - (6.0 * ivx) * c
+    s = (xm + xp) * ivx
+    s = s + (ym + yp) * ivy
+    s = s + (zm + zp) * ivz
+    return s - (2.0 * (ivx + ivy + ivz)) * c
+
+
+def restrict_in(f, ax):
+    """Full weighting along `ax` of a window holding f_{2I-1} .. f_{2I+2}
+    of every coarse I, in K6's grouping."""
+    n = f.shape[ax]
+    dn, even, odd, up = (f.narrow(ax, k, n - 3).unfold(ax, 1, 2).squeeze(-1)
+                         for k in range(4))
+    return ((3.0 * (even + odd) + up) + dn) * 0.125
+
+
+def windows(shape, lo, n):
+    """Wrapped index vectors of a window starting at `lo` (per axis) and
+    `n` long."""
+    return [torch.arange(a, a + k) % s for a, k, s in zip(lo, n, shape)]
+
+
+def take(f, idx):
+    return f[idx[0]][:, idx[1]][:, :, idx[2]]
+
+
 def streamed_restrict(u, b, deltas, tile):
-    """R_x(b - A u) as the kernel's blocks compute it: a block owns a
-    (y, z) tile and a chunk of coarse planes, computes each fine residual
-    it needs once, from u on the tile and a 1-cell wrapped halo, and
-    combines 2I-1 .. 2I+2 in K6's grouping."""
-    shape = tuple(u.shape)
-    nx, ny, nz = shape
+    """R_z R_y R_x (b - A u) as K6's blocks compute it: a block owns a
+    coarse (y, z) tile and a chunk of coarse planes, computes each fine
+    residual it needs once, over the fine tile and a 1-cell wrapped halo
+    from u on a 2-cell halo, restricts along x (planes 2I-1 .. 2I+2), then
+    along y and z over the region."""
+    nx, ny, nz = u.shape
+    nxc, nyc, nzc = nx // 2, ny // 2, nz // 2
     ivx, ivy, ivz = stencil_cuda.inv_squares(deltas)
-    out = torch.empty((nx // 2, ny, nz), dtype=b.dtype)
-    ch, ty, tz = tile
-    for I0 in range(0, nx // 2, ch):
-        m = min(ch, nx // 2 - I0)
-        for j0 in range(0, ny, ty):
-            for k0 in range(0, nz, tz):
-                idx = [torch.arange(2 * I0 - 2, 2 * (I0 + m) + 2) % nx,
-                       torch.arange(j0 - 1, j0 + ty + 1) % ny,
-                       torch.arange(k0 - 1, k0 + tz + 1) % nz]
-                uw = u[idx[0]][:, idx[1]][:, :, idx[2]].to(b.dtype)
-                bw = b[idx[0][1:-1]][:, idx[1][1:-1]][:, :, idx[2][1:-1]]
-                c = uw[1:-1, 1:-1, 1:-1]
-                xm, xp = uw[:-2, 1:-1, 1:-1], uw[2:, 1:-1, 1:-1]
-                ym, yp = uw[1:-1, :-2, 1:-1], uw[1:-1, 2:, 1:-1]
-                zm, zp = uw[1:-1, 1:-1, :-2], uw[1:-1, 1:-1, 2:]
-                if ivx == ivy == ivz:
-                    s = ((xm + xp) + (ym + yp)) + (zm + zp)
-                    star = s * ivx - (6.0 * ivx) * c
-                else:
-                    s = (xm + xp) * ivx
-                    s = s + (ym + yp) * ivy
-                    s = s + (zm + zp) * ivz
-                    star = s - (2.0 * (ivx + ivy + ivz)) * c
-                r = bw - star   # fine planes 2I0-1 .. 2(I0+m), each once
-                dn, even, odd, up = r[0:-3:2], r[1:-2:2], r[2:-1:2], r[3::2]
-                rc = ((3.0 * (even + odd) + up) + dn) * 0.125
-                jn, kn = min(ty, ny - j0), min(tz, nz - k0)
-                out[I0:I0 + m, j0:j0 + jn, k0:k0 + kn] = rc[:, :jn, :kn]
+    out = torch.empty((nxc, nyc, nzc), dtype=b.dtype)
+    ch, cy, cz = tile
+    for I0 in range(0, nxc, ch):
+        m = min(ch, nxc - I0)
+        for J0 in range(0, nyc, cy):
+            for K0 in range(0, nzc, cz):
+                lo = (2 * I0 - 2, 2 * J0 - 2, 2 * K0 - 2)
+                uw = take(u, windows(u.shape, lo, (2 * m + 4, 2 * cy + 4, 2 * cz + 4)))
+                bw = take(b, windows(u.shape, [a + 1 for a in lo],
+                                     (2 * m + 2, 2 * cy + 2, 2 * cz + 2)))
+                r = bw - star_of(uw.to(b.dtype), ivx, ivy, ivz)
+                rc = restrict_in(restrict_in(restrict_in(r, 0), 1), 2)
+                jn, kn = min(cy, nyc - J0), min(cz, nzc - K0)
+                out[I0:I0 + m, J0:J0 + jn, K0:K0 + kn] = rc[:, :jn, :kn]
     return out
 
 
-def kernel_restrict_tile(shape):
-    """(chunk, 16, 32): the coarse planes and (y, z) tile of a K6 block, as
-    csrc/common.cuh tile_chunk picks them."""
-    nxc, ny, nz = shape[0] // 2, shape[1], shape[2]
-    tiles = -(-nz // 32) * -(-ny // 16)
-    c = 16
-    while c > 4 and tiles * -(-nxc // c) < 2048:
+def streamed_prolong_add(u, e, tile):
+    """u + P_x P_z P_y e as K7's blocks compute it: a block owns a coarse
+    (y, z) tile and a chunk of coarse planes, stages coarse planes I0-1 ..
+    I0+m with a 1-cell wrapped halo, prolongs each along y and z at its
+    fine tile, and combines planes I-1, I, I+1 into fine planes 2I, 2I+1."""
+    nx, ny, nz = u.shape
+    nxc, nyc, nzc = e.shape
+    out = torch.empty(u.shape, dtype=e.dtype)
+    ch, cy, cz = tile
+
+    def near(n):   # the window cell of each fine index, and its neighbour
+        f = torch.arange(2 * n)
+        return f // 2 + 1, f // 2 + 1 + torch.where(f % 2 == 1, 1, -1)
+
+    (ry, ryn), (rz, rzn) = near(cy), near(cz)
+    for I0 in range(0, nxc, ch):
+        m = min(ch, nxc - I0)
+        for J0 in range(0, nyc, cy):
+            for K0 in range(0, nzc, cz):
+                ew = take(e, windows(e.shape, (I0 - 1, J0 - 1, K0 - 1),
+                                     (m + 2, cy + 2, cz + 2)))
+                ey = 0.75 * ew[:, ry] + 0.25 * ew[:, ryn]
+                c = 0.75 * ey[:, :, rz] + 0.25 * ey[:, :, rzn]
+                even = 0.75 * c[1:-1] + 0.25 * c[:-2]
+                odd = 0.75 * c[1:-1] + 0.25 * c[2:]
+                corr = torch.stack([even, odd], 1).reshape((2 * m, 2 * cy, 2 * cz))
+                jn, kn = min(2 * cy, ny - 2 * J0), min(2 * cz, nz - 2 * K0)
+                sl = (slice(2 * I0, 2 * (I0 + m)), slice(2 * J0, 2 * J0 + jn),
+                      slice(2 * K0, 2 * K0 + kn))
+                out[sl] = u[sl].to(e.dtype) + corr[:, :jn, :kn]
+    return out
+
+
+def kernel_tile(shape):
+    """(chunk, 8, 32): the coarse planes and coarse (y, z) tile of a K6 or
+    K7 block, as csrc/xfer.cu xfer_chunk picks them."""
+    nxc, nyc, nzc = (n // 2 for n in shape)
+    tiles = -(-nzc // 32) * -(-nyc // 8)
+    c = 32
+    while c > 1 and tiles * -(-nxc // c) < 2048:
         c //= 2
-    return c, 16, 32
+    return c, 8, 32
 
 
-RESTRICT_CASES = [((8, 8, 8), (1.0, 1.0, 1.0), (1, 4, 8)),
-                  ((6, 5, 7), (0.2, 0.25, 0.125), (2, 2, 4)),
-                  ((4, 4, 4), (0.25, 0.25, 0.25), kernel_restrict_tile((4, 4, 4))),
-                  ((40, 36, 52), (1.0, 1.0, 1.0), kernel_restrict_tile((40, 36, 52))),
+RESTRICT_CASES = [((8, 8, 8), (1.0, 1.0, 1.0), (1, 2, 4)),
+                  ((6, 10, 14), (0.2, 0.25, 0.125), (2, 2, 4)),
+                  ((4, 4, 4), (0.25, 0.25, 0.25), kernel_tile((4, 4, 4))),
+                  ((40, 36, 52), (1.0, 1.0, 1.0), (3, 8, 32)),   # a ragged chunk too
                   ((64, 32, 48), (1 / 64, 0.75 / 32, 1.5 / 48),
-                   kernel_restrict_tile((64, 32, 48)))]
+                   kernel_tile((64, 32, 48)))]
 RESTRICT_IDS = ["8^3", "odd-aniso", "4^3", "40x36x52", "aniso-64x32x48"]
+UDTYPES = ["float64", "float32", "bf16u-float32", "bf16u-float64"]
 
 
-@pytest.mark.parametrize("udtype", ["float64", "float32", "bf16u-float32", "bf16u-float64"])
+def typed(fs, udtype):
+    """(u, second field) in a dtype pair: u in the pair's iterate dtype."""
+    u, v = fs
+    vdt = torch.float64 if udtype.endswith("float64") else torch.float32
+    v = v.to(vdt)
+    return (u.to(torch.bfloat16) if udtype.startswith("bf16u") else u.to(vdt)), v
+
+
+@pytest.mark.parametrize("udtype", UDTYPES)
 @pytest.mark.parametrize("shape,deltas,tile", RESTRICT_CASES, ids=RESTRICT_IDS)
 def test_streamed_restrict_matches_plain(shape, deltas, tile, udtype):
-    """K6 with each fine residual computed once per block, streamed along
-    x, equals residual_xrestrict_plain bit for bit, ragged tiles, wrapped
-    halos and a bf16 iterate included."""
-    u, b = (t(a) for a in fields(shape, 33, 2))
-    bdt = torch.float64 if udtype.endswith("float64") else torch.float32
-    b = b.to(bdt)
-    u = u.to(torch.bfloat16) if udtype.startswith("bf16u") else u.to(bdt)
+    """K6 with each fine residual computed once per block and restricted
+    along x, y and z over its region equals residual_restrict_plain bit
+    for bit, ragged tiles, wrapped halos and a bf16 iterate included."""
+    u, b = typed([t(a) for a in fields(shape, 33, 2)], udtype)
     got = streamed_restrict(u, b, deltas, tile)
-    ref = transfer_cuda.residual_xrestrict_plain(u, b, deltas)
+    ref = transfer_cuda.residual_restrict_plain(u, b, deltas)
+    assert got.dtype == ref.dtype and torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("udtype", UDTYPES)
+@pytest.mark.parametrize("shape,deltas,tile", RESTRICT_CASES, ids=RESTRICT_IDS)
+def test_streamed_prolong_add_matches_plain(shape, deltas, tile, udtype):
+    """K7 prolonging each coarse plane along y and z at its fine tile and
+    combining three planes along x equals prolong_add_plain bit for bit,
+    ragged tiles, wrapped halos and a bf16 iterate included."""
+    (u,) = fields(shape, 34)
+    (e,) = fields(tuple(n // 2 for n in shape), 35)
+    u, e = typed([t(u), t(e)], udtype)
+    got = streamed_prolong_add(u, e, tile)
+    ref = transfer_cuda.prolong_add_plain(u, e)
     assert got.dtype == ref.dtype and torch.equal(got, ref)
