@@ -44,6 +44,12 @@ sweep: its second colour reads first-colour values across the faces), and
 the roll-form transfers on halo-padded blocks. A replicated level is
 reached by a gather and left by a cut; the coarse pseudo-inverse is
 applied on every rank.
+
+Spans (:func:`poissbox_tpu_torch.utils.profiling.span`): `MGLevel<k>`, a
+level's cycle with the levels below it, and inside it `MGSmooth`, each
+pre- or post-smoothing; each Chebyshev smoothing also counts its steps
+(`MGSmooth.cheb_steps`) and their points by kind and dtype, which the
+benchmark's byte model of the smoothing reads.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ from poissbox_tpu_torch.ops.transfer_cuda import (
 from poissbox_tpu_torch.parallel import dist_stencil as ds
 from poissbox_tpu_torch.parallel.halo import halo_pad_local, pad_from_global
 from poissbox_tpu_torch.parallel.uneven import color_mask
+from poissbox_tpu_torch.utils import profiling
 from poissbox_tpu_torch.utils.profiling import span
 
 Tensor = torch.Tensor
@@ -381,12 +388,38 @@ def prolong_mm(c: Tensor, axes=(0, 1, 2)) -> Tensor:
 
 def _smooth(x: Optional[Tensor], b: Tensor, lvl: _Level, cfg: MGConfig,
             sweeps: int, reverse: bool, dots: bool = False):
-    """`sweeps` smoothing iterations; `dots=True` also returns
-    (<x_out, b>, sum(x_out)), from the last SOR kernel where it can."""
-    out = _smooth_impl(x, b, lvl, cfg, sweeps, reverse, dots)
+    """`sweeps` smoothing iterations, the span `MGSmooth` (inside the
+    level's `MGLevel<k>`), for every smoother; `dots=True` also returns
+    (<x_out, b>, sum(x_out)), from the last SOR kernel where it can (the
+    sums taken after it, outside the span). The fine level's first SOR
+    sweep that `apply_update_dots` fuses into CG's residual update is
+    outside any `MGSmooth`; the rest of that pre-smooth is one."""
+    with span("MGSmooth"):
+        out = _smooth_impl(x, b, lvl, cfg, sweeps, reverse, dots)
     if not dots or isinstance(out, tuple):
         return out
     return out, torch.sum(out * b), torch.sum(out)
+
+
+def chebyshev_degree(sweeps: int) -> int:
+    """The Chebyshev smoother's polynomial degree for `sweeps` sweeps: two
+    degrees a sweep (the JAX package's count, about one red-black SOR
+    sweep's cost), at least 2."""
+    return max(2 * sweeps, 2)
+
+
+def _count_chebyshev(zero: bool, degree: int, b: Tensor) -> None:
+    """The counters of one Chebyshev smoothing of `degree` steps on `b`'s
+    points in `b`'s dtype: `MGSmooth.cheb_steps` (the degrees applied) and
+    `MGSmooth.cheb_points.<step>.<dtype>`, the points of each kind of step
+    summed (step: "zero", the first from a zero guess; "first", the first
+    from a given x; "middle"; "last")."""
+    pts, dt = b.numel(), str(b.dtype).replace("torch.", "")
+    profiling.count("MGSmooth.cheb_steps", degree)
+    profiling.count(f"MGSmooth.cheb_points.{'zero' if zero else 'first'}.{dt}", pts)
+    if degree > 2:
+        profiling.count(f"MGSmooth.cheb_points.middle.{dt}", (degree - 2) * pts)
+    profiling.count(f"MGSmooth.cheb_points.last.{dt}", pts)
 
 
 def _smooth_impl(x: Optional[Tensor], b: Tensor, lvl: _Level, cfg: MGConfig,
@@ -428,7 +461,9 @@ def _smooth_impl(x: Optional[Tensor], b: Tensor, lvl: _Level, cfg: MGConfig,
         theta = 0.5 * (a_lo + b_hi)
         delta = 0.5 * (b_hi - a_lo)
         sigma1 = theta / delta
-        degree = max(2 * sweeps, 2)
+        degree = chebyshev_degree(sweeps)
+        if profiling.active():
+            _count_chebyshev(x is None, degree, b)
         if x is None:
             d = b / theta
             x = d
@@ -716,8 +751,9 @@ def make_mg_preconditioner(
                     b_new, x, rr, sr = sor_rb_zero_update_cuda(
                         r, ap, alpha, lvl0.deltas, w, out_dtype=xdt)
                     if cfg.pre_smooth > 1:
-                        x = sor_rb_multisweep_cuda(x, b_new, lvl0.deltas, w,
-                                                   cfg.pre_smooth - 1)
+                        with span("MGSmooth"):
+                            x = sor_rb_multisweep_cuda(x, b_new, lvl0.deltas, w,
+                                                       cfg.pre_smooth - 1)
                     v, rv, sv = _v_cycle_rest(levels, pinv, cfg, x, b_new, 0,
                                               dots=True)
                 return v, b_new, rr, sr, rv, sv

@@ -13,7 +13,8 @@ whole solves, and `bandwidth_gbps` turns a time into a rate.
 
 `span` marks a stretch of the solve (PETSc's event names where one exists:
 `KSPSolve`, `KSPIteration`, `KSPSync`, `MatMult`, `PCApply`,
-`MGLevel<k>`, `FFTSymbol`, `KSPGMRESOrthog`, `KSPGMRESBuildSoln`). A span records only while a `recording()`
+`MGLevel<k>`, `MGSmooth`, `FFTSymbol`, `KSPGMRESOrthog`,
+`KSPGMRESBuildSoln`). A span records only while a `recording()`
 window is open or a torch profiler is active; otherwise `span` returns a
 shared no-op context after one test. A recorded span keeps its name, its
 id, its parent's, its `KSPSolve` root's, the host's `perf_counter_ns` at
@@ -26,9 +27,11 @@ computes the durations; the records stay until `reset()`.
 
 `count` adds to a named counter of the open `KSPSolve` under the same
 condition (`KSPGMRESOrthog.steps` and `.rows`, the Gram-Schmidt's work in
-`solvers/gmres.py`): each solve's counters start from zero, `counts()`
-returns them by the solve's root id, and `reset()` drops them with the
-spans.
+`solvers/gmres.py`; `MGSmooth.cheb_steps` and `MGSmooth.cheb_points.*`,
+the Chebyshev smoothers' in `solvers/mg.py`): each solve's counters start
+from zero, `counts()` returns them by the solve's root id, and `reset()`
+drops them with the spans. `active()` says whether spans and counters
+record, for a caller whose counter names cost work to form.
 """
 
 from __future__ import annotations
@@ -111,11 +114,17 @@ def span(name: str, on: Optional[torch.Tensor] = None):
     return _Span(name, on)
 
 
+def active() -> bool:
+    """True while a `recording()` window is open or a torch profiler is
+    active: when spans and counters record."""
+    return bool(_windows or _autograd_profiler._is_profiler_enabled)
+
+
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the counter `name` of the open `KSPSolve` while a
     `recording()` window is open or a torch profiler is active, as a span
     records; nothing otherwise."""
-    if not (_windows or _autograd_profiler._is_profiler_enabled):
+    if not active():
         return
     root = _open[0].id if _open and _open[0].name == "KSPSolve" else None
     per = _counts.setdefault(root, {})

@@ -6,6 +6,7 @@ the traced window is there."""
 
 import contextlib
 import io
+import math
 
 import pytest
 import torch
@@ -13,12 +14,16 @@ import torch
 from perfbench import cells
 from poissbox_tpu_torch.api import PoissonSolver
 from poissbox_tpu_torch.config import Options
+from poissbox_tpu_torch.solvers import mg
 from poissbox_tpu_torch.solvers.ksp import solve
 from poissbox_tpu_torch.utils import profiling
 
 SPAN_READERS = ["enqueue_ms_per_it", "sync_wait_ms", "vcycles_per_it",
                 "vcycle_device_ms", "krylov_device_ms", "symbol_device_ms",
-                "orthog_device_ms"]
+                "orthog_device_ms", "smooth_device_ms"]
+SMOOTHERS = {"sor": [], "sor-kernels": ["-mg_impl", "cuda"],
+             "jacobi": ["-mg_levels_pc_type", "jacobi"],
+             "chebyshev": ["-mg_levels_ksp_type", "chebyshev", "-mg_levels_pc_type", "jacobi"]}
 
 
 @pytest.fixture(autouse=True)
@@ -119,6 +124,58 @@ def test_gmres_records_its_orthogonalisation_and_counts_its_rows(ksp):
     assert from_spans == rows
     assert profiling.counts() == {root["id"]: {"KSPGMRESOrthog.steps": its,
                                                "KSPGMRESOrthog.rows": rows}}
+
+
+@pytest.mark.parametrize("smoother", list(SMOOTHERS))
+def test_each_smoothing_is_one_span_in_its_level(smoother):
+    """A 32^3 float64 CG + MG solve, V(3,3): an MGSmooth span for each
+    pre- and post-smoothing of every level but the coarsest in every
+    V-cycle, inside that level's MGLevel<k>. With the kernels' call graph
+    ("sor-kernels") the fine level's first sweep is fused into CG's
+    residual update, outside any span, and the pre-smooth's other two
+    sweeps are one MGSmooth."""
+    solver, res, recs = _recorded_solve(["-ksp_type", "cg", "-pc_type", "mg",
+                                         "-ksp_rtol", "1e-8"] + SMOOTHERS[smoother])
+    cycles = int(res.iterations) + 1
+    by_id = {s["id"]: s for s in recs}
+    levels = len(solver._solver.M.levels)
+    smooth = [s for s in recs if s["name"] == "MGSmooth"]
+    assert len(smooth) == 2 * cycles * (levels - 1)
+    for k in range(levels):
+        mine = [s for s in smooth if by_id[s["parent"]]["name"] == f"MGLevel{k}"]
+        assert len(mine) == (0 if k == levels - 1 else 2 * cycles)
+
+
+def test_chebyshev_counts_the_degrees_it_applies():
+    """MGSmooth.cheb_steps: the degrees of every Chebyshev smoothing,
+    2 x 3 a side at V(3,3), on every level but the coarsest, in every
+    V-cycle of the solve; the points by step and dtype with them."""
+    solver, res, recs = _recorded_solve(["-ksp_type", "cg", "-pc_type", "mg", "-ksp_rtol", "1e-8"]
+                                        + SMOOTHERS["chebyshev"])
+    M = solver._solver.M
+    cycles = _count(recs, "PCApply")
+    degree = mg.chebyshev_degree(M.config.pre_smooth)
+    assert degree == 6 and cycles == int(res.iterations) + 1
+    per = profiling.counts()[recs[-1]["id"]]
+    assert per["MGSmooth.cheb_steps"] == cycles * (len(M.levels) - 1) * 2 * degree
+    pts = sum(math.prod(lv.shape) for lv in M.levels[:-1])
+    assert per == {"MGSmooth.cheb_steps": per["MGSmooth.cheb_steps"],
+                   "MGSmooth.cheb_points.zero.float64": cycles * pts,
+                   "MGSmooth.cheb_points.first.float64": cycles * pts,
+                   "MGSmooth.cheb_points.middle.float64": 2 * (degree - 2) * cycles * pts,
+                   "MGSmooth.cheb_points.last.float64": 2 * cycles * pts}
+
+
+def test_a_solve_outside_a_window_records_no_smoothing():
+    """No window and no profiler: a Chebyshev-MG solve leaves no span and
+    no counter, and `active` says so."""
+    solver = PoissonSolver((16,) * 3, options=Options(["-ksp_type", "cg", "-pc_type", "mg"]
+                                                      + SMOOTHERS["chebyshev"]),
+                           dtype=torch.float64, device="cpu")
+    assert int(solver.solve(_rhs(solver)).iterations) > 0
+    assert profiling.spans() == [] and profiling.counts() == {} and not profiling.active()
+    with profiling.recording():
+        assert profiling.active()
 
 
 def test_counters_count_only_while_spans_record():
@@ -229,7 +286,8 @@ def _synthetic(solves):
         return s["id"]
     for _ in range(solves):
         root = next(ids)
-        add("PCApply", root, root, 1.0, 5.0)
+        pc = add("PCApply", root, root, 1.0, 5.0)
+        add("MGSmooth", pc, root, 0.2, 2.0)
         for _ in range(2):
             add("KSPSync", root, root, 0.5, 0.1)
             it = add("KSPIteration", root, root, 3.0, 9.0)
@@ -283,6 +341,32 @@ def test_orthog_roofline_reads_the_counters(monkeypatch):
     assert cells.reader("orthog_roofline")(rec) is None
     monkeypatch.delattr(profiling, "counts")
     assert cells.reader("orthog_roofline")(rec) is None
+
+
+def test_cheb_roofline_reads_the_counters(monkeypatch):
+    """cheb_roofline on a synthetic store: one solve of one V-cycle at
+    (16, 16, 8) float32, V(1,1), two levels, its two MGSmooth spans
+    2.0 device ms in all: (2 + 4 + 4 + 4) float32 passes of 2048 points
+    over 3.35 TB/s; nothing where a counter misses a step."""
+    recs = _synthetic(1)
+    recs = [s for s in recs if s["name"] != "KSPIteration"]
+    root = recs[-1]["id"]
+    pc = next(s["id"] for s in recs if s["name"] == "PCApply")
+    recs[:0] = [{"name": "MGSmooth", "id": 10**6, "parent": pc, "solve": root,
+                 "host_ms": 0.2, "self_host_ms": 0.2, "device_ms": 0.0, "self_device_ms": 0.0}]
+    recs = [s for s in recs if s["name"] != "PCApply" or s["id"] == pc]
+    rec = {"window": {"solves": 1, "wall_s": 0.1, "solve_ms": [30.0]},
+           "mg": {"levels": [[16, 16, 8], [8, 8, 4]], "pre": 1, "post": 1,
+                  "pre_dtype": "float32", "dtype": "float32"}}
+    per = {"MGSmooth.cheb_steps": 4, "MGSmooth.cheb_points.zero.float32": 2048,
+           "MGSmooth.cheb_points.first.float32": 2048, "MGSmooth.cheb_points.last.float32": 4096}
+    monkeypatch.setattr(profiling, "spans", lambda: recs)
+    monkeypatch.setattr(profiling, "counts", lambda: {root: per})
+    floor_ms = 14 * 2048 * 4 / 3.35e12 * 1e3
+    assert cells.reader("cheb_roofline")(rec) == pytest.approx(100.0 * floor_ms / 2.0)
+    monkeypatch.setattr(profiling, "counts", lambda: {root: dict(per, **{
+        "MGSmooth.cheb_points.last.float32": 2048})})
+    assert cells.reader("cheb_roofline")(rec) is None
 
 
 def test_traced_fgmres_cell_reads_its_krylov_metrics(monkeypatch):
