@@ -20,7 +20,8 @@ the benchmark's traced runs (`perfbench/run.py --trace 1`, the ledger's
      (at the end of the run, NativeOptions to config.Options on every argv
      list the run parsed);
   3. kernels: every stencil7 epilogue (K12's p-update prologue
-     included), rbsor mode (K11's single colour update and the one-launch
+     included; each kind of Chebyshev step, with d apart from x and with
+     d the very tensor x), rbsor mode (K11's single colour update and the one-launch
      sweeps), xfer leg (K6 and K7, each the whole 3-D transfer) and the
      CG update against its plain PyTorch version on the same card (64^3
      f64, 256^3 f32, an anisotropic grid; the bf16 modes on the f32 cases
@@ -77,8 +78,9 @@ the benchmark's traced runs (`perfbench/run.py --trace 1`, the ledger's
              pre-smooth, K5 storing x1 in bf16, K6/K7 reading it (7);
        (b/r) the same with -mg_transfers roll (CG then takes K8);
        (b/s) 512^3 f32 with the bf16 pre-smooth of the Chebyshev smoother
-             (KA's bf16 residual), of two-sweep Jacobi (K10 in bf16) and of
-             two-sweep SOR (K4 in bf16);
+             (KA's Chebyshev step in bf16 and, post-smoothing, in f32), of
+             two-sweep Jacobi (K10 in bf16) and of two-sweep SOR (K4 in
+             bf16);
        (c)   256^3 f32 rtol 1e-6 with -mg_levels_pc_type jacobi: K10 on
              every level, CG on K8 and apply_dots;
        (d)   PoissonSolver(order=6), CG + the 2nd-order GMG: 64^3 f64 rtol
@@ -275,6 +277,8 @@ KERNELS = {   # launch counter -> (source, TPU kernel(s) it replaces)
     "stencil7.jacobi": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
     "stencil7.residual.bf16": ("stencil7.cu", f"{PALLAS}:649"),
     "stencil7.jacobi.bf16": ("stencil7.cu", f"{PALLAS}:655, {INPLACE}:247"),
+    "stencil7.cheb": ("stencil7.cu", f"{MG}:408 (with {PALLAS}:649)"),
+    "stencil7.cheb.bf16": ("stencil7.cu", f"{MG}:408 (with {PALLAS}:649)"),
     "rbsor.general": ("rbsor.cu", f"{PALLAS}:663"),
     "rbsor.general.bf16": ("rbsor.cu", f"{PALLAS}:663"),
     "rbsor.zero": ("rbsor.cu", f"{PALLAS}:690"),
@@ -324,6 +328,10 @@ OFF_PATH = {f"{k}.long": "the streaming kernel takes lines too long for two stri
                          "lines (the 512^3 f64 Laplacian of K17 against K15 gives "
                          "sum's two columns a lane to it)"
             for k in STRIP_KEYS}
+OFF_PATH["stencil7.residual.bf16"] = (
+    "the one-device bf16 Chebyshev pre-smooth forms its residual inside the "
+    "fused step (stencil7.cheb.bf16); a bf16 residual alone is left to a "
+    "distributed level's bf16 Chebyshev pre-smooth, which no counted path runs")
 # the routes of a K13, K16 or K17 launch, (lanes, stagger): a strip kernel
 # of 32 or 16 lanes with its workers started in turn (1) or at once (0),
 # or the streaming kernel (0, -1); every mode must take each of them in
@@ -337,6 +345,7 @@ STRIP_MAX_WORKERS = 8   # csrc/tridiag.cu kMaxWorkers
 CHECK_512 = ("rbsor.zero.bf16", "rbsor.sweep.bf16", "rbsor.zero_update.narrow",
              "xfer.restrict.bf16u", "xfer.prolong_add.bf16u",
              "stencil7.residual.bf16", "stencil7.jacobi.bf16",
+             "stencil7.cheb", "stencil7.cheb.bf16",
              "rbsor.zero", "rbsor.sweep", "rbsor.dots")
 # the bench's periodic tridiagonal system (alpha, 1, alpha), alpha the
 # compact first derivative's (bench.py:198-200)
@@ -353,6 +362,28 @@ def phase(name: str) -> None:
 
 def as_tuple(out):
     return out if isinstance(out, tuple) else (out,)
+
+
+def cheb_calls(d, x: str, b: str, key: str):
+    """(name, kernel call, plain call) of each kind of Chebyshev step on
+    fields `x` and `b` (d is the field "p", or x itself), with the
+    smoother's coefficients for spacing d."""
+    m = 4.0 * sum(1.0 / v**2 for v in d)
+    theta, delta = -0.55 * m, 0.45 * m
+    rho = delta / theta
+    rho_new = 1.0 / (2.0 * theta / delta - rho)
+    c1, c2 = rho_new * rho, 2.0 * rho_new / delta
+    calls = [(f"{key}/first", lambda f: sc.chebyshev_first_cuda(f[x], f[b], d, theta),
+              lambda f: sc.chebyshev_first_plain(f[x], f[b], d, theta))]
+    for kind, store in (("middle", True), ("last", False)):
+        for dk in ("p", x):
+            calls.append((
+                f"{key}/{kind}" + ("-alias" if dk == x else ""),
+                lambda f, s=store, dk=dk: sc.chebyshev_step_cuda(
+                    f[x], f[b], f[dk].to(f[x].dtype), d, c1, c2, s),
+                lambda f, s=store, dk=dk: sc.chebyshev_step_plain(
+                    f[x], f[b], f[dk].to(f[x].dtype), d, c1, c2, s)))
+    return calls
 
 
 def mode_calls(deltas, narrow: bool):
@@ -372,6 +403,7 @@ def mode_calls(deltas, narrow: bool):
          lambda f: sc.residual_plain(f["u"], f["b"], d)),
         ("stencil7.jacobi", lambda f: sc.jacobi_sweep_cuda(f["u"], f["b"], d, WJ),
          lambda f: sc.jacobi_sweep_plain(f["u"], f["b"], d, WJ)),
+        *cheb_calls(d, "u", "b", "stencil7.cheb"),
         ("xfer.restrict", lambda f: tc.residual_restrict_cuda(f["u"], f["b"], d),
          lambda f: tc.residual_restrict_plain(f["u"], f["b"], d)),
         ("xfer.prolong_add", lambda f: tc.prolong_add_cuda(f["u"], f["e"]),
@@ -435,6 +467,7 @@ def mode_calls(deltas, narrow: bool):
             ("stencil7.jacobi.bf16",
              lambda f: sc.jacobi_sweep_cuda(f["u16"], f["b16"], d, WJ),
              lambda f: sc.jacobi_sweep_plain(f["u16"], f["b16"], d, WJ)),
+            *cheb_calls(d, "u16", "b16", "stencil7.cheb.bf16"),
         ]
     return calls
 
@@ -2605,8 +2638,8 @@ def main() -> int:
               (512, f32, 1e-6, ["-mg_levels_pc_type", "jacobi",
                                 "-mg_levels_ksp_max_it", "2"], None),
               (512, f32, 1e-6, ["-mg_levels_ksp_max_it", "2"], None)],
-             ["stencil7.residual.bf16", "stencil7.jacobi.bf16", "rbsor.zero.bf16",
-              "rbsor.sweep.bf16"], totals)
+             ["stencil7.cheb.bf16", "stencil7.cheb", "stencil7.jacobi.bf16",
+              "rbsor.zero.bf16", "rbsor.sweep.bf16"], totals)
     torch.cuda.empty_cache()
 
     err32 = f32_operator_error(256)

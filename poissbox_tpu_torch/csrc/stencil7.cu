@@ -1,4 +1,4 @@
-// KA `stencil7`: the periodic 7-point Laplacian star with five epilogues.
+// KA `stencil7`: the periodic 7-point Laplacian star with eight epilogues.
 //
 // Replaces these TPU kernels of poissbox_tpu/ops/stencil_pallas.py:
 //   K1  _apply (via _launch / _upd_lapl)          y = A u
@@ -9,6 +9,11 @@
 //       damped-Jacobi smoother sweep, winv = w / (-2 sum 1/d^2); it also
 //       carries stencil_inplace.py's _jacobi_inplace (K10's aliased form)
 //       out of place
+//   K9 + the Chebyshev smoother's step (cheb)     x' = x + d', with
+//       (poissbox_tpu/solvers/mg.py:408, the      d' = r / theta (the first
+//       recurrence the JAX package writes in      step from a given x),
+//       jnp around _residual)                     c1 d + c2 r (a middle or
+//                                                 the last step), r = b - A x
 //   K12 _pupd_dot, _pupd_dot_pan                  CG's deferred search
 //       (_pupd_lapl_dot_kernel_fy/_pan) and       direction p' = (v - zs) +
 //       stencil_inplace.py's _pupd_matvec_stream  beta * p_old, written with
@@ -24,8 +29,9 @@
 // K8 reads alpha, so the host never waits for them.
 //
 // Types: float32 and float64 in every epilogue (K12 included); bfloat16 u
-// and b in the residual and Jacobi epilogues (the bf16 pre-smooths of the
-// Chebyshev and multi-sweep Jacobi smoothers at 512^3-class sizes). A bf16
+// and b in the residual, Jacobi and Chebyshev epilogues (the bf16
+// pre-smooths of the Chebyshev and multi-sweep Jacobi smoothers at
+// 512^3-class sizes). A bf16
 // value is upcast to float32, the star and the epilogue run in float32, and
 // the result rounds once (RNE) at the store, as KB's bf16 colour updates do.
 // The star keeps _star_into's grouping,
@@ -35,12 +41,27 @@
 // plain version in ops/stencil_cuda.py does: the fields are bit-equal to it.
 // The dot's partials are sums in another order than torch.sum's.
 //
+// The Chebyshev epilogues (one launch a step, in place of K9 and torch's
+// elementwise ops) round where that chain rounds on the card, so the
+// smoothed iterate is bit-equal to it: r as K9 stores it (to bf16 in a
+// bf16 step); r / theta as torch divides by a host scalar, a multiply by
+// its reciprocal taken in double and rounded to C; c1 d and c2 r each
+// rounded to the field's type, then
+// their sum, then x + d'. The scalars arrive as the compute type C, as
+// torch's kernels take a host scalar. Streams: the first step reads x (the
+// star) and b and writes x' and d'; a middle step also reads d; the last
+// reads x, b and d and writes x' alone. Where d is x (the step after the
+// closed-form first step from zero, x = d = b / theta), d is not read
+// again: its value is the star's centre.
+//
 // Bound on an H100 SXM (3.35 TB/s): the star reads u and writes y, 2 field
 // passes (3 for the residual and the Jacobi sweep, which also read b). At
 // 256^3 f32 that is 2 x 67 MB = 0.040 ms for K1/K2 and 0.060 ms for K9 and
 // K10; the arithmetic (9 flops a point) is far below the compute roof. K12
 // reads v and p_old and writes p' and A p', 4 passes: 0.080 ms at 256^3
-// f32, 0.641 ms at 512^3.
+// f32, 0.641 ms at 512^3. A Chebyshev step moves 4 passes (first, last) or
+// 5 (middle): at 512^3 f32 0.641 and 0.801 ms, a bf16 last step 0.320 ms
+// (0.240 where d is x, 3 passes).
 //
 // Design: streamed along x, on the geometry of rbsor.cu's sweep
 // (common.cuh: tile_block, tile_grid, tile_chunk, TileWindow). A block of
@@ -65,7 +86,16 @@
 
 namespace poissbox {
 
-enum Epilogue { kApply = 0, kApplyDot = 1, kResidual = 2, kJacobi = 3, kPUpdDot = 4 };
+enum Epilogue {
+  kApply = 0,
+  kApplyDot = 1,
+  kResidual = 2,
+  kJacobi = 3,
+  kPUpdDot = 4,
+  kChebFirst = 5,
+  kChebMiddle = 6,
+  kChebLast = 7
+};
 
 // The field the star reads: u itself (K1, K2, K9, K10). `fetch` loads
 // what a cell needs, `value` forms the cell's value from it, in C.
@@ -100,20 +130,27 @@ struct LoadPUpdate {
 };
 
 // y = star(load) over the block's tile and chunk (see the header; the chunk
-// is common.cuh's ka_chunk); `pout`
-// (K12) receives p' at the points owned, `part` one partial of the dot.
+// is common.cuh's ka_chunk); `y2` receives K12's p' or the Chebyshev
+// step's d' at the points owned, `part` one partial of the dot. `dn` is
+// the Chebyshev step's d (null: d is x). The epilogue's scalars: wa is
+// K10's winv, the Chebyshev step's c2 (the first step's 1 / theta); wb its
+// c1.
 template <typename T, int EPI, typename Load>
 __global__ void __launch_bounds__(kTileThreads, kKaResident)
-stencil7_kernel(Load load, const T* __restrict__ b, T* __restrict__ y, T* __restrict__ pout,
+stencil7_kernel(Load load, const T* __restrict__ b, const T* __restrict__ dn,
+                T* __restrict__ y, T* __restrict__ y2,
                 typename Compute<T>::type* __restrict__ part, int nx, int ny, int nz, int chunk,
                 typename Compute<T>::type ivx, typename Compute<T>::type ivy,
                 typename Compute<T>::type ivz, typename Compute<T>::type center,
-                typename Compute<T>::type winv) {
+                typename Compute<T>::type wa, typename Compute<T>::type wb) {
   using C = typename Compute<T>::type;
   using UW = TileWindow<1>;
   using Raw = typename Load::Raw;
   constexpr bool kDot = EPI == kApplyDot || EPI == kPUpdDot;
-  constexpr bool kB = EPI == kResidual || EPI == kJacobi;
+  constexpr bool kCheb = EPI == kChebFirst || EPI == kChebMiddle || EPI == kChebLast;
+  constexpr bool kB = EPI == kResidual || EPI == kJacobi || kCheb;
+  constexpr bool kD = EPI == kChebMiddle || EPI == kChebLast;  // reads d
+  const bool d_is_x = dn == nullptr;
   __shared__ C us[3][UW::kN];
   const int tid = threadIdx.x + kTZ * threadIdx.y;
   const int j0 = blockIdx.y * kTY, k0 = blockIdx.x * kTZ;
@@ -136,9 +173,10 @@ stencil7_kernel(Load load, const T* __restrict__ b, T* __restrict__ y, T* __rest
   }
   auto next = [nx](int q) { return q + 1 == nx ? 0 : q + 1; };
 
-  // the register stage: the window of a plane, b at the points owned
+  // the register stage: the window of a plane, b (and d) at the points owned
   Raw ur[UW::kR];
   T br[kRowsPerThread];
+  T dr[kRowsPerThread];
   auto stage_u = [&](int q) {
     const size_t base = (size_t)q * plane;
 #pragma unroll
@@ -151,6 +189,14 @@ stencil7_kernel(Load load, const T* __restrict__ b, T* __restrict__ y, T* __rest
 #pragma unroll
       for (int h = 0; h < kRowsPerThread; ++h)
         if (own[h]) br[h] = b[base + ooff[h]];
+    }
+    if constexpr (kD) {
+      const size_t base = (size_t)q * plane;
+      if (!d_is_x) {
+#pragma unroll
+        for (int h = 0; h < kRowsPerThread; ++h)
+          if (own[h]) dr[h] = dn[base + ooff[h]];
+      }
     }
   };
   auto put = [&](C* dst) {
@@ -179,10 +225,14 @@ stencil7_kernel(Load load, const T* __restrict__ b, T* __restrict__ y, T* __rest
   // stage plane i+2 and b of plane i+1, compute plane i.
   for (int t = 0; t < n; ++t) {
     put(us[s1]);
-    T bv[kRowsPerThread];
+    T bv[kRowsPerThread], dv[kRowsPerThread];
     if constexpr (kB) {
 #pragma unroll
       for (int h = 0; h < kRowsPerThread; ++h) bv[h] = br[h];
+    }
+    if constexpr (kD) {
+#pragma unroll
+      for (int h = 0; h < kRowsPerThread; ++h) dv[h] = dr[h];
     }
     __syncthreads();
     const int q1 = next(qi);
@@ -202,10 +252,23 @@ stencil7_kernel(Load load, const T* __restrict__ b, T* __restrict__ y, T* __rest
       acc = acc + (u0[o - 1] + u0[o + 1]) * ivz;
       C out = acc - center * c;
       if (EPI == kResidual) out = cvt<C>(bv[h]) - out;
-      if (EPI == kJacobi) out = c + winv * (cvt<C>(bv[h]) - out);
+      if (EPI == kJacobi) out = c + wa * (cvt<C>(bv[h]) - out);
       const size_t g = (size_t)qi * plane + ooff[h];
-      y[g] = cvt<T>(out);
-      if constexpr (EPI == kPUpdDot) pout[g] = cvt<T>(c);
+      if constexpr (kCheb) {
+        const C r = cvt<C>(cvt<T>(cvt<C>(bv[h]) - out));  // K9's stored r
+        T d1;
+        if constexpr (EPI == kChebFirst) {
+          d1 = cvt<T>(r * wa);
+        } else {
+          const C d0 = d_is_x ? c : cvt<C>(dv[h]);
+          d1 = cvt<T>(cvt<C>(cvt<T>(wb * d0)) + cvt<C>(cvt<T>(wa * r)));
+        }
+        y[g] = cvt<T>(c + cvt<C>(d1));
+        if constexpr (EPI != kChebLast) y2[g] = d1;
+      } else {
+        y[g] = cvt<T>(out);
+      }
+      if constexpr (EPI == kPUpdDot) y2[g] = cvt<T>(c);
       if (kDot) dot += c * out;
       um[h] = c;
     }
@@ -218,14 +281,15 @@ stencil7_kernel(Load load, const T* __restrict__ b, T* __restrict__ y, T* __rest
 }
 
 template <typename T, int EPI, typename Load>
-cudaError_t launch_ka(cudaStream_t stream, const Load& load, const void* b, void* y, void* pout,
-                      void* part, int nx, int ny, int nz, double ivx, double ivy, double ivz,
-                      double center, double winv) {
+cudaError_t launch_ka(cudaStream_t stream, const Load& load, const void* b, const void* dn,
+                      void* y, void* y2, void* part, int nx, int ny, int nz, double ivx,
+                      double ivy, double ivz, double center, double wa, double wb) {
   using C = typename Compute<T>::type;
   const int chunk = ka_chunk(nx, ny, nz);
   stencil7_kernel<T, EPI, Load><<<tile_grid(nx, ny, nz, chunk), tile_block(), 0, stream>>>(
-      load, static_cast<const T*>(b), static_cast<T*>(y), static_cast<T*>(pout),
-      static_cast<C*>(part), nx, ny, nz, chunk, C(ivx), C(ivy), C(ivz), C(center), C(winv));
+      load, static_cast<const T*>(b), static_cast<const T*>(dn), static_cast<T*>(y),
+      static_cast<T*>(y2), static_cast<C*>(part), nx, ny, nz, chunk, C(ivx), C(ivy), C(ivz),
+      C(center), C(wa), C(wb));
   return cudaGetLastError();
 }
 
@@ -233,8 +297,33 @@ template <typename T, int EPI>
 cudaError_t launch_epi(cudaStream_t stream, const void* u, const void* b, void* y, void* part,
                        int nx, int ny, int nz, double ivx, double ivy, double ivz,
                        double center, double winv) {
-  return launch_ka<T, EPI>(stream, LoadField<T>{static_cast<const T*>(u)}, b, y, nullptr, part,
-                           nx, ny, nz, ivx, ivy, ivz, center, winv);
+  return launch_ka<T, EPI>(stream, LoadField<T>{static_cast<const T*>(u)}, b, nullptr, y,
+                           nullptr, part, nx, ny, nz, ivx, ivy, ivz, center, winv, 0.0);
+}
+
+// One Chebyshev step (kind 0 first, 1 middle, 2 last; see the header). c2
+// is theta for the first step, whose d' = r * C(1 / theta), the reciprocal
+// taken in double and rounded to C, as torch takes it for a division by a
+// host scalar.
+template <typename T>
+cudaError_t launch_cheb(int kind, cudaStream_t stream, const void* x, const void* b,
+                        const void* d, void* xout, void* dout, int nx, int ny, int nz,
+                        double ivx, double ivy, double ivz, double center, double c1,
+                        double c2) {
+  const LoadField<T> load{static_cast<const T*>(x)};
+  switch (kind) {
+    case 0:
+      return launch_ka<T, kChebFirst>(stream, load, b, nullptr, xout, dout, nullptr, nx, ny, nz,
+                                      ivx, ivy, ivz, center, 1.0 / c2, 0.0);
+    case 1:
+      return launch_ka<T, kChebMiddle>(stream, load, b, d, xout, dout, nullptr, nx, ny, nz, ivx,
+                                       ivy, ivz, center, c2, c1);
+    case 2:
+      return launch_ka<T, kChebLast>(stream, load, b, d, xout, nullptr, nullptr, nx, ny, nz, ivx,
+                                     ivy, ivz, center, c2, c1);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
@@ -265,8 +354,8 @@ cudaError_t launch_pupd_dot(cudaStream_t stream, const void* v, const void* p, c
                             double ivx, double ivy, double ivz, double center) {
   const LoadPUpdate<T> load{static_cast<const T*>(v), static_cast<const T*>(p),
                             static_cast<const T*>(sc), T(0), T(0)};
-  return launch_ka<T, kPUpdDot>(stream, load, nullptr, y, pout, part, nx, ny, nz, ivx, ivy,
-                                ivz, center, 0.0);
+  return launch_ka<T, kPUpdDot>(stream, load, nullptr, nullptr, y, pout, part, nx, ny, nz, ivx,
+                                ivy, ivz, center, 0.0, 0.0);
 }
 
 // bf16 u and b: the residual and Jacobi epilogues only.
@@ -317,6 +406,31 @@ int poissbox_stencil7(int dtype, int epi, int device, void* stream, const void* 
   else if (dtype == poissbox::kBF16)
     err = poissbox::launch_stencil7_bf16(epi, s, u, b, y, nx, ny, nz, ivx, ivy, ivz, center,
                                          winv);
+  else
+    err = cudaErrorInvalidValue;
+  return (int)err;
+}
+
+// One Chebyshev step on r = b - A x: x' = x + d' into xout and d' into
+// dout (not the last step), d' = r / c2 (kind 0, the first step from x; c2
+// is theta), c1 * d + c2 * r (kind 1, a middle step; kind 2, the last). d
+// null in kinds 1 and 2: d is x. dtype 0 = float32, 1 = float64,
+// 2 = bfloat16. Returns the cudaError_t of the launch (0 on success).
+int poissbox_cheb(int dtype, int kind, int device, void* stream, const void* x, const void* b,
+                  const void* d, void* xout, void* dout, int nx, int ny, int nz, double ivx,
+                  double ivy, double ivz, double center, double c1, double c2) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == poissbox::kF32)
+    err = poissbox::launch_cheb<float>(kind, s, x, b, d, xout, dout, nx, ny, nz, ivx, ivy, ivz,
+                                       center, c1, c2);
+  else if (dtype == poissbox::kF64)
+    err = poissbox::launch_cheb<double>(kind, s, x, b, d, xout, dout, nx, ny, nz, ivx, ivy,
+                                        ivz, center, c1, c2);
+  else if (dtype == poissbox::kBF16)
+    err = poissbox::launch_cheb<__nv_bfloat16>(kind, s, x, b, d, xout, dout, nx, ny, nz, ivx,
+                                               ivy, ivz, center, c1, c2);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

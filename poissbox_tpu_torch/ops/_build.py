@@ -138,6 +138,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.poissbox_stencil7.argtypes = [i, i, i, p, p, p, p, p, i, i, i] + [d] * 5
     lib.poissbox_stencil7.restype = i
     lib.poissbox_pupd_dot.argtypes = [i, i] + [p] * 7 + [i, i, i] + [d] * 4
+    lib.poissbox_cheb.argtypes = [i, i, i, p] + [p] * 5 + [i, i, i] + [d] * 6
+    lib.poissbox_cheb.restype = i
     lib.poissbox_pupd_dot.restype = i
     lib.poissbox_rbsor_sweep.argtypes = ([i, i, i, i, i, p] + [p] * 9 + [i, i, i]
                                          + [d] * 6 + [i])

@@ -16,6 +16,8 @@ The port of :mod:`poissbox_tpu.ops.stencil_pallas` for the kernels of the
   pupdate_lapl_dot_cuda       pupdate_lapl_dot_pallas;                K12
                               stencil_inplace.pupdate_matvec_stream
   residual_cuda               residual_pallas                         K9
+  chebyshev_first_cuda,       none: the JAX package's Chebyshev step  K9 +
+  chebyshev_step_cuda         is jnp around K9 (solvers/mg.py:408)
   jacobi_sweep_cuda           jacobi_sweep_pallas                     K10
   sor_sweep_cuda              sor_sweep_pallas                        K11
   sor_rb_zero_sweep_cuda      sor_rb_zero_sweep_pallas                K3
@@ -43,10 +45,11 @@ There is no fallback from a failed build or launch to the plain version.
 
 bf16: the SOR colour update and sweeps take bfloat16 fields (the bf16
 pre-smooth of the 512^3-class cycle), and K5 can store its swept iterate
-narrow (``out_dtype``); so do the residual (K9) and the Jacobi sweep
-(K10), which the Chebyshev and multi-sweep Jacobi pre-smooths reach. A
-bf16 value is upcast to float32, each colour update (or residual, or
-Jacobi sweep) runs in float32 and rounds once where the two-launch sweep
+narrow (``out_dtype``); so do the residual (K9), the Jacobi sweep (K10)
+and the Chebyshev step, which the Chebyshev and multi-sweep Jacobi
+pre-smooths reach. A bf16 value is upcast to float32, each colour update
+(or residual, or Jacobi sweep) runs in float32 and rounds once where the
+two-launch sweep
 stored it (the sweep kernel rounds its first colour to the input dtype
 before the second reads it); the plain versions round at the same stores.
 This is the port's definition of the
@@ -55,7 +58,8 @@ says which mode takes which input dtype.
 
 Launches count in :data:`poissbox_tpu_torch.ops._build.LAUNCHES` by
 kernel and mode (``stencil7.*`` for the star's epilogues and K12's
-prologue, ``rbsor.general`` for K11's colour update,
+prologue, ``stencil7.cheb`` for every Chebyshev step, ``rbsor.general``
+for K11's colour update,
 ``rbsor.zero``/``sweep``/``dots``/``zero_update`` for KB's sweeps (one
 launch a sweep: K3, K4, K4 with dots, K5), ``cgupd`` for K8; ``.bf16``
 marks a bf16 launch, ``.narrow`` K5 storing its swept iterate in bf16);
@@ -89,6 +93,7 @@ DTYPES: dict[str, tuple] = {
     "stencil7.apply": _WIDE, "stencil7.apply_dot": _WIDE,
     "stencil7.pupd_dot": _WIDE,
     "stencil7.residual": _WIDE_OR_BF16, "stencil7.jacobi": _WIDE_OR_BF16,
+    "stencil7.cheb": _WIDE_OR_BF16,
     "rbsor.general": _WIDE_OR_BF16, "rbsor.zero": _WIDE_OR_BF16,
     "rbsor.sweep": _WIDE_OR_BF16, "rbsor.zero_update": _WIDE,
     "rbsor.dots": _WIDE, "cgupd": _WIDE,
@@ -217,6 +222,24 @@ def jacobi_sweep_plain(u, b, deltas, weight):
     invs = inv_squares(deltas)
     uw = _wide(u)
     return (uw + _winv(invs, weight) * (_wide(b) - _star(uw, invs))).to(u.dtype)
+
+
+def chebyshev_first_plain(x, b, deltas, theta):
+    """(x + d', d') for d' = r / theta, r = b - A x as
+    :func:`residual_plain` gives it: the Chebyshev smoother's first step
+    from a given x, in torch's ops, whose roundings the kernel takes."""
+    d = residual_plain(x, b, deltas) / theta
+    return x + d, d
+
+
+def chebyshev_step_plain(x, b, d, deltas, c1, c2, store_d=True):
+    """(x + d', d') for d' = c1 d + c2 r, r = b - A x as
+    :func:`residual_plain` gives it (x + d' alone without `store_d`): a
+    middle or the last step of the Chebyshev smoother, in torch's ops. x
+    may be d itself."""
+    d = c1 * d + c2 * residual_plain(x, b, deltas)
+    x = x + d
+    return (x, d) if store_d else x
 
 
 def _colour_weight(b: torch.Tensor, winv: float, colour: int) -> torch.Tensor:
@@ -453,6 +476,49 @@ def jacobi_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas,
     y = torch.empty_like(u)
     _stencil7("stencil7.jacobi", u, b, y, None, deltas, weight)
     return y
+
+
+def _cheb(kind: int, x, b, d, xout, dout, deltas, c1: float, c2: float) -> None:
+    """One launch of KA's Chebyshev epilogue `kind` (0 first, 1 middle, 2
+    last); d None: d is x."""
+    ivx, ivy, ivz = inv_squares(deltas)
+    key = "stencil7.cheb" + (".bf16" if x.dtype == torch.bfloat16 else "")
+    ptr = _build.ptr
+    _build.launch(
+        "poissbox_cheb", key, _build.DTYPE_CODE[x.dtype], kind, x.device.index or 0,
+        _build.stream(x), ptr(x), ptr(b), ptr(d), ptr(xout), ptr(dout), *x.shape, ivx, ivy,
+        ivz, 2.0 * (ivx + ivy + ivz), float(c1), float(c2))
+
+
+def chebyshev_first_cuda(x: torch.Tensor, b: torch.Tensor, deltas, theta: float):
+    """(x', d') = (x + d', d'), d' = (b - A x) / theta, in one launch: the
+    Chebyshev smoother's first step from a given x (K9 and the recurrence
+    in KA's Chebyshev epilogue, bit-equal to :func:`chebyshev_first_plain`
+    on the card). x and b may be bf16; both outputs are new tensors."""
+    if _on_cpu(x):
+        return chebyshev_first_plain(x, b, deltas, theta)
+    _check("stencil7.cheb", x, b)
+    xo, do = torch.empty_like(x), torch.empty_like(x)
+    _cheb(0, x, b, None, xo, do, deltas, 0.0, theta)
+    return xo, do
+
+
+def chebyshev_step_cuda(x: torch.Tensor, b: torch.Tensor, d: torch.Tensor, deltas,
+                        c1: float, c2: float, store_d: bool = True):
+    """(x', d') = (x + d', d'), d' = c1 d + c2 (b - A x), in one launch: a
+    middle Chebyshev step, or with `store_d=False` the last, which returns
+    x' alone and writes no d'. Bit-equal to :func:`chebyshev_step_plain` on
+    the card. x, b and d may be bf16. d may be x itself (the step after the
+    first from zero), and is then read once; the outputs are new tensors,
+    so neither input is written while the other is read."""
+    if _on_cpu(x):
+        return chebyshev_step_plain(x, b, d, deltas, c1, c2, store_d)
+    _check("stencil7.cheb", x, b, d)
+    xo = torch.empty_like(x)
+    do = torch.empty_like(x) if store_d else None
+    same = d.data_ptr() == x.data_ptr()
+    _cheb(1 if store_d else 2, x, b, None if same else d, xo, do, deltas, c1, c2)
+    return (xo, do) if store_d else xo
 
 
 def sor_sweep_cuda(u: torch.Tensor, b: torch.Tensor, deltas, weight: float,

@@ -26,6 +26,10 @@ kernels and y/z as contractions; the sums are the same, rounded as the roll
 form rounds them). The other "matmul" levels, ``impl="roll"``, contract
 with the banded matrices (`restrict_mm`, `prolong_mm`). On the CPU "auto"
 resolves to "roll".
+Each Chebyshev step after the closed-form first one from zero is one
+launch there (:func:`~poissbox_tpu_torch.ops.stencil_cuda.chebyshev_step_cuda`:
+the residual formed on the fly and the recurrence, rounded as K9 and
+torch's elementwise ops round them).
 ``impl="cuda"`` on CPU tensors runs the kernels' plain versions on every
 level, so ``impl="cuda", transfers="matmul"`` walks the card's call graph
 on the CPU. ``impl="roll"`` is the plain formulation on any device.
@@ -66,6 +70,8 @@ import torch
 from poissbox_tpu_torch.ops.stencil import apply_laplacian, default_impl
 from poissbox_tpu_torch.ops.stencil_cuda import (
     apply_laplacian_cuda,
+    chebyshev_first_cuda,
+    chebyshev_step_cuda,
     colour_parity,
     jacobi_sweep_cuda,
     residual_cuda,
@@ -464,19 +470,30 @@ def _smooth_impl(x: Optional[Tensor], b: Tensor, lvl: _Level, cfg: MGConfig,
         degree = chebyshev_degree(sweeps)
         if profiling.active():
             _count_chebyshev(x is None, degree, b)
+        # one device's kernel levels: each step after the closed-form one
+        # is one launch (K9's residual and the recurrence, the same bits)
+        fused = kernels and not dist
         if x is None:
             d = b / theta
             x = d
+        elif fused:
+            x, d = chebyshev_first_cuda(x, b, lvl.deltas, theta)
         else:
             r = _residual(x, b, lvl, cfg)
             d = r / theta
             x = x + d
         rho = 1.0 / sigma1
-        for _ in range(degree - 1):
-            r = _residual(x, b, lvl, cfg)
+        for k in range(degree - 1):
             rho_new = 1.0 / (2.0 * sigma1 - rho)
-            d = (rho_new * rho) * d + (2.0 * rho_new / delta) * r
-            x = x + d
+            c1, c2 = rho_new * rho, 2.0 * rho_new / delta
+            if fused and k == degree - 2:
+                x = chebyshev_step_cuda(x, b, d, lvl.deltas, c1, c2, store_d=False)
+            elif fused:
+                x, d = chebyshev_step_cuda(x, b, d, lvl.deltas, c1, c2)
+            else:
+                r = _residual(x, b, lvl, cfg)
+                d = c1 * d + c2 * r
+                x = x + d
             rho = rho_new
         return x
     if cfg.smoother == "sor":
